@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  No
+PyTorch headers are involved, so a build takes seconds.  The build
+happens at first use (never on import) and again whenever a hash of the
+sources changes; the library lives in ``seqalib_tpu_torch/_build/``.
+
+Every C entry point launches on the stream it is given, allocates
+nothing and returns ``cudaGetLastError()`` after its launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+LIB_NAME = "libseqalib_kernels.so"
+NVCC_FLAGS = [
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of every entry point: without them ctypes passes a pointer as
+# a 32-bit int and cuts it
+_SIGNATURES = {
+    "seqalib_row_window": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P],
+    "seqalib_strip_fill": [
+        _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P,
+    ],
+    "seqalib_strip_walk": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build(ptxas_verbose: bool = False) -> str:
+    """Compile the kernels unless a library built from the same sources
+    exists.  Returns the compiler's output ("" when nothing was built).
+    ``ptxas_verbose`` adds ``-Xptxas -v`` (registers, shared memory and
+    spills of each kernel)."""
+    digest = _source_hash()
+    so = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha")
+    if so.exists() and stamp.exists() and stamp.read_text() == digest:
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    if ptxas_verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", str(tmp), *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    stamp.write_text(digest)
+    return proc.stdout + proc.stderr
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        build()
+        loaded = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(loaded, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        loaded.seqalib_error_string.argtypes = [ctypes.c_int]
+        loaded.seqalib_error_string.restype = ctypes.c_char_p
+        _lib = loaded
+    return _lib
+
+
+def check(name: str, rc: int) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib().seqalib_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

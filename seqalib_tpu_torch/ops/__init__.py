@@ -1,0 +1,21 @@
+"""Kernel wrappers of the port and the strip engine's host side.
+
+``launches`` counts, per kernel, the launches each wrapper made on a CUDA
+tensor (a call on a CPU tensor runs the plain PyTorch version and counts
+nothing).  ``strip_fill`` counts each mode under its own key.
+"""
+
+from __future__ import annotations
+
+launches: dict[str, int] = {
+    "row_window": 0,
+    "strip_fill/local": 0,
+    "strip_fill/emode": 0,
+    "strip_fill/gmode": 0,
+    "strip_walk": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0

@@ -1,0 +1,385 @@
+"""Strip engine, host side: counterparts of the functions of
+``seqalib_tpu/ops/strip_pallas.py`` that are not kernels.
+
+The same flow runs on both devices; the kernel wrappers choose the CUDA
+kernel or its plain PyTorch version by the device of the tensors they get.
+
+Local alignment (``mode="local"``) follows the two-pass canonical
+coordinates contract of ``seqalib_tpu/oracle.py``:
+
+1. pass 1: local end-only fill, reduced to the canonical end (qe, te);
+2. pass 2: anchored reverse extension (``emode``) over the reversed
+   prefixes, cut by ``row_window`` to WR rows x ~2*WR columns; a pair
+   whose pass-2 score differs escalates to ``reverse_starts``, which
+   widens its window x4 until the score is found;
+3. with ``want_tb``: a global fill with pointers over each pair's
+   [qs:qe] x [ts:te] window, cut by ``row_window``, walked by
+   ``strip_walk`` (escalated pairs are rebuilt by
+   ``window_global_cigars``).
+
+Pass 2 runs on the strip engine (the JAX package's
+``SEQALIB_FUSED_PASS2=strip`` configuration).  The window geometry keeps
+the JAX package's 128-quantum numbers (TI, LANES), which decide the
+co-optimal tie outcomes and which pairs escalate, whatever strip height the
+kernel uses.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+import numpy as np
+import torch
+
+from seqalib_tpu.utils.cigar import OP_D, OP_I, OP_PAD, ops_to_cigar
+
+from ..scoring import Tables
+from .row_window import row_window
+from .strip_fill import strip_fill
+from .strip_walk import strip_walk
+
+log = logging.getLogger("seqalib_tpu_torch.strip")
+
+TI = 128  # row quantum of the padded query (JAX strip height)
+LANES = 128  # column quantum of the padded target
+WR_DEFAULT = 4 * TI  # pass-2 row window
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def ptr_cap_bytes() -> int:
+    """Pointer-stream byte budget of one call (``SEQALIB_PTR_HBM_CAP``,
+    default 2 GiB, as in the JAX package)."""
+    return int(float(os.environ.get("SEQALIB_PTR_HBM_CAP", str(2 * 1024**3))))
+
+
+def ptr_bytes_per_pair(n_pad: int, W2: int) -> int:
+    """Bytes of ``strip_fill``'s dense pointer matrix for one pair."""
+    return n_pad * (W2 - 1)
+
+
+def prep_strip(q, t, qlen, tlen, A1: int, device):
+    """Sentinel-padded query rows (B, n_pad) and shifted target columns
+    (B, W2), ``t2[:, j] = t[:, j - 1]``, as int32 tensors on ``device``
+    (counterpart of ``_prep_strip``)."""
+    B, n = q.shape
+    m = t.shape[1]
+    SENT_Q, SENT_T = A1, A1 + 1
+    n_pad = _ceil_to(max(n, 1), TI)
+    W2 = (_ceil_to(max(m, 1), LANES) // LANES + 2) * LANES
+    qpad = np.full((B, n_pad), SENT_Q, np.int32)
+    qpad[:, :n] = q
+    qpad = np.where(np.arange(n_pad)[None, :] < qlen[:, None], qpad, SENT_Q)
+    xarr = np.arange(W2)[None, :]
+    t2 = np.full((B, W2), SENT_T, np.int32)
+    t2[:, 1 : 1 + m] = t
+    t2 = np.where((xarr >= 1) & (xarr <= tlen[:, None]), t2, SENT_T)
+    return (
+        torch.from_numpy(qpad.astype(np.int32)).to(device),
+        torch.from_numpy(t2.astype(np.int32)).to(device),
+    )
+
+
+def _dev(x, device):
+    return torch.as_tensor(np.asarray(x), dtype=torch.int32).to(device)
+
+
+def reduce_best(bv, bk, stride: int):
+    """Decode ``strip_fill``'s best key into (score, i, j); (0, 0) for a
+    pair with no positive cell (counterpart of ``_reduce_best``; the
+    kernel already reduced to the canonical min-key maximum)."""
+    empty = bv <= 0
+    zero = torch.zeros_like(bk)
+    return bv, torch.where(empty, zero, bk // stride), torch.where(empty, zero, bk % stride)
+
+
+def cigars_from_ops(ops, i_fin, j_fin):
+    """CIGARs from a walk's op matrix: drop the 255 slots (ascending order
+    is start -> end) and prepend the implicit boundary run the walk
+    stopped at (i' > 0: I run down column 0; j' > 0: D run along row 0)
+    (counterpart of ``_cigars_from_ops``)."""
+    cigars = []
+    for b in range(ops.shape[0]):
+        row = ops[b]
+        row = row[row != OP_PAD]
+        if i_fin[b] > 0:
+            head = np.full(int(i_fin[b]), OP_I, np.uint8)
+        else:
+            head = np.full(int(j_fin[b]), OP_D, np.uint8)
+        cigars.append(ops_to_cigar(np.concatenate([head, row])))
+    return cigars
+
+
+def global_post(bv, P, qlen, tlen, tables: Tables, want_tb: bool):
+    """Global (NW) assembly: the H(qlen, tlen) capture, all-gap results
+    for qlen == 0 or tlen == 0, and with ``want_tb`` the walk to CIGARs
+    (counterpart of ``_global_post``)."""
+    score = bv.cpu().numpy().astype(np.int64)
+    go = tables.gap_open if tables.affine else 0
+    e = tables.gap_extend
+    degq = qlen == 0
+    degt = tlen == 0
+    score = np.where(degq, go + tlen * e, score)
+    score = np.where(degt, go + qlen * e, score)
+    score = np.where(degq & degt, 0, score)
+    B = len(qlen)
+    out = {
+        "score": score.astype(np.int32),
+        "qs": np.zeros(B, np.int32),
+        "qe": qlen.astype(np.int32),
+        "ts": np.zeros(B, np.int32),
+        "te": tlen.astype(np.int32),
+    }
+    if want_tb:
+        deg = degq | degt
+        dev = bv.device
+        ops, ifin, jfin, _, _ = strip_walk(
+            P, _dev(qlen, dev), _dev(tlen, dev), _dev(np.zeros_like(deg), dev),
+            _dev(deg, dev), affine=tables.affine,
+        )
+        cigars = cigars_from_ops(ops.cpu().numpy(), ifin.cpu().numpy(),
+                                 jfin.cpu().numpy())
+        for b in np.nonzero(deg)[0]:
+            c = f"{tlen[b]}D" if tlen[b] else ""
+            cigars[b] = c + (f"{qlen[b]}I" if qlen[b] else "")
+        out["cigars"] = cigars
+    return out
+
+
+def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int):
+    """Passes 1 and 2 on device tensors: score, canonical end (qe, te),
+    start (qs, ts) and the pass-2 score ``score2`` (a pair with
+    ``score2 != score`` must escalate).  Counterpart of
+    ``_strip_local_fused`` with ``pass2="strip"``."""
+    SENT_Q, SENT_T = tables.A1, tables.A1 + 1
+    r1 = strip_fill(qpad, t2, qlen, tlen, tables, mq=mq, mode="local")
+    score, qe, te = reduce_best(r1["bv"], r1["bk"], mq + 1)
+    n_pad = qpad.shape[1]
+    W2 = t2.shape[1]
+    WR = min(WR, n_pad)  # qe <= qlen <= n_pad
+    # reversed prefixes: row k <-> q[qe-1-k] = flip(qpad)[n_pad-qe+k];
+    # column x <-> t[te-x] = t2[te-x+1] = flip(t2)[W2-2-te+x]
+    qr = row_window(torch.flip(qpad, [1]), n_pad - qe, qe, L=WR, lo=0, fill=SENT_Q)
+    # clamped pass-2 target width: data columns 1..TWD plus 2 blocks of slack
+    W2r = min(W2, (_ceil_to(2 * WR, LANES) // LANES + 2) * LANES)
+    TWD = W2r - 2 * LANES
+    te2 = torch.clamp(te, max=TWD)
+    tr = row_window(torch.flip(t2, [1]), W2 - 2 - te, te2 + 1, L=W2r, lo=1,
+                    fill=SENT_T)
+    r2 = strip_fill(qr, tr, torch.clamp(qe, max=WR), te2, tables, mq=mq,
+                    mode="emode")
+    score2, ri, rj = reduce_best(r2["bv"], r2["bk"], mq + 1)
+    pos = score > 0
+    zero = torch.zeros_like(score)
+    return {
+        "score": score,
+        "qe": qe,
+        "te": te,
+        "qs": torch.where(pos, qe - ri, zero),
+        "ts": torch.where(pos, te - rj, zero),
+        "score2": score2,
+    }
+
+
+def local_fused_tb(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int):
+    """``local_fused`` plus pass 3 on device: each pair's [qs:qe] x
+    [ts:te] window, cut at the pass-1 shapes, filled globally with
+    pointers and walked.  Adds the window-global score ``score_w`` and
+    the walk's ``ops``/``ifin``/``jfin``.  Counterpart of
+    ``_strip_local_fused_tb`` (without its link-era packing)."""
+    res = local_fused(qpad, t2, qlen, tlen, tables, mq=mq, WR=WR)
+    SENT_Q, SENT_T = tables.A1, tables.A1 + 1
+    n_pad = qpad.shape[1]
+    W2 = t2.shape[1]
+    live = res["score"] > 0
+    zero = torch.zeros_like(res["score"])
+    wq = torch.where(live, res["qe"] - res["qs"], zero)
+    wt = torch.where(live, res["te"] - res["ts"], zero)
+    qw = row_window(qpad, torch.where(live, res["qs"], zero), wq, L=n_pad,
+                    lo=0, fill=SENT_Q)
+    # window column x <-> t[ts + x - 1] = t2[ts + x]; x = 0 stays sentinel
+    tw = row_window(t2, torch.where(live, res["ts"], zero), wt + 1, L=W2, lo=1,
+                    fill=SENT_T)
+    r3 = strip_fill(qw, tw, wq, wt, tables, mq=mq, mode="gmode", want_ptr=True)
+    ops, ifin, jfin, _, _ = strip_walk(
+        r3["P"], wq, wt, zero, ((wq == 0) | (wt == 0)).to(torch.int32),
+        affine=tables.affine,
+    )
+    res.update(score_w=r3["bv"], ops=ops, ifin=ifin, jfin=jfin)
+    return res
+
+
+def reverse_starts(q, t, score, qe, te, tables: Tables, *, Wq0: int):
+    """Canonical starts of the pairs with ``score > 0`` by anchored reverse
+    extension over reversed prefixes built on the host, the query side
+    windowed to Wq rows and widened x4 until the score is found
+    (counterpart of ``_reverse_starts``)."""
+    B = len(score)
+    qs = np.zeros(B, np.int32)
+    ts = np.zeros(B, np.int32)
+    pend = np.nonzero(score > 0)[0]
+    SENT_Q, SENT_T = tables.A1, tables.A1 + 1
+    device = tables.table.device
+    Wq = Wq0
+    while pend.size:
+        qe_s = qe[pend].astype(np.int64)
+        te_s = te[pend].astype(np.int64)
+        n_pad = min(Wq, _ceil_to(int(qe_s.max()), TI))
+        wq = np.minimum(qe_s, n_pad)
+        m_sub = int(te_s.max())
+        W2 = (_ceil_to(max(m_sub, 1), LANES) // LANES + 2) * LANES
+        # reversed prefixes: row k <-> q[qe-1-k]; column x <-> t[te-x]
+        idx = qe_s[:, None] - 1 - np.arange(n_pad)[None, :]
+        qr = np.where(idx >= 0, q[pend[:, None], np.maximum(idx, 0)], SENT_Q)
+        xarr = np.arange(W2)[None, :]
+        tidx = te_s[:, None] - xarr
+        tr = np.where(
+            (xarr >= 1) & (tidx >= 0),
+            t[pend[:, None], np.clip(tidx, 0, t.shape[1] - 1)],
+            SENT_T,
+        )
+        res = strip_fill(_dev(qr, device), _dev(tr, device), _dev(wq, device),
+                         _dev(te_s, device), tables, mq=m_sub, mode="emode")
+        score2, ri, rj = (
+            x.cpu().numpy() for x in reduce_best(res["bv"], res["bk"], m_sub + 1)
+        )
+        ok = score2 == score[pend]
+        # full-height windows must reproduce the score: anything else is a
+        # kernel or contract fault, not a windowing artifact
+        assert np.all(ok | (qe_s > n_pad)), (
+            "reverse extension lost the local score",
+            pend[~(ok | (qe_s > n_pad))],
+        )
+        sel = pend[ok]
+        qs[sel] = (qe[sel] - ri[ok]).astype(np.int32)
+        ts[sel] = (te[sel] - rj[ok]).astype(np.int32)
+        pend = pend[~ok]
+        Wq *= 4
+    return qs, ts
+
+
+def window_global_cigars(q, t, score, qs, qe, ts, te, tables: Tables):
+    """Canonical CIGAR of each pair: the global traceback of its window
+    q[qs:qe] x t[ts:te], cut on the host and aligned by ``strip_bucket``
+    in global mode; ``score <= 0`` pairs get "" (counterpart of
+    ``window_global_cigars``)."""
+    B, n = q.shape
+    m = t.shape[1]
+    sent_q, sent_t = tables.A1, tables.A1 + 1
+    wq = (np.asarray(qe, np.int64) - qs).astype(np.int64)
+    wt = (np.asarray(te, np.int64) - ts).astype(np.int64)
+    rows = np.arange(B)[:, None]
+    karr = np.arange(int(max(wq.max(), 1)))[None, :]
+    qw = np.full((B, karr.shape[1]), sent_q, np.int32)
+    if n:
+        src = q[rows, np.minimum(np.asarray(qs)[:, None] + karr, n - 1)]
+        qw = np.where(karr < wq[:, None], src, sent_q).astype(np.int32)
+    karr = np.arange(int(max(wt.max(), 1)))[None, :]
+    tw = np.full((B, karr.shape[1]), sent_t, np.int32)
+    if m:
+        src = t[rows, np.minimum(np.asarray(ts)[:, None] + karr, m - 1)]
+        tw = np.where(karr < wt[:, None], src, sent_t).astype(np.int32)
+    win = strip_bucket(qw, tw, wq, wt, tables, mode="global", want_tb=True)
+    if not np.array_equal(win["score"], np.asarray(score)):
+        raise RuntimeError("window-global score must equal the local score")
+    return ["" if score[b] <= 0 else win["cigars"][b] for b in range(B)]
+
+
+def strip_bucket(q, t, qlen, tlen, tables: Tables, *, mode: str,
+                 want_tb: bool = False, WR: int = WR_DEFAULT):
+    """Align one padded bucket: ``q`` (B, n) and ``t`` (B, m) letter arrays
+    with lengths ``qlen``/``tlen``, on the device of ``tables``.
+
+    Returns numpy ``score``/``qs``/``qe``/``ts``/``te`` (B,) int32, plus
+    ``cigars`` with ``want_tb``, plus ``escalated`` (B,) bool in local
+    mode (pairs whose start came from ``reverse_starts``).  ``WR`` is the
+    pass-2 row window (rounded up to a multiple of 128)."""
+    if mode not in ("local", "global"):
+        raise ValueError(f"mode must be 'local' or 'global', got {mode!r}")
+    q = np.asarray(q)
+    t = np.asarray(t)
+    qlen = np.asarray(qlen).astype(np.int64)
+    tlen = np.asarray(tlen).astype(np.int64)
+    B, n = q.shape
+    m = t.shape[1]
+    n_pad = _ceil_to(max(n, 1), TI)
+    W2 = (_ceil_to(max(m, 1), LANES) // LANES + 2) * LANES
+    per_pair = ptr_bytes_per_pair(n_pad, W2)
+    gmode = mode == "global"
+    if want_tb and gmode:
+        # pointer-stream budget: chunk oversized batches and merge
+        cap_pairs = max(32, ptr_cap_bytes() // per_pair)
+        if B > cap_pairs:
+            log.info("pointer-stream budget: chunking %d pairs into <=%d-pair "
+                     "calls (%.1f MB/pair)", B, cap_pairs, per_pair / 1e6)
+            parts = [
+                strip_bucket(q[lo : lo + cap_pairs], t[lo : lo + cap_pairs],
+                             qlen[lo : lo + cap_pairs], tlen[lo : lo + cap_pairs],
+                             tables, mode=mode, want_tb=True)
+                for lo in range(0, B, cap_pairs)
+            ]
+            return {
+                k: (sum((p[k] for p in parts), []) if k == "cigars"
+                    else np.concatenate([p[k] for p in parts]))
+                for k in parts[0]
+            }
+    device = tables.table.device
+    qpad, t2 = prep_strip(q, t, qlen, tlen, tables.A1, device)
+    qlen_d = _dev(qlen, device)
+    tlen_d = _dev(tlen, device)
+    if gmode:
+        r = strip_fill(qpad, t2, qlen_d, tlen_d, tables, mq=m, mode="gmode",
+                       want_ptr=want_tb)
+        return global_post(r["bv"], r.get("P"), qlen, tlen, tables, want_tb)
+
+    WR = _ceil_to(WR, TI)
+    fused_tb = want_tb and B * per_pair <= ptr_cap_bytes()
+    fused = local_fused_tb if fused_tb else local_fused
+    res = fused(qpad, t2, qlen_d, tlen_d, tables, mq=m, WR=WR)
+    host = {k: v.cpu().numpy() for k, v in res.items()}
+    score = host["score"].astype(np.int32)
+    qe = host["qe"].astype(np.int64)
+    te = host["te"].astype(np.int64)
+    qs = host["qs"].astype(np.int32)
+    ts = host["ts"].astype(np.int32)
+    # a pair whose alignment spans more than the pass-2 window did not
+    # reproduce its score there: rerun it wider
+    fail = (host["score2"] != score) & (score > 0)
+    if fail.any():
+        log.info("two-pass start recovery: %d/%d pairs escalated past the "
+                 "%d-row window", int(fail.sum()), B, WR)
+        qs2, ts2 = reverse_starts(q, t, np.where(fail, score, 0), qe, te, tables,
+                                  Wq0=max(4 * TI, 2 * WR))
+        qs = np.where(fail, qs2, qs)
+        ts = np.where(fail, ts2, ts)
+    out = {
+        "score": score,
+        "qs": qs.astype(np.int32),
+        "qe": qe.astype(np.int32),
+        "ts": ts.astype(np.int32),
+        "te": te.astype(np.int32),
+        "escalated": fail,
+    }
+    if not want_tb:
+        return out
+    if fused_tb:
+        ok = ~fail & (score > 0)
+        if not np.array_equal(host["score_w"][ok], score[ok]):
+            raise RuntimeError("window-global score must equal the local score")
+        cigars = cigars_from_ops(host["ops"], host["ifin"], host["jfin"])
+        for b in np.nonzero(score <= 0)[0]:
+            cigars[b] = ""
+        # escalated pairs were windowed from their pass-2 starts: rebuild
+        idx = np.nonzero(fail)[0]
+        if idx.size:
+            fixed = window_global_cigars(q[idx], t[idx], score[idx], qs[idx],
+                                         qe[idx], ts[idx], te[idx], tables)
+            for r, b in enumerate(idx):
+                cigars[b] = fixed[r]
+    else:
+        cigars = window_global_cigars(q, t, score, qs, qe, ts, te, tables)
+    out["cigars"] = cigars
+    return out

@@ -35,6 +35,11 @@ def pytest_configure(config):
         "slow: contract-scale shapes (minutes on the CPU mesh); excluded "
         "from the default suite — run with `pytest -m slow`",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's hand-written "
+        "kernels); skips without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Where the time of a warm ``seqalib_tpu_torch.align_batch`` call goes.
+
+    python3 tools/profile_port.py [--config 3|1] [--batch B] [--calls N]
+                                  [--device cuda|cpu]
+
+Inputs are those of ``chip_smoke.py`` (seed 0): config 3 is B=512
+BLOSUM62 o=-10 e=-1 local pairs of 1024 x 1024 with full CIGARs, config 1
+is B=512 DNA global linear-gap pairs of 256 x 256.  After two warm-up
+calls the script
+
+1. times N calls by the host clock (median, all values printed);
+2. runs N calls under ``torch.profiler`` and prints each device op's total
+   time, the device busy time (union of the device ops' intervals) and the
+   busy share = busy time / host wall of the profiled calls;
+3. runs one call under ``cProfile`` and prints the host functions with the
+   largest cumulative time (cProfile inflates Python time: read the split,
+   not the absolute numbers).
+
+On a CUDA card it prints the card's name and power limit first; the last
+line is a JSON summary.  ``--device cpu`` with a small ``--batch`` runs the
+plain PyTorch versions and checks the script itself.
+"""
+
+import argparse
+import cProfile
+import io
+import json
+import pstats
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import seqalib_tpu_torch as st  # noqa: E402
+
+
+def inputs(config: int, batch: int):
+    rng = np.random.default_rng(0)
+    if config == 3:
+        sp = st.ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
+        alpha, L, mode = 20, 1024, "local"
+    else:
+        sp, alpha, L, mode = st.ScoringParams.linear(), 4, 256, "global"
+    q = rng.integers(0, alpha, size=(batch, L)).astype(np.uint8)
+    t = rng.integers(0, alpha, size=(batch, L)).astype(np.uint8)
+    return list(q), list(t), sp, mode
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", type=int, choices=(1, 3), default=3)
+    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    qs, ts, sp, mode = inputs(args.config, args.batch)
+
+    def run():
+        st.align_batch(qs, ts, scoring=sp, mode=mode, traceback=True, device=dev)
+        sync(dev)
+
+    for _ in range(2):
+        run()
+    walls = []
+    for _ in range(args.calls):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    print(f"[wall] config {args.config} B={args.batch}: median "
+          f"{statistics.median(walls) * 1e3:.3f} ms over {walls}", flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.calls):
+            run()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    per_op: dict[str, float] = {}
+    intervals = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s, t = e.time_range.start, e.time_range.end
+        per_op[e.name] = per_op.get(e.name, 0.0) + (t - s)
+        intervals.append((s, t))
+    busy = busy_us(intervals)
+    for name, us in sorted(per_op.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"[device] {us / args.calls / 1e3:9.3f} ms/call  {name[:90]}")
+    share = busy / prof_wall_us
+    print(f"[device] busy {busy / args.calls / 1e3:.3f} ms/call of "
+          f"{prof_wall_us / args.calls / 1e3:.3f} ms/call wall: busy share "
+          f"{share:.4f}, idle share {1 - share:.4f}", flush=True)
+
+    pr = cProfile.Profile()
+    pr.enable()
+    run()
+    pr.disable()
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).strip_dirs().sort_stats("cumulative").print_stats(25)
+    print("[host] cProfile, one call, by cumulative time:")
+    print(buf.getvalue())
+
+    print(json.dumps({
+        "config": args.config, "batch": args.batch, "calls": args.calls,
+        "wall_ms": [w * 1e3 for w in walls],
+        "device_busy_ms_per_call": busy / args.calls / 1e3,
+        "profiled_wall_ms_per_call": prof_wall_us / args.calls / 1e3,
+        "busy_share": share,
+        "device_ms_per_call": {k: v / args.calls / 1e3 for k, v in per_op.items()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
