@@ -7,26 +7,43 @@ Run from the repository root, with no arguments:
 
 Phases (any failure raises and exits non-zero):
 
-1. build the CUDA kernels from ``seqalib_tpu_torch/csrc`` and print the
-   card's name and power limit;
-2. compare every kernel with its plain PyTorch version, exactly, on the
-   inputs the main path gives it (B=512 BLOSUM62 pairs of 1024 x 1024),
-   and time both;
+1. build the CUDA kernels from ``seqalib_tpu_torch/csrc`` (one ``nvcc``
+   per source, in parallel) and print the card's name and power limit;
+2. kernel phase: record the calls the paths below make, then hold each
+   kernel against its plain PyTorch version on the card, exactly, and time
+   both, with each kernel's bound (the least time the card could take for
+   the same work) and, where one PyTorch call computes the same function,
+   that call's time:
+   - config 3 (B=512 BLOSUM62 pairs of 1024 x 1024): the strip fill in
+     its three modes, the row window, the strip walk, and the banded fill
+     in ``emode`` (pass 2, all of its diagonals);
+   - config 4 (B=64 DNA pairs of 10 kb, band 128): the banded fill and
+     its pointer mode on 2048 diagonals resumed from the fill's own
+     checkpoints, and the walk over one recomputed super-block;
 3. config 3, the main path: ``align_batch`` local, BLOSUM62 o=-10 e=-1,
-   full CIGAR, B=512 pairs of 1024 x 1024, warm wall time, pairs/s and
-   GCUPS; 32 pairs checked against the oracle;
-4. config 1: global linear-gap DNA, B=512 pairs of 256 x 256, checked the
-   same way;
-5. every kernel of the main path was launched during config 3's runs
-   (1 warm-up + 3 timed ``align_batch`` calls).
+   full CIGAR, pass 2 on the default banded engine; warm wall time,
+   pairs/s, GCUPS; 32 pairs checked against the oracle.  Then the same
+   path with pass 2 on the strip engine (``SEQALIB_FUSED_PASS2=strip``);
+4. config 1: global linear-gap DNA, B=512 pairs of 256 x 256;
+5. config 4: ``align_batch(band=128, mode="global")`` on B=64 DNA pairs of
+   10 kb (the target is the query with 2% substitutions; match 2,
+   mismatch -3, o=-5, e=-2): warm wall time, pairs/s and GCUPS(n*w);
+   every CIGAR consumes its pair and re-scores to the reported score; 8
+   pairs cut to 1024 x 1088 equal the banded oracle; then a band sweep
+   (64, 256) and B=8 pairs of 100 kb at band 64, re-scored;
+6. every kernel was launched by its path: the launch counts are set to 0
+   just before each path's runs (1 warm-up + 3 timed calls) and read just
+   after.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  The script imports only the
-port, NumPy and PyTorch, never JAX: the oracle it checks against is the
-port's ``backend="oracle"``.
+port, NumPy and PyTorch, never JAX or the JAX package: the oracle it
+checks against is the port's ``backend="oracle"``.
 """
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -35,16 +52,36 @@ import time
 import numpy as np
 
 SEED = 0
-B = 512
+B3 = 512
+B4, L4, BAND4 = 64, 10_000, 128
 REPS = 3
 N_ORACLE = 32
-TPU_KERNELS = "seqalib_tpu/ops/strip_pallas.py"
-KERNELS = {  # launch-counter key -> (CUDA source, replaced Pallas kernel)
-    "row_window": ("row_window.cu", f"{TPU_KERNELS}:157"),
-    "strip_fill/local": ("strip_fill.cu", f"{TPU_KERNELS}:230"),
-    "strip_fill/emode": ("strip_fill.cu", f"{TPU_KERNELS}:230"),
-    "strip_fill/gmode": ("strip_fill.cu", f"{TPU_KERNELS}:230"),
-    "strip_walk": ("strip_walk.cu", f"{TPU_KERNELS}:2022"),
+N_ORACLE4 = 8
+CMP_DIAGONALS = 2048  # config-4 fill and ptr: diagonals held against the plain version
+# bounds: HBM3 at 3.35 TB/s (H100 SXM data sheet); int32 ALU ops at
+# 132 SMs x 64 INT32 lanes per SM per clock (Hopper white paper) x the
+# 1.98 GHz boost clock = 16.7 Tops/s: the DP fills run no tensor-core work
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations per cell, the least the recurrence needs: E and F take
+# two adds and a max each, the diagonal one add, H two maxes (9, affine);
+# local adds its zero clamp and the best-cell compare, emode the compare
+# (and a subtract and a max for the tie_safe bound), pointer emission two
+# compares for the move and two for the extend bits
+OPS_PER_CELL = {"strip_fill/local": 11, "strip_fill/emode": 10, "strip_fill/gmode": 13,
+                "band_fill/fill": 9, "band_fill/ptr": 13, "band_fill/emode": 10}
+STRIP = "seqalib_tpu/ops/strip_pallas.py"
+BANDED = "seqalib_tpu/ops/banded_pallas.py"
+KERNELS = {  # launch-counter key -> (CUDA source, replaced Pallas kernel, path)
+    "row_window": ("row_window.cu", f"{STRIP}:157", "config3"),
+    "strip_fill/local": ("strip_fill.cu", f"{STRIP}:230", "config3"),
+    "strip_fill/emode": ("strip_fill.cu", f"{STRIP}:230", "config3_strip"),
+    "strip_fill/gmode": ("strip_fill.cu", f"{STRIP}:230", "config3"),
+    "strip_walk": ("strip_walk.cu", f"{STRIP}:2022", "config3"),
+    "band_fill/emode": ("band_fill.cu", f"{BANDED}:90", "config3"),
+    "band_fill/fill": ("band_fill.cu", f"{BANDED}:90", "config4"),
+    "band_fill/ptr": ("band_fill.cu", f"{BANDED}:90", "config4"),
+    "band_walk": ("band_walk.cu", f"{BANDED}:890", "config4"),
 }
 
 
@@ -52,17 +89,24 @@ def say(*args):
     print(*args, flush=True)
 
 
-def _flat(x):
+def _tensors(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
     if isinstance(x, dict):
-        return [x[k] for k in sorted(x)]
+        return [t for k in sorted(x) for t in _tensors(x[k])]
     if isinstance(x, (tuple, list)):
-        return list(x)
-    return [x]
+        return [t for v in x for t in _tensors(v)]
+    return []
 
 
 def max_abs_err(a, b) -> int:
     err = 0
-    for x, y in zip(_flat(a), _flat(b), strict=True):
+    ta, tb = _tensors(a), _tensors(b)
+    if len(ta) != len(tb):
+        raise AssertionError(f"{len(ta)} outputs != {len(tb)}")
+    for x, y in zip(ta, tb):
         if x.shape != y.shape:
             raise AssertionError(f"shape {tuple(x.shape)} != {tuple(y.shape)}")
         if x.numel():
@@ -70,9 +114,12 @@ def max_abs_err(a, b) -> int:
     return err
 
 
-def time_ms(fn, reps):
+def time_ms(fn, reps, warm=True):
     import torch
 
+    if warm:
+        fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -83,7 +130,77 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def check_kernel(name, kernel, plain):
+# ---- bounds ---------------------------------------------------------------
+
+
+def _nbytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(x))
+
+
+def _band_cells(qlen, tlen, dlo_p, dhi_p, k0, k1) -> int:
+    """Valid in-band cells (i, j) with k0 <= i + j < k1, summed over pairs."""
+    total = 0
+    for n, m, lo, hi in zip(qlen, tlen, dlo_p, dhi_p):
+        i = np.arange(n + 1)
+        jlo = np.maximum.reduce([np.zeros_like(i), i + lo, k0 - i])
+        jhi = np.minimum.reduce([np.full_like(i, m), i + hi, k1 - 1 - i])
+        total += int(np.maximum(0, jhi - jlo + 1).sum())
+    return total
+
+
+def bound(key, args, kw, out):
+    """(bound_ms, bound_by) of one call: the larger of its bytes (each
+    input read once, each output written once; for a kernel that reads a
+    few entries of a large input, only those) over HBM_BYTES_PER_S and its
+    int32 operations over INT32_OPS_PER_S."""
+    name = key.split("/")[0]
+    cells = 0
+    if name == "row_window":
+        src, starts, hi = args
+        N, L = out.shape
+        nbytes = 2 * _nbytes(out) + _nbytes((starts, hi))  # the window read, then written
+    elif name == "strip_walk":
+        steps = int((out[0] != 255).sum())  # one pointer byte read per op
+        nbytes = _nbytes(out) + _nbytes(args[1:]) + steps
+    elif name == "band_walk":
+        steps = int((out[0] != 255).sum())
+        nbytes = _nbytes(out) + _nbytes(args[1:]) + steps
+    elif name == "strip_fill":
+        q, t2, qlen, tlen = args[:4]
+        cells = int((qlen.long() * tlen.long()).sum())
+        nbytes = _nbytes(args[:4]) + _nbytes(args[4].table) + _nbytes(out)
+    else:  # band_fill
+        qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab = args
+        if kw["mode"] == "emode":
+            cells = score.shape[0] * score.shape[1] * (kw["k1"] - kw["k0"])
+        else:
+            cells = _band_cells(*(v.cpu().numpy().astype(np.int64)
+                                  for v in (qlen, tlen, dlo_p, dhi_p)), kw["k0"], kw["k1"])
+        nbytes = _nbytes(args) + _nbytes(out)
+    ops = cells * (OPS_PER_CELL.get(key, 0) + 2 * bool(kw.get("tie_safe")))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row_window_library_ms(args, kw):
+    """One ``torch.gather`` plus a mask computing ``row_window`` on the
+    same inputs (the index and mask built beforehand)."""
+    import torch
+
+    src, starts, hi = args
+    W = src.shape[1]
+    x = torch.arange(kw["L"], device=src.device)[None, :]
+    idx = (starts.long()[:, None] + x).clamp(0, W - 1)
+    keep = (x >= kw["lo"]) & (x < hi.long()[:, None])
+    fill = torch.tensor(kw["fill"], dtype=src.dtype, device=src.device)
+    return time_ms(lambda: torch.where(keep, torch.gather(src, 1, idx), fill), 20)
+
+
+# ---- kernel phase -------------------------------------------------------
+
+
+def check_kernel(key, kernel, plain):
     """Kernel and plain version on the same inputs: exact equality, then
     both timed per call (wrapper included)."""
     import torch
@@ -94,80 +211,217 @@ def check_kernel(name, kernel, plain):
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     if err != 0:
-        raise AssertionError(f"{name}: kernel differs from its plain version by {err}")
+        raise AssertionError(f"{key}: kernel differs from its plain version by {err}")
     ms = time_ms(kernel, 5)
-    plain_ms = time_ms(plain, 1)
-    say(f"[kernel] {name}: equal to plain version; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    plain_ms = time_ms(plain, 1, warm=False)  # warm from the comparison
+    say(f"[kernel] {key}: equal to plain version; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, got
 
 
-def kernel_phase(q, t, sp, dev):
-    """Record the first call of each kernel (and fill mode) that the main
-    path makes on (q, t), then run each recorded call through the kernel
-    and through its plain version.  Returns the per-kernel results and the
-    number of pairs whose start escalated."""
-    from seqalib_tpu_torch.ops import strip as strip_mod
-    from seqalib_tpu_torch.ops.row_window import row_window_ref
-    from seqalib_tpu_torch.ops.strip_fill import strip_fill_ref
-    from seqalib_tpu_torch.ops.strip_walk import strip_walk_ref
-    from seqalib_tpu_torch.scoring import tables_from_params
+def _key(name, kw):
+    return f"{name}/{kw['mode']}" if name in ("strip_fill", "band_fill") else name
 
-    plain = {"row_window": row_window_ref, "strip_fill": strip_fill_ref,
-             "strip_walk": strip_walk_ref}
+
+def record(run, targets):
+    """Run ``run()`` with each wrapper ``(module, name, plain)`` of
+    ``targets`` patched to keep its first call per key: (kernel, plain,
+    args, kwargs, result)."""
     calls = {}
 
-    def recording(name, fn):
+    def recording(name, fn, plain):
         def wrapped(*args, **kw):
-            key = f"{name}/{kw['mode']}" if name == "strip_fill" else name
-            calls.setdefault(key, (fn, plain[name], args, kw))
-            return fn(*args, **kw)
+            res = fn(*args, **kw)
+            calls.setdefault(_key(name, kw), (fn, plain, args, kw, res))
+            return res
         return wrapped
 
-    originals = {name: getattr(strip_mod, name) for name in plain}
-    for name, fn in originals.items():
-        setattr(strip_mod, name, recording(name, fn))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+    for (mod, name, fn), (_, _, plain) in zip(saved, targets):
+        setattr(mod, name, recording(name, fn, plain))
     try:
-        n = np.full(len(q), q.shape[1])
-        m = np.full(len(t), t.shape[1])
-        out = strip_mod.strip_bucket(q, t, n, m, tables_from_params(sp, dev),
-                                     mode="local", want_tb=True)
+        out = run()
     finally:
-        for name, fn in originals.items():
-            setattr(strip_mod, name, fn)
-    per_kernel = {
-        key: check_kernel(key, lambda: fn(*args, **kw), lambda: ref(*args, **kw))
-        for key, (fn, ref, args, kw) in calls.items()
-    }
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return calls, out
+
+
+def kernel_entry(key, fn, plain, args, kw):
+    stats, out = check_kernel(key, lambda: fn(*args, **kw), lambda: plain(*args, **kw))
+    b_ms, b_by = bound(key, args, kw, out)
+    lib_ms = row_window_library_ms(args, kw) if key == "row_window" else None
+    say(f"[bound] {key}: {b_ms:.4f} ms by {b_by}"
+        + (f"; library call {lib_ms:.3f} ms" if lib_ms is not None else ""))
+    return dict(stats, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def kernel_phase3(q, t, sp, dev):
+    """Config 3's calls on (q, t), on both pass-2 engines."""
+    from seqalib_tpu_torch.ops import band_fill as bf_mod
+    from seqalib_tpu_torch.ops import row_window as rw_mod
+    from seqalib_tpu_torch.ops import strip as strip_mod
+    from seqalib_tpu_torch.ops import strip_fill as sf_mod
+    from seqalib_tpu_torch.ops import strip_walk as sw_mod
+    from seqalib_tpu_torch.scoring import tables_from_params
+
+    targets = [(strip_mod, "row_window", rw_mod.row_window_ref),
+               (strip_mod, "strip_fill", sf_mod.strip_fill_ref),
+               (strip_mod, "strip_walk", sw_mod.strip_walk_ref),
+               (strip_mod, "band_fill", bf_mod.band_fill_ref)]
+    n = np.full(len(q), q.shape[1])
+    m = np.full(len(t), t.shape[1])
+    tables = tables_from_params(sp, dev)
+    calls, out = record(lambda: strip_mod.strip_bucket(q, t, n, m, tables, mode="local",
+                                                       want_tb=True), targets)
+    calls_s, _ = record(lambda: strip_mod.strip_bucket(q, t, n, m, tables, mode="local",
+                                                       want_tb=False, pass2="strip"),
+                        targets)
+    calls["strip_fill/emode"] = calls_s["strip_fill/emode"]
+    per_kernel = {key: kernel_entry(key, fn, plain, args, kw)
+                  for key, (fn, plain, args, kw, _) in calls.items()}
     return per_kernel, int(out["escalated"].sum())
 
 
-def config_run(name, qs, ts, sp, mode, dev):
-    """Warm ``align_batch`` runs: times, rates and an oracle check."""
+def kernel_phase4(qs, ts, sp, dev):
+    """Config 4's calls: the fill and its pointer mode held against the
+    plain version on CMP_DIAGONALS diagonals from a checkpoint, the walk
+    on the first super-block it walks."""
+    from seqalib_tpu_torch.models import banded as banded_mod
+    from seqalib_tpu_torch.ops import band_fill as bf_mod
+    from seqalib_tpu_torch.ops import band_walk as bw_mod
+
+    targets = [(banded_mod, "band_fill", bf_mod.band_fill_ref),
+               (banded_mod, "band_walk", bw_mod.band_walk_ref)]
+    qlen = np.array([len(x) for x in qs])
+    tlen = np.array([len(x) for x in ts])
+    calls, _ = record(lambda: banded_mod.banded_align_batch(
+        np.stack(qs), np.stack(ts), qlen, tlen, sp, BAND4, device=dev), targets)
+    per_kernel = {}
+    fn, plain, args, kw, full = calls["band_fill/fill"]
+    CK = kw["CK"]
+    cg = full["ckpt"].shape[0] // 2
+    k0 = cg * CK
+    cut = dict(kw, k0=k0, k1=k0 + CMP_DIAGONALS)
+    args_cut = args[:6] + (full["ckpt"][cg],) + args[7:]
+    per_kernel["band_fill/fill"] = kernel_entry("band_fill/fill", fn, plain, args_cut, cut)
+    # resuming from a checkpoint reproduces the whole fill's later ones
+    again = fn(*args_cut, **cut)["ckpt"]
+    if not bool((again == full["ckpt"][cg: cg + again.shape[0]]).all()):
+        raise AssertionError("band_fill/fill: a resumed fill differs from the whole fill")
+    fn, plain, args, kw, _ = calls["band_fill/ptr"]
+    cut = dict(kw, k1=kw["k0"] + CMP_DIAGONALS)
+    per_kernel["band_fill/ptr"] = kernel_entry("band_fill/ptr", fn, plain, args, cut)
+    fn, plain, args, kw, _ = calls["band_walk"]
+    per_kernel["band_walk"] = kernel_entry("band_walk", fn, plain, args, kw)
+    return per_kernel
+
+
+# ---- end-to-end runs ------------------------------------------------------
+
+
+def timed_runs(run, reps=REPS):
+    """One warm-up call, then ``reps`` timed calls; (results, walls)."""
     import torch
 
-    import seqalib_tpu_torch as st
-
-    run = lambda: st.align_batch(qs, ts, scoring=sp, mode=mode, traceback=True,
-                                 device=dev)
-    run()  # warm-up
+    run()
     walls = []
-    for _ in range(REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         res = run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    return res, walls
+
+
+def config_run(name, qs, ts, sp, mode, dev, want=None):
+    """Warm ``align_batch`` runs: times, rates and an oracle check of
+    N_ORACLE sampled pairs (``want``: their oracle results, if known)."""
+    import seqalib_tpu_torch as st
+
+    res, walls = timed_runs(lambda: st.align_batch(qs, ts, scoring=sp, mode=mode,
+                                                   traceback=True, device=dev))
     wall = statistics.median(walls)
     cells = sum(len(a) * len(b) for a, b in zip(qs, ts))
     say(f"[{name}] B={len(qs)} {mode} wall {wall:.4f} s (reps {walls}); "
         f"{len(qs) / wall:.1f} pairs/s; {cells / wall / 1e9:.3f} GCUPS")
     picks = np.random.default_rng(SEED + 1).choice(len(qs), N_ORACLE, replace=False)
-    want = st.align_batch([qs[b] for b in picks], [ts[b] for b in picks], scoring=sp,
-                          mode=mode, backend="oracle")
+    if want is None:
+        want = st.align_batch([qs[b] for b in picks], [ts[b] for b in picks], scoring=sp,
+                              mode=mode, backend="oracle")
     for b, w in zip(picks, want):
         if str(res[b]) != str(w):
             raise AssertionError(f"{name} pair {b}: {res[b]} != oracle {w}")
     say(f"[{name}] {N_ORACLE}/{N_ORACLE} pairs equal to the oracle")
-    return res, wall
+    return want
+
+
+def rescore(q, t, cigar, table, go, ge):
+    """Score of ``cigar`` aligning q to t under affine gaps, and the
+    lengths it consumes."""
+    i = j = score = 0
+    for n, op in re.findall(r"(\d+)([MID])", cigar):
+        n = int(n)
+        if op == "M":
+            score += int(table[q[i: i + n], t[j: j + n]].sum())
+            i += n
+            j += n
+        else:
+            score += go + n * ge
+            i += n if op == "I" else 0
+            j += n if op == "D" else 0
+    return score, i, j
+
+
+def check_cigars(name, qs, ts, res, sp):
+    table = sp.substitution_matrix().astype(np.int64)
+    for b, (q, t, r) in enumerate(zip(qs, ts, res)):
+        score, i, j = rescore(q, t, r.cigar, table, sp.gap_open, sp.gap_extend)
+        if (i, j) != (len(q), len(t)) or score != r.score:
+            raise AssertionError(f"{name} pair {b}: CIGAR consumes ({i}, {j}) of "
+                                 f"({len(q)}, {len(t)}) and scores {score} != {r.score}")
+
+
+def long_reads(rng, B, L):
+    """Config 4's pairs: t is q with L // 50 substitutions."""
+    qs, ts = [], []
+    for _ in range(B):
+        q = rng.integers(0, 4, L).astype(np.uint8)
+        t = q.copy()
+        idx = rng.choice(L, L // 50, replace=False)
+        t[idx] = (t[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
+        qs.append(q)
+        ts.append(t.astype(np.uint8))
+    return qs, ts
+
+
+def banded_run(name, qs, ts, sp, band, dev, reps):
+    import seqalib_tpu_torch as st
+
+    res, walls = timed_runs(lambda: st.align_batch(qs, ts, scoring=sp, mode="global",
+                                                   band=band, traceback=True, device=dev),
+                            reps)
+    wall = statistics.median(walls)
+    cells = sum(len(q) * 2 * band for q in qs)
+    say(f"[{name}] B={len(qs)} L={len(qs[0])} band={band} wall {wall:.4f} s "
+        f"(reps {walls}); {len(qs) / wall:.2f} pairs/s; {cells / wall / 1e9:.3f} "
+        f"GCUPS(n*w)")
+    check_cigars(name, qs, ts, res, sp)
+    say(f"[{name}] {len(qs)}/{len(qs)} CIGARs consume their pair and re-score to the score")
+    return res
+
+
+def config4_oracle(qs, ts, sp, band, dev):
+    import seqalib_tpu_torch as st
+
+    qc = [q[:1024] for q in qs[:N_ORACLE4]]
+    tc = [t[: 1024 + band // 2] for t in ts[:N_ORACLE4]]
+    got = st.align_batch(qc, tc, scoring=sp, mode="global", band=band, device=dev)
+    want = st.align_batch(qc, tc, scoring=sp, mode="global", band=band, backend="oracle")
+    for b, (g, w) in enumerate(zip(got, want)):
+        if str(g) != str(w):
+            raise AssertionError(f"config4 cut pair {b}: {g} != oracle {w}")
+    say(f"[config4] {N_ORACLE4}/{N_ORACLE4} pairs cut to 1024 x {1024 + band // 2} "
+        f"equal to the banded oracle")
 
 
 def main() -> int:
@@ -179,6 +433,7 @@ def main() -> int:
     from seqalib_tpu_torch import ScoringParams, _build
     from seqalib_tpu_torch.ops import launches, reset_launches
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     say(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -196,33 +451,62 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     sp3 = ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
-    q3 = rng.integers(0, 20, size=(B, 1024)).astype(np.uint8)
-    t3 = rng.integers(0, 20, size=(B, 1024)).astype(np.uint8)
-    per_kernel, escalated = kernel_phase(q3, t3, sp3, dev)
-    say(f"[config3] escalated pairs: {escalated}/{B}")
+    q3 = rng.integers(0, 20, size=(B3, 1024)).astype(np.uint8)
+    t3 = rng.integers(0, 20, size=(B3, 1024)).astype(np.uint8)
+    sp1 = ScoringParams.linear()
+    q1 = rng.integers(0, 4, size=(B3, 256)).astype(np.uint8)
+    t1 = rng.integers(0, 4, size=(B3, 256)).astype(np.uint8)
+    sp4 = ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+    qs4, ts4 = long_reads(rng, B4, L4)
 
+    per_kernel, escalated = kernel_phase3(q3, t3, sp3, dev)
+    say(f"[config3] escalated pairs: {escalated}/{B3}")
+    per_kernel.update(kernel_phase4(qs4, ts4, sp4, dev))
+    say(f"[time] kernel phase done at {time.perf_counter() - t_start:.1f} s")
+
+    counts = {}
     qs3, ts3 = list(q3), list(t3)
     reset_launches()
-    config_run("config3", qs3, ts3, sp3, "local", dev)
-    counts = dict(launches)
+    want3 = config_run("config3", qs3, ts3, sp3, "local", dev)
+    counts["config3"] = dict(launches)
+    os.environ["SEQALIB_FUSED_PASS2"] = "strip"
+    try:
+        reset_launches()
+        config_run("config3_strip", qs3, ts3, sp3, "local", dev, want=want3)
+        counts["config3_strip"] = dict(launches)
+    finally:
+        del os.environ["SEQALIB_FUSED_PASS2"]
 
-    sp1 = ScoringParams.linear()
-    q1 = rng.integers(0, 4, size=(B, 256)).astype(np.uint8)
-    t1 = rng.integers(0, 4, size=(B, 256)).astype(np.uint8)
+    reset_launches()
     config_run("config1", list(q1), list(t1), sp1, "global", dev)
+    counts["config1"] = dict(launches)
 
-    say(f"[launches] config3 runs (1 warm-up + 3 timed): {counts}")
-    missing = [k for k in KERNELS if counts.get(k, 0) <= 0]
+    reset_launches()
+    banded_run("config4", qs4, ts4, sp4, BAND4, dev, REPS)
+    counts["config4"] = dict(launches)
+    config4_oracle(qs4, ts4, sp4, BAND4, dev)
+    for band in (64, 256):
+        banded_run(f"config4_band{band}", qs4, ts4, sp4, band, dev, 1)
+    q100, t100 = long_reads(rng, 8, 100_000)
+    banded_run("config4_100kb", q100, t100, sp4, 64, dev, 1)
+    say(f"[time] paths done at {time.perf_counter() - t_start:.1f} s")
+
+    for path, c in counts.items():
+        say(f"[launches] {path} (1 warm-up + {REPS} timed calls): "
+            f"{ {k: v for k, v in c.items() if v} }")
+    missing = [k for k, (_, _, path) in KERNELS.items() if counts[path].get(k, 0) <= 0]
     if missing:
-        raise AssertionError(f"main path never launched: {missing}")
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("JAX was imported")
+        raise AssertionError(f"a path never launched: {missing}")
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "seqalib_tpu"))
+    if bad:
+        raise AssertionError(f"JAX or the JAX package was imported: {bad[:5]}")
 
     kernels = [
         {"name": k, "route": "cuda", "source": f"seqalib_tpu_torch/csrc/{src}",
-         "replaces": rep, "launches": counts[k], **per_kernel[k]}
-        for k, (src, rep) in KERNELS.items()
+         "replaces": rep, "launches": counts[path][k], **per_kernel[k]}
+        for k, (src, rep, path) in KERNELS.items()
     ]
+    say(f"[time] total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,13 +1,13 @@
 """seqalib_tpu_torch — the PyTorch + CUDA port of seqalib_tpu.
 
-Runs the strip engine's local and global alignment (scores, canonical
-coordinates, full CIGARs) on an NVIDIA Hopper card through hand-written
-CUDA kernels, and on the CPU through their plain PyTorch versions.  It
-imports the jax-free shared layer of ``seqalib_tpu`` (types, oracle, CIGAR
-codec, bucketing helpers) and never JAX itself.
+Runs local and global alignment (scores, canonical coordinates, full
+CIGARs) and banded global alignment of long reads (``band=``) on an NVIDIA
+Hopper card through hand-written CUDA kernels, and on the CPU through their
+plain PyTorch versions.  It keeps its own copies of the types, the oracle
+and the CIGAR codec, and imports nothing of ``seqalib_tpu`` or JAX.
 """
 
-from seqalib_tpu.types import (  # noqa: F401
+from .types import (  # noqa: F401
     BLOSUM62,
     AlignResult,
     ScoringParams,

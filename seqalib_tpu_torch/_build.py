@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+``sm_90a`` (all started together), and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``.  No
 PyTorch headers are involved, so a build takes seconds.  The build
 happens at first use (never on import) and again whenever a hash of the
@@ -28,7 +29,6 @@ NVCC_FLAGS = [
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 ]
@@ -44,6 +44,11 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P,
     ],
     "seqalib_strip_walk": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "seqalib_band_fill": [
+        _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    ],
+    "seqalib_band_walk": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -71,6 +76,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, process), then raise if any failed."""
+    texts = ["".join(proc.communicate()) for _, proc in procs]
+    for (cmd, proc), text in zip(procs, texts):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+    return "".join(texts)
+
+
 def build(ptxas_verbose: bool = False) -> str:
     """Compile the kernels unless a library built from the same sources
     exists.  Returns the compiler's output ("" when nothing was built).
@@ -82,20 +97,28 @@ def build(ptxas_verbose: bool = False) -> str:
     if so.exists() and stamp.exists() and stamp.read_text() == digest:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if ptxas_verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if ptxas_verbose else [])
+    tag = f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    try:
+        out = _run(procs)
+        tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        out += _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True))])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)
     stamp.write_text(digest)
-    return proc.stdout + proc.stderr
+    return out
 
 
 def lib() -> ctypes.CDLL:

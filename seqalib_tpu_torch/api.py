@@ -2,10 +2,11 @@
 
 ``align``: one pair.  ``align_batch``: many pairs through the bucketed
 dispatcher.  Same parameters as the JAX package, plus ``device``
-(default ``"cuda"``).  Backends: ``"strip"`` (the default: the strip
-engine's CUDA kernels on a CUDA device, their plain PyTorch versions on
-the CPU) and ``"oracle"`` (the shared NumPy oracle, ``oracle_fast``: bit
-for bit ``seqalib_tpu/oracle.py``, vectorized over anti-diagonals).
+(default ``"cuda"``).  Backends: ``"strip"`` (the default: the CUDA
+kernels on a CUDA device, their plain PyTorch versions on the CPU; with
+``band=`` and ``mode="global"`` the banded long-read path) and
+``"oracle"`` (the port's NumPy oracle, ``oracle_fast``: bit for bit
+``oracle.py``, vectorized over anti-diagonals, ``band=`` included).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from seqalib_tpu.types import (
+from .types import (
     PROTEIN_SIZE,
     AlignResult,
     ScoringParams,
@@ -88,18 +89,14 @@ def align_batch(
         raise ValueError("queries and targets must have equal length")
 
     if backend == "oracle":
-        from seqalib_tpu.oracle_fast import align_oracle
+        from .oracle_fast import align_oracle
 
         return [align_oracle(q, t, sp, mode=mode, band=band) for q, t in zip(qs, ts)]
-    if band is not None:
-        raise NotImplementedError(
-            "banded alignment is not ported yet (ROADMAP.md Queue 1 item 6)"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "mesh dispatch is not ported yet (ROADMAP.md Queue 1 item 8)"
         )
     from .parallel.dispatch import dispatch_batch
 
-    return dispatch_batch(qs, ts, sp, mode=mode, traceback=traceback,
+    return dispatch_batch(qs, ts, sp, mode=mode, band=band, traceback=traceback,
                           device=_device(device))

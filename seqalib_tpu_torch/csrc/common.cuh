@@ -1,6 +1,6 @@
-// Constants shared by the seqalib_tpu_torch kernels.  The values mirror
-// seqalib_tpu/types.py (NEG_INF, PTR_*) and seqalib_tpu/utils/cigar.py
-// (OP_*), which the Python side of the port imports.
+// Constants and helpers shared by the seqalib_tpu_torch kernels.  The
+// values mirror seqalib_tpu_torch/types.py (NEG_INF, PTR_*) and
+// seqalib_tpu_torch/utils/cigar.py (OP_*).
 #pragma once
 
 #include <cstdint>
@@ -25,5 +25,14 @@ constexpr uint8_t kOpD = 2;
 constexpr int kLocal = 0;
 constexpr int kExtend = 1;
 constexpr int kGlobal = 2;
+
+// floor(x / 2) for negative x too (C++ division truncates)
+__device__ __forceinline__ int floordiv2(int x) { return (x - (x < 0)) / 2; }
+
+// first band row on anti-diagonal k of a band whose top diagonal is dhi
+// (ops/band_fill.py: ihat)
+__device__ __forceinline__ int ihat(int k, int dhi) {
+  return max(0, floordiv2(k - dhi + 1));
+}
 
 }  // namespace seqalib

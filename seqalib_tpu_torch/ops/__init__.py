@@ -2,7 +2,8 @@
 
 ``launches`` counts, per kernel, the launches each wrapper made on a CUDA
 tensor (a call on a CPU tensor runs the plain PyTorch version and counts
-nothing).  ``strip_fill`` counts each mode under its own key.
+nothing).  ``strip_fill`` and ``band_fill`` count each mode under its own
+key.
 """
 
 from __future__ import annotations
@@ -13,6 +14,10 @@ launches: dict[str, int] = {
     "strip_fill/emode": 0,
     "strip_fill/gmode": 0,
     "strip_walk": 0,
+    "band_fill/fill": 0,
+    "band_fill/ptr": 0,
+    "band_fill/emode": 0,
+    "band_walk": 0,
 }
 
 

@@ -17,11 +17,23 @@ coordinates contract of ``seqalib_tpu/oracle.py``:
    ``strip_walk`` (escalated pairs are rebuilt by
    ``window_global_cigars``).
 
-Pass 2 runs on the strip engine (the JAX package's
-``SEQALIB_FUSED_PASS2=strip`` configuration).  The window geometry keeps
-the JAX package's 128-quantum numbers (TI, LANES), which decide the
-co-optimal tie outcomes and which pairs escalate, whatever strip height the
-kernel uses.
+Pass 2 runs on one of the JAX package's two engines, chosen by
+``pass2`` (``SEQALIB_FUSED_PASS2``, read at the host boundary as the JAX
+package reads it):
+
+* ``"banded"`` (the default): ``band_fill`` in ``emode`` over a band of
+  ``BW`` = 64 diagonals around the anchor (``banded_pass2``); a table
+  outside the range [-4, 11] with more than 7 letters stays on the strip
+  engine, as in the JAX package;
+* ``"strip"``: ``strip_fill`` in ``emode`` over the whole window.
+
+``tie_safe`` (``SEQALIB_FUSED_TIE_SAFE=1``) escalates every pair whose
+canonical start a co-optimal tie outside the window could move: on the
+banded engine by the window-edge bound EV, on the strip engine every pair
+whose target window was cut.  The window geometry keeps the JAX package's
+128-quantum numbers (TI, LANES, the 128-slot band window), which decide
+the co-optimal tie outcomes and which pairs escalate, whatever the kernels
+do inside.
 """
 
 from __future__ import annotations
@@ -32,9 +44,11 @@ import os
 import numpy as np
 import torch
 
-from seqalib_tpu.utils.cigar import OP_D, OP_I, OP_PAD, ops_to_cigar
+from ..utils.cigar import OP_D, OP_I, op_rows_to_cigars
 
-from ..scoring import Tables
+from ..scoring import NIBBLE_BIAS, Tables, fits_nibbles
+from ..types import NEG_INF
+from .band_fill import band_fill, band_table
 from .row_window import row_window
 from .strip_fill import strip_fill
 from .strip_walk import strip_walk
@@ -44,10 +58,32 @@ log = logging.getLogger("seqalib_tpu_torch.strip")
 TI = 128  # row quantum of the padded query (JAX strip height)
 LANES = 128  # column quantum of the padded target
 WR_DEFAULT = 4 * TI  # pass-2 row window
+BW = 64  # banded pass 2: band half-width around the anchor diagonal
+CKB = 64  # banded pass 2: the diagonal count is a multiple of this
+PASS2_ENGINES = ("banded", "strip")
 
 
 def _ceil_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def pass2_knobs() -> dict:
+    """The pass-2 engine and ``tie_safe`` from the environment
+    (``SEQALIB_FUSED_PASS2``, default ``"banded"``; ``SEQALIB_FUSED_TIE_SAFE``,
+    default off), the same variables the JAX package reads."""
+    env = os.environ
+    return {"pass2": env.get("SEQALIB_FUSED_PASS2", "banded"),
+            "tie_safe": env.get("SEQALIB_FUSED_TIE_SAFE", "0") == "1"}
+
+
+def jax_route(tables: Tables) -> str:
+    """How the JAX kernels score ``tables``: ``"scalar"`` (match/mismatch
+    from ``table[0, 0]``/``table[0, 1]``, for 8 rows or fewer), ``"packed"``
+    (the nibble profile) or ``"wide"`` (a table outside [-4, 11]), which
+    decides the pass-2 engine and how pass 2 scores its sentinel letters."""
+    if tables.A1 <= 8:
+        return "scalar"
+    return "packed" if fits_nibbles(tables.host) else "wide"
 
 
 def ptr_cap_bytes() -> int:
@@ -101,16 +137,9 @@ def cigars_from_ops(ops, i_fin, j_fin):
     is start -> end) and prepend the implicit boundary run the walk
     stopped at (i' > 0: I run down column 0; j' > 0: D run along row 0)
     (counterpart of ``_cigars_from_ops``)."""
-    cigars = []
-    for b in range(ops.shape[0]):
-        row = ops[b]
-        row = row[row != OP_PAD]
-        if i_fin[b] > 0:
-            head = np.full(int(i_fin[b]), OP_I, np.uint8)
-        else:
-            head = np.full(int(j_fin[b]), OP_D, np.uint8)
-        cigars.append(ops_to_cigar(np.concatenate([head, row])))
-    return cigars
+    i_fin, j_fin = np.asarray(i_fin), np.asarray(j_fin)
+    return op_rows_to_cigars(ops, np.where(i_fin > 0, OP_I, OP_D),
+                             np.where(i_fin > 0, i_fin, j_fin))
 
 
 def global_post(bv, P, qlen, tlen, tables: Tables, want_tb: bool):
@@ -149,11 +178,64 @@ def global_post(bv, P, qlen, tlen, tables: Tables, want_tb: bool):
     return out
 
 
-def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int):
+def banded_pass2(qr, tr, qe, te2, score, tables: Tables, *, mq: int, WR: int,
+                 TWD: int, tie_safe: bool):
+    """Pass 2 on the banded engine: the anchored reverse extension of the
+    reversed prefixes ``qr`` (B, WR) and ``tr`` (B, W2r) (``tr[:, 0]`` a
+    sentinel) over the 128-slot window of diagonals -BW..BW, and the
+    first maximum (ri, rj) by the canonical packed index.  Returns
+    ``(score2, ri, rj)``; with ``tie_safe`` a pair whose EV bound admits an
+    outside tie gets ``score2 = score - 1`` (escalates).  Counterpart of
+    ``_p2_banded`` (without its PC2 slicing)."""
+    dev = qr.device
+    B = qr.shape[0]
+    A1 = tables.A1
+    host = tables.host
+    packed = jax_route(tables) == "packed"
+    match = int(host[0, 0])
+    mismatch = int(host[0, 1]) if A1 > 1 else match
+    # sentinel letters score as the JAX kernel scores them: their cells are
+    # not masked in emode and reach BV and EV
+    sent = -NIBBLE_BIAS if packed else mismatch
+    smax = 15 - NIBBLE_BIAS if packed else max(match, mismatch)
+    Wpb = _ceil_to((2 * BW + 1) // 2 + 2, LANES)
+    Kp = _ceil_to(WR + min(TWD, WR + BW) + 1, CKB)
+    # 1-based letters: qk[:, x] = qr[:, x - 1]; tr already is
+    qk = torch.cat([torch.full((B, 1), A1, dtype=torch.int32, device=dev),
+                    qr.to(torch.int32)], 1)
+    tab = torch.from_numpy(band_table(host, sent)).to(dev)
+    state = torch.full((6, B, Wpb), NEG_INF, dtype=torch.int32, device=dev)
+    state[5] = 0  # BK
+    ev = torch.full((B, Wpb), NEG_INF, dtype=torch.int32, device=dev)
+    band = torch.full((B,), BW, dtype=torch.int32, device=dev)
+    r = band_fill(qk, tr.to(torch.int32), torch.clamp(qe, max=WR),
+                  torch.clamp(te2, max=WR + BW), -band, band, state, ev, tab,
+                  k0=0, k1=Kp, K=Kp, dlo=-BW, dhi=BW, gap_open=tables.gap_open,
+                  gap_extend=tables.gap_extend, mode="emode", tie_safe=tie_safe,
+                  smax=smax)
+    BV, BK = r["state"][4], r["state"][5]
+    # slot p on diagonal k is cell i = ihat(k) + p, j = k - i
+    iv = torch.clamp((BK - BW + 1) // 2, min=0) + torch.arange(Wpb, device=dev)[None, :]
+    key = iv * (mq + 1) + (BK - iv)
+    score2 = BV.max(dim=1).values
+    big = torch.iinfo(torch.int32).max
+    pb = torch.where(BV == score2[:, None], key, big).min(dim=1).values
+    empty = score2 <= 0
+    zero = torch.zeros_like(pb)
+    ri = torch.where(empty, zero, pb // (mq + 1))
+    rj = torch.where(empty, zero, pb % (mq + 1))
+    if tie_safe:
+        risk = r["score"].max(dim=1).values + smax * ri + tables.gap_extend >= score
+        score2 = torch.where(risk & (score2 == score), score - 1, score2)
+    return score2, ri, rj
+
+
+def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
+                pass2: str, tie_safe: bool):
     """Passes 1 and 2 on device tensors: score, canonical end (qe, te),
     start (qs, ts) and the pass-2 score ``score2`` (a pair with
     ``score2 != score`` must escalate).  Counterpart of
-    ``_strip_local_fused`` with ``pass2="strip"``."""
+    ``_strip_local_fused``."""
     SENT_Q, SENT_T = tables.A1, tables.A1 + 1
     r1 = strip_fill(qpad, t2, qlen, tlen, tables, mq=mq, mode="local")
     score, qe, te = reduce_best(r1["bv"], r1["bk"], mq + 1)
@@ -169,9 +251,17 @@ def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int):
     te2 = torch.clamp(te, max=TWD)
     tr = row_window(torch.flip(t2, [1]), W2 - 2 - te, te2 + 1, L=W2r, lo=1,
                     fill=SENT_T)
-    r2 = strip_fill(qr, tr, torch.clamp(qe, max=WR), te2, tables, mq=mq,
-                    mode="emode")
-    score2, ri, rj = reduce_best(r2["bv"], r2["bk"], mq + 1)
+    if pass2 == "banded" and jax_route(tables) != "wide":
+        score2, ri, rj = banded_pass2(qr, tr, qe, te2, score, tables, mq=mq, WR=WR,
+                                      TWD=TWD, tie_safe=tie_safe)
+    else:
+        r2 = strip_fill(qr, tr, torch.clamp(qe, max=WR), te2, tables, mq=mq,
+                        mode="emode")
+        score2, ri, rj = reduce_best(r2["bv"], r2["bk"], mq + 1)
+        if tie_safe:
+            # a tie beyond the column clamp exists only where the target
+            # window was cut: escalate those pairs
+            score2 = torch.where((te > TWD) & (score2 == score), score - 1, score2)
     pos = score > 0
     zero = torch.zeros_like(score)
     return {
@@ -184,13 +274,15 @@ def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int):
     }
 
 
-def local_fused_tb(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int):
+def local_fused_tb(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
+                   pass2: str, tie_safe: bool):
     """``local_fused`` plus pass 3 on device: each pair's [qs:qe] x
     [ts:te] window, cut at the pass-1 shapes, filled globally with
     pointers and walked.  Adds the window-global score ``score_w`` and
     the walk's ``ops``/``ifin``/``jfin``.  Counterpart of
     ``_strip_local_fused_tb`` (without its link-era packing)."""
-    res = local_fused(qpad, t2, qlen, tlen, tables, mq=mq, WR=WR)
+    res = local_fused(qpad, t2, qlen, tlen, tables, mq=mq, WR=WR, pass2=pass2,
+                      tie_safe=tie_safe)
     SENT_Q, SENT_T = tables.A1, tables.A1 + 1
     n_pad = qpad.shape[1]
     W2 = t2.shape[1]
@@ -289,16 +381,23 @@ def window_global_cigars(q, t, score, qs, qe, ts, te, tables: Tables):
 
 
 def strip_bucket(q, t, qlen, tlen, tables: Tables, *, mode: str,
-                 want_tb: bool = False, WR: int = WR_DEFAULT):
+                 want_tb: bool = False, WR: int = WR_DEFAULT,
+                 pass2: str | None = None, tie_safe: bool | None = None):
     """Align one padded bucket: ``q`` (B, n) and ``t`` (B, m) letter arrays
     with lengths ``qlen``/``tlen``, on the device of ``tables``.
 
     Returns numpy ``score``/``qs``/``qe``/``ts``/``te`` (B,) int32, plus
     ``cigars`` with ``want_tb``, plus ``escalated`` (B,) bool in local
     mode (pairs whose start came from ``reverse_starts``).  ``WR`` is the
-    pass-2 row window (rounded up to a multiple of 128)."""
+    pass-2 row window (rounded up to a multiple of 128); ``pass2`` and
+    ``tie_safe`` default to ``pass2_knobs()``."""
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be 'local' or 'global', got {mode!r}")
+    knobs = pass2_knobs()
+    pass2 = knobs["pass2"] if pass2 is None else pass2
+    tie_safe = knobs["tie_safe"] if tie_safe is None else tie_safe
+    if pass2 not in PASS2_ENGINES:
+        raise ValueError(f"pass2 must be one of {PASS2_ENGINES}, got {pass2!r}")
     q = np.asarray(q)
     t = np.asarray(t)
     qlen = np.asarray(qlen).astype(np.int64)
@@ -318,7 +417,8 @@ def strip_bucket(q, t, qlen, tlen, tables: Tables, *, mode: str,
             parts = [
                 strip_bucket(q[lo : lo + cap_pairs], t[lo : lo + cap_pairs],
                              qlen[lo : lo + cap_pairs], tlen[lo : lo + cap_pairs],
-                             tables, mode=mode, want_tb=True)
+                             tables, mode=mode, want_tb=True, pass2=pass2,
+                             tie_safe=tie_safe)
                 for lo in range(0, B, cap_pairs)
             ]
             return {
@@ -338,7 +438,8 @@ def strip_bucket(q, t, qlen, tlen, tables: Tables, *, mode: str,
     WR = _ceil_to(WR, TI)
     fused_tb = want_tb and B * per_pair <= ptr_cap_bytes()
     fused = local_fused_tb if fused_tb else local_fused
-    res = fused(qpad, t2, qlen_d, tlen_d, tables, mq=m, WR=WR)
+    res = fused(qpad, t2, qlen_d, tlen_d, tables, mq=m, WR=WR, pass2=pass2,
+                tie_safe=tie_safe)
     host = {k: v.cpu().numpy() for k, v in res.items()}
     score = host["score"].astype(np.int32)
     qe = host["qe"].astype(np.int64)

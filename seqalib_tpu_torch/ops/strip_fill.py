@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from seqalib_tpu.types import NEG_INF, PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP
+from ..types import NEG_INF, PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP
 
 from ..scoring import SENT_SCORE, Tables
 from . import launches

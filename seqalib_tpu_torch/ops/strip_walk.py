@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from seqalib_tpu.types import PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP
-from seqalib_tpu.utils.cigar import OP_D, OP_I, OP_M, OP_PAD
+from ..types import PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP
+from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD
 
 from . import launches
 

@@ -1,24 +1,57 @@
 """Batched alignment dispatcher (counterpart of
 ``seqalib_tpu/parallel/dispatch.py::dispatch_batch`` / ``run_bucket``,
-strip route only).
+without the mesh).
 
-Pairs are sorted into (Lq, Lt) length buckets (``bucket_len``), each bucket
-is padded and aligned by ``strip_bucket``, and the results are put back in
-input order.  Every bucket is launched before any is turned into
-``AlignResult``s.
+Two routes:
+
+* banded (``band=`` with ``mode="global"``): pairs are grouped by their
+  length delta quantized to the band, ``(len(t) - len(q)) // band``, and
+  each group is aligned by ``models.banded.banded_align_batch``;
+* strip (everything else): pairs are sorted into (Lq, Lt) length buckets
+  (``bucket_len``), each bucket is padded and aligned by ``strip_bucket``.
+  Every bucket is launched before any is turned into ``AlignResult``s.
+
+Results come back in input order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import os
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from seqalib_tpu.parallel.dispatch import _pad_stack, bucket_len
-from seqalib_tpu.types import AlignResult, ScoringParams
-
+from ..models.banded import banded_align_batch, banded_matrix_supported
 from ..ops.strip import strip_bucket
 from ..scoring import tables_from_params
+from ..types import AlignResult, ScoringParams
+
+MIN_BUCKET = 16
+
+
+def bucket_len(n: int) -> int:
+    """Bucket width for a sequence of length n: the smallest power of two
+    >= n (at least ``MIN_BUCKET``) up to 128, then the next multiple of 128
+    (``SEQALIB_BUCKET_POLICY=pow2``: the next power of two).  The same
+    buckets as the JAX package."""
+    if n <= 128:
+        b = MIN_BUCKET
+        while b < n:
+            b <<= 1
+        return b
+    if os.environ.get("SEQALIB_BUCKET_POLICY", "ceil128") == "pow2":
+        b = 128
+        while b < n:
+            b <<= 1
+        return b
+    return -(-n // 128) * 128
+
+
+def _pad_stack(seqs: List[np.ndarray], L: int) -> np.ndarray:
+    out = np.zeros((len(seqs), L), dtype=np.int32)
+    for r, s in enumerate(seqs):
+        out[r, : len(s)] = s
+    return out
 
 
 def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str,
@@ -28,15 +61,43 @@ def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str,
     return strip_bucket(q, t, qlen, tlen, tables, mode=mode, want_tb=traceback)
 
 
+def dispatch_banded(qs: List[np.ndarray], ts: List[np.ndarray], sp: ScoringParams,
+                    band: int, traceback: bool, device) -> List[AlignResult]:
+    """The banded route: one ``banded_align_batch`` per delta group."""
+    groups: Dict[int, List[int]] = {}
+    for idx, (q, t) in enumerate(zip(qs, ts)):
+        groups.setdefault((len(t) - len(q)) // max(band, 1), []).append(idx)
+    results: List[Optional[AlignResult]] = [None] * len(qs)
+    for _, idxs in sorted(groups.items()):
+        qb = _pad_stack([qs[i] for i in idxs], max(len(qs[i]) for i in idxs))
+        tb = _pad_stack([ts[i] for i in idxs], max(len(ts[i]) for i in idxs))
+        qlen = np.array([len(qs[i]) for i in idxs], np.int64)
+        tlen = np.array([len(ts[i]) for i in idxs], np.int64)
+        res = banded_align_batch(qb, tb, qlen, tlen, sp, band, traceback=traceback,
+                                 device=device)
+        for r, idx in enumerate(idxs):
+            results[idx] = res[r]
+    return results  # type: ignore[return-value]
+
+
 def dispatch_batch(
     qs: List[np.ndarray],
     ts: List[np.ndarray],
     sp: ScoringParams,
     mode: str = "local",
+    band: Optional[int] = None,
     traceback: bool = True,
     device="cuda",
 ) -> List[AlignResult]:
     """Align all pairs on ``device``; results in input order."""
+    if band is not None and mode == "global":
+        if sp.matrix is None or banded_matrix_supported(sp.substitution_matrix()):
+            return dispatch_banded(qs, ts, sp, band, traceback, device)
+        raise NotImplementedError(
+            "band= with a substitution table outside the range [-4, 11] runs on "
+            "the full-matrix wavefront kernel (wavefront_pallas._fill_kernel), "
+            "which is not ported yet (ROADMAP.md Queue 2, kernel 7)"
+        )
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for idx, (q, t) in enumerate(zip(qs, ts)):
         buckets.setdefault((bucket_len(len(q)), bucket_len(len(t))), []).append(idx)

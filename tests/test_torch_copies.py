@@ -1,0 +1,119 @@
+"""The port keeps its own copies of the JAX package's jax-free layer
+(types, encoders, BLOSUM62, oracle, CIGAR codec, bucketing helpers, the
+sentinel table).  These tests hold each copy to the original on the same
+inputs, so that the two packages keep scoring, bucketing and encoding
+alike."""
+
+import numpy as np
+import pytest
+
+import seqalib_tpu.oracle as jax_oracle
+import seqalib_tpu.oracle_fast as jax_oracle_fast
+import seqalib_tpu.types as jt
+import seqalib_tpu.utils.cigar as jax_cigar
+from seqalib_tpu.parallel import dispatch as jax_dispatch
+from seqalib_tpu_torch import oracle as port_oracle
+from seqalib_tpu_torch import oracle_fast as port_oracle_fast
+from seqalib_tpu_torch import scoring
+from seqalib_tpu_torch import types as pt
+from seqalib_tpu_torch.parallel import dispatch as port_dispatch
+from seqalib_tpu_torch.utils import cigar as port_cigar
+
+
+def _both(sp):
+    """The same scoring as a JAX-package and a port ``ScoringParams``."""
+    return sp, scoring.scoring_params(sp.match, sp.mismatch, sp.gap_open,
+                                      sp.gap_extend, sp.matrix)
+
+
+SCORINGS = {
+    "dna_linear": jt.ScoringParams.linear(),
+    "dna_affine": jt.ScoringParams.affine(),
+    "blosum62": jt.ScoringParams.blosum62(gap_open=-10, gap_extend=-1),
+}
+
+
+def test_constants_and_blosum62_are_the_same():
+    assert (pt.NEG_INF, pt.PTR_STOP, pt.PTR_DIAG, pt.PTR_UP, pt.PTR_LEFT) == (
+        jt.NEG_INF, jt.PTR_STOP, jt.PTR_DIAG, jt.PTR_UP, jt.PTR_LEFT)
+    assert (pt.PROTEIN_SIZE, pt.PROTEIN_ALPHABET, pt.DNA_ALPHABET) == (
+        jt.PROTEIN_SIZE, jt.PROTEIN_ALPHABET, jt.DNA_ALPHABET)
+    np.testing.assert_array_equal(pt.BLOSUM62, jt.BLOSUM62)
+    assert (port_cigar.OP_M, port_cigar.OP_I, port_cigar.OP_D, port_cigar.OP_PAD) == (
+        jax_cigar.OP_M, jax_cigar.OP_I, jax_cigar.OP_D, jax_cigar.OP_PAD)
+
+
+def test_encoders_are_the_same():
+    for s in ["ACGTNacgtn", "", "TTTT"]:
+        np.testing.assert_array_equal(pt.encode_dna(s), jt.encode_dna(s))
+        assert pt.decode_dna(pt.encode_dna(s)) == jt.decode_dna(jt.encode_dna(s))
+    for s in ["HEAGAWGHEE", "arndcqeghilkmfpstwyvbzx*", "UOJuoj"]:
+        np.testing.assert_array_equal(pt.encode_protein(s), jt.encode_protein(s))
+    for bad, enc in (("ACGX", pt.encode_dna), ("HE1", pt.encode_protein)):
+        with pytest.raises(ValueError, match="invalid"):
+            enc(bad)
+
+
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+def test_scoring_params_and_sentinel_table_are_the_same(name):
+    jsp, psp = _both(SCORINGS[name])
+    assert isinstance(psp, pt.ScoringParams)
+    assert (psp.is_affine, psp.alphabet_size) == (jsp.is_affine, jsp.alphabet_size)
+    np.testing.assert_array_equal(psp.substitution_matrix(), jsp.substitution_matrix())
+    np.testing.assert_array_equal(scoring.sentinel_table(psp),
+                                  jax_dispatch.sentinel_table(jsp))
+    with pytest.raises(ValueError):
+        scoring.scoring_params(2, -3, 1, -2)
+
+
+def test_bucket_len_and_pad_stack_are_the_same(monkeypatch):
+    for policy in ("ceil128", "pow2"):
+        monkeypatch.setenv("SEQALIB_BUCKET_POLICY", policy)
+        for n in range(0, 1100, 7):
+            assert port_dispatch.bucket_len(n) == jax_dispatch.bucket_len(n), (policy, n)
+    seqs = [np.arange(k, dtype=np.uint8) for k in (0, 3, 9)]
+    np.testing.assert_array_equal(port_dispatch._pad_stack(seqs, 12),
+                                  jax_dispatch._pad_stack(seqs, 12))
+
+
+def test_ops_to_cigar_is_the_same():
+    rng = np.random.default_rng(0)
+    for _ in range(300):
+        ops = rng.choice([0, 1, 2, 255], size=rng.integers(0, 40), p=[0.5, 0.2, 0.2, 0.1])
+        assert port_cigar.ops_to_cigar(ops) == jax_cigar.ops_to_cigar(ops)
+        c = jax_cigar.ops_to_cigar(ops)
+        assert port_cigar.cigar_consumed(c) == jax_cigar.cigar_consumed(c)
+        assert port_cigar.cigar_to_ops(c) == jax_cigar.cigar_to_ops(c)
+
+
+def test_op_rows_to_cigars_equals_ops_to_cigar():
+    """The batched encoder gives, row by row, the JAX package's
+    ``ops_to_cigar`` of the head run followed by the row's non-pad ops."""
+    rng = np.random.default_rng(1)
+    for width in (0, 1, 7, 40):
+        ops = rng.choice([0, 1, 2, 255], size=(9, width), p=[0.5, 0.2, 0.2, 0.1])
+        ops[0] = 255  # a row with no op
+        head_op = rng.integers(0, 3, 9)
+        head_len = rng.integers(0, 4, 9)
+        want = [jax_cigar.ops_to_cigar(np.concatenate([np.full(h, o), r[r != 255]]))
+                for r, o, h in zip(ops, head_op, head_len)]
+        assert port_cigar.op_rows_to_cigars(ops, head_op, head_len) == want
+        assert port_cigar.op_rows_to_cigars(ops) == [
+            jax_cigar.ops_to_cigar(r[r != 255]) for r in ops]
+
+
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+@pytest.mark.parametrize("mode,band", [("local", None), ("global", None), ("global", 6)])
+def test_oracles_are_the_same(name, mode, band):
+    jsp, psp = _both(SCORINGS[name])
+    alpha = 20 if jsp.matrix is not None else 4
+    rng = np.random.default_rng(len(name) + (band or 0))
+    for _ in range(6):
+        q = rng.integers(0, alpha, rng.integers(0, 40)).astype(np.uint8)
+        t = rng.integers(0, alpha, rng.integers(0, 40)).astype(np.uint8)
+        if band is not None and abs(len(t) - len(q)) > 30:
+            continue
+        want = str(jax_oracle.align_oracle(q, t, jsp, mode=mode, band=band))
+        assert str(port_oracle.align_oracle(q, t, psp, mode=mode, band=band)) == want
+        assert str(port_oracle_fast.align_oracle(q, t, psp, mode=mode, band=band)) == want
+        assert str(jax_oracle_fast.align_oracle(q, t, jsp, mode=mode, band=band)) == want

@@ -2,8 +2,9 @@
 alignment spans more rows miss their score in pass 2 and escalate to the
 widening host rescan (``reverse_starts``), and their CIGARs are rebuilt.
 The port (plain kernel versions on the CPU) must escalate the same pairs
-as the JAX ``strip_bucket`` under ``SEQALIB_FUSED_WR=128`` with pass 2 on
-the strip engine, and return the same results.  Exact equality.
+as the JAX ``strip_bucket`` under ``SEQALIB_FUSED_WR=128``, with pass 2 on
+the strip engine and on the default banded engine, and return the same
+results.  Exact equality.
 
 Kept apart from ``test_torch_slice.py`` so that each file's JAX
 interpret-mode compiles stay within its time budget."""
@@ -17,7 +18,7 @@ from seqalib_tpu.ops import strip_pallas
 from seqalib_tpu.parallel.dispatch import sentinel_table
 from seqalib_tpu.types import ScoringParams
 from seqalib_tpu_torch.ops import strip as port_strip
-from seqalib_tpu_torch.scoring import tables_from_params
+from seqalib_tpu_torch.scoring import scoring_params, tables_from_params
 
 KEYS = ("score", "qs", "qe", "ts", "te", "cigars")
 
@@ -34,6 +35,7 @@ def _one_torch_thread():
 
 B, L = 8, 300
 SP = ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
+PORT_SP = scoring_params(0, 0, SP.gap_open, SP.gap_extend, SP.matrix)
 
 
 def _esc_batch():
@@ -57,12 +59,11 @@ def _spy(calls, fn):
     return wrapped
 
 
-@pytest.fixture(scope="module")
-def jax_run():
+def _jax_escalation(pass2):
     q, t, qlen, tlen = _esc_batch()
     calls = []
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SEQALIB_FUSED_PASS2", "strip")
+        mp.setenv("SEQALIB_FUSED_PASS2", pass2)
         mp.setenv("SEQALIB_FUSED_WR", "128")
         mp.setattr(strip_pallas, "_reverse_starts",
                    _spy(calls, strip_pallas._reverse_starts))
@@ -74,17 +75,37 @@ def jax_run():
     return out, calls
 
 
-@pytest.fixture(scope="module")
-def port_run():
+def _port_escalation(pass2):
     """The port at WR=128 on the same batch, with ``reverse_starts``
     watched the same way."""
     q, t, qlen, tlen = _esc_batch()
     calls = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_strip, "reverse_starts", _spy(calls, port_strip.reverse_starts))
-        out = port_strip.strip_bucket(q, t, qlen, tlen, tables_from_params(SP, "cpu"),
-                                      mode="local", want_tb=True, WR=128)
+        out = port_strip.strip_bucket(q, t, qlen, tlen,
+                                      tables_from_params(PORT_SP, "cpu"),
+                                      mode="local", want_tb=True, WR=128, pass2=pass2)
     return out, calls
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    return _jax_escalation("strip")
+
+
+@pytest.fixture(scope="module")
+def port_run():
+    return _port_escalation("strip")
+
+
+@pytest.fixture(scope="module")
+def jax_run_banded():
+    return _jax_escalation("banded")
+
+
+@pytest.fixture(scope="module")
+def port_run_banded():
+    return _port_escalation("banded")
 
 
 def test_same_pairs_escalate(jax_run, port_run):
@@ -108,19 +129,44 @@ def test_escalated_results_match_jax_and_oracle(jax_run, port_run):
         ), b
 
 
+def test_banded_engine_escalates_the_same_pairs(jax_run_banded, port_run_banded):
+    (_, jax_calls), (out, calls) = jax_run_banded, port_run_banded
+    assert calls == jax_calls == [[5, 6]]
+    assert np.nonzero(out["escalated"])[0].tolist() == [5, 6]
+
+
+def test_banded_engine_results_match_jax_and_strip(jax_run_banded, port_run_banded,
+                                                   port_run):
+    (jax_out, _), (out, _) = jax_run_banded, port_run_banded
+    for k in KEYS:
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(jax_out[k]), err_msg=k)
+        # no co-optimal ties in this batch: both engines give the oracle's
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(port_run[0][k]),
+                                      err_msg=k)
+
+
 def test_default_window_escalates_nothing_here():
+    # the default engine (banded) at the default window
     q, t, qlen, tlen = _esc_batch()
-    out = port_strip.strip_bucket(q, t, qlen, tlen, tables_from_params(SP, "cpu"),
+    out = port_strip.strip_bucket(q, t, qlen, tlen, tables_from_params(PORT_SP, "cpu"),
                                   mode="local", want_tb=False)
     assert not out["escalated"].any()
     assert "cigars" not in out
+
+
+def test_default_window_escalates_nothing_on_the_strip_engine():
+    q, t, qlen, tlen = _esc_batch()
+    out = port_strip.strip_bucket(q, t, qlen, tlen, tables_from_params(PORT_SP, "cpu"),
+                                  mode="local", want_tb=False, pass2="strip")
+    assert not out["escalated"].any()
 
 
 def test_pointer_budget_routes_through_host_windows(port_run, monkeypatch):
     # a budget below one pair's pointer matrix: pass 3 runs on host-cut
     # windows, and the global bucket chunks them (>= 32 pairs per call)
     q, t, qlen, tlen = _esc_batch()
-    tables = tables_from_params(SP, "cpu")
+    tables = tables_from_params(PORT_SP, "cpu")
+    monkeypatch.setenv("SEQALIB_FUSED_PASS2", "strip")
     monkeypatch.setenv("SEQALIB_PTR_HBM_CAP", "1000")
     windowed = port_strip.strip_bucket(q, t, qlen, tlen, tables, mode="local",
                                        want_tb=True, WR=128)

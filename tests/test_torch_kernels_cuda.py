@@ -13,12 +13,16 @@ import torch
 from seqalib_tpu import oracle_fast
 from seqalib_tpu.types import ScoringParams
 from seqalib_tpu_torch import align_batch
+from seqalib_tpu_torch.models.banded import _geometry, _pad_letters
 from seqalib_tpu_torch.ops import launches
+from seqalib_tpu_torch.ops.band_fill import band_fill, band_fill_ref, band_table
+from seqalib_tpu_torch.ops.band_walk import band_walk, band_walk_ref
 from seqalib_tpu_torch.ops.row_window import row_window, row_window_ref
 from seqalib_tpu_torch.ops.strip import prep_strip
 from seqalib_tpu_torch.ops.strip_fill import strip_fill, strip_fill_ref
 from seqalib_tpu_torch.ops.strip_walk import strip_walk, strip_walk_ref
-from seqalib_tpu_torch.scoring import tables_from_params
+from seqalib_tpu_torch.scoring import scoring_params, tables_from_params
+from seqalib_tpu_torch.types import NEG_INF
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +110,107 @@ def test_align_batch_on_cuda_matches_oracle(dev, mode, scoring):
     got = align_batch(qs, ts, scoring=sp, mode=mode, device=dev)
     for q, t, r in zip(qs, ts, got):
         assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode=mode))
+
+
+def _band_bucket(dev, scoring, B=21, band=9, CK=32, seed=2):
+    """A mixed-delta bucket laid out as ``banded_align_batch`` lays it out,
+    filled by the plain version with checkpoints."""
+    sp, alpha = SCORINGS[scoring]
+    rng = np.random.default_rng(seed)
+    qlen = rng.integers(0, 300, size=B)
+    tlen = np.clip(qlen + rng.integers(-20, 21, size=B), 0, None)
+    n, m = int(qlen.max()), int(tlen.max())
+    qs = rng.integers(0, alpha, size=(B, n))
+    ts = rng.integers(0, alpha, size=(B, m))
+    ts[:, 10:200] = qs[:, 14:204]
+    deltas = tlen - qlen
+    dlo_p, dhi_p = np.minimum(0, deltas) - band, np.maximum(0, deltas) + band
+    dlo, dhi = int(dlo_p.min()), int(dhi_p.max())
+    Wp, K = _geometry(dlo, dhi, n, m)
+    Kp = -(-K // CK) * CK
+    table = sp.substitution_matrix()
+    A = table.shape[0]
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    args = [as_t(_pad_letters(qs, n + 1, A, qlen)), as_t(_pad_letters(ts, m + 1, A + 1, tlen))]
+    args += [as_t(v) for v in (qlen, tlen, dlo_p, dhi_p)]
+    state = torch.full((4, B, Wp), NEG_INF, dtype=torch.int32, device=dev)
+    score = torch.full((B, Wp), NEG_INF, dtype=torch.int32, device=dev)
+    tab = as_t(band_table(table, -4 if sp.matrix is not None else sp.mismatch))
+    kw = dict(K=K, dlo=dlo, dhi=dhi, gap_open=sp.gap_open, gap_extend=sp.gap_extend)
+    ck = band_fill_ref(*args, state, score, tab, k0=0, k1=Kp, mode="fill", CK=CK, **kw)
+    return dict(args=args, state=state, score=score, tab=tab, kw=kw, Kp=Kp, CK=CK,
+                ckpt=ck["ckpt"], qlen=qlen, tlen=tlen, dhi=dhi)
+
+
+def _same(got, want):
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("scoring", sorted(SCORINGS))
+@pytest.mark.parametrize("mode", ["fill", "ptr"])
+def test_band_fill_kernel_matches_plain_version(dev, scoring, mode):
+    c = _band_bucket(dev, scoring)
+    if mode == "fill":
+        call = dict(k0=0, k1=c["Kp"], mode="fill", CK=c["CK"])
+        state = c["state"]
+    else:
+        cg = c["ckpt"].shape[0] // 2
+        call = dict(k0=cg * c["CK"], k1=c["Kp"], mode="ptr")
+        state = c["ckpt"][cg]
+    before = launches[f"band_fill/{mode}"]
+    got = band_fill(*c["args"], state, c["score"], c["tab"], **call, **c["kw"])
+    torch.cuda.synchronize()
+    assert launches[f"band_fill/{mode}"] == before + 1
+    _same(got, band_fill_ref(*c["args"], state, c["score"], c["tab"], **call, **c["kw"]))
+
+
+@pytest.mark.parametrize("tie_safe", [False, True])
+@pytest.mark.parametrize("scoring", sorted(SCORINGS))
+def test_band_fill_emode_kernel_matches_plain_version(dev, scoring, tie_safe):
+    c = _band_bucket(dev, scoring, band=64)
+    B, Wp = c["score"].shape
+    state = torch.cat([c["state"], c["score"][None],
+                       torch.zeros((1, B, Wp), dtype=torch.int32, device=dev)])
+    call = dict(k0=0, k1=c["Kp"], mode="emode", tie_safe=tie_safe, smax=11, **c["kw"])
+    before = launches["band_fill/emode"]
+    got = band_fill(*c["args"], state, c["score"], c["tab"], **call)
+    torch.cuda.synchronize()
+    assert launches["band_fill/emode"] == before + 1
+    _same(got, band_fill_ref(*c["args"], state, c["score"], c["tab"], **call))
+
+
+@pytest.mark.parametrize("scoring", sorted(SCORINGS))
+def test_band_walk_kernel_matches_plain_version(dev, scoring):
+    c = _band_bucket(dev, scoring, seed=3)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    state = [as_t(c["qlen"]), as_t(c["tlen"]), as_t(np.zeros(len(c["qlen"]))),
+             as_t(np.zeros(len(c["qlen"])))]
+    NC = c["ckpt"].shape[0]
+    for cg in (NC - 2, NC - 4):  # two super-blocks of two chunks, high k first
+        ptr = band_fill_ref(*c["args"], c["ckpt"][cg], c["score"], c["tab"],
+                            k0=cg * c["CK"], k1=(cg + 2) * c["CK"], mode="ptr",
+                            **c["kw"])["ptr"]
+        before = launches["band_walk"]
+        got = band_walk(ptr, *state, k0=cg * c["CK"], dhi=c["dhi"])
+        torch.cuda.synchronize()
+        assert launches["band_walk"] == before + 1
+        want = band_walk_ref(ptr, *state, k0=cg * c["CK"], dhi=c["dhi"])
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+        state = list(got[1:])
+
+
+@pytest.mark.parametrize("scoring", sorted(SCORINGS))
+def test_banded_align_batch_on_cuda_matches_oracle(dev, scoring):
+    sp, alpha = SCORINGS[scoring]
+    psp = scoring_params(sp.match, sp.mismatch, sp.gap_open, sp.gap_extend, sp.matrix)
+    rng = np.random.default_rng(11)
+    qs = [rng.integers(0, alpha, size=rng.integers(0, 400)).astype(np.uint8)
+          for _ in range(16)]
+    ts = [np.concatenate([q[5:], rng.integers(0, alpha, size=rng.integers(0, 30))])
+          .astype(np.uint8) for q in qs]
+    got = align_batch(qs, ts, scoring=psp, mode="global", band=16, device=dev)
+    for q, t, r in zip(qs, ts, got):
+        assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode="global", band=16))

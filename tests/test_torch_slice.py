@@ -1,8 +1,11 @@
 """Port parity for the whole slice: ``seqalib_tpu_torch.align_batch`` on the
 CPU (the plain kernel versions) against the JAX ``align_batch`` with
-``backend="pallas"`` and pass 2 on the strip engine
-(``SEQALIB_FUSED_PASS2=strip``), and against the oracle.  Exact equality
-of ``str(AlignResult)`` and of the raw ``strip_bucket`` dicts.
+``backend="pallas"``, with local pass 2 on either engine (the default
+banded engine, or ``SEQALIB_FUSED_PASS2=strip``; both packages read the
+same variable), and against the oracle.  Exact equality of
+``str(AlignResult)`` and of the raw ``strip_bucket`` dicts.  The
+adversarial tie pins of ``tests/test_fused_tie_boundary.py`` hold on both
+engines, with and without ``tie_safe``.
 
 Lengths stay inside one (256, 256) bucket so that each JAX configuration
 compiles once (tens of seconds in interpret mode) for the module."""
@@ -22,7 +25,7 @@ from seqalib_tpu.ops.strip_pallas import strip_bucket as jax_strip_bucket
 from seqalib_tpu.parallel.dispatch import _pad_stack, sentinel_table
 from seqalib_tpu.types import ScoringParams
 from seqalib_tpu_torch.ops.strip import strip_bucket
-from seqalib_tpu_torch.scoring import tables_from_params
+from seqalib_tpu_torch.scoring import scoring_params, tables_from_params
 
 from test_fused_tie_boundary import _tie_problem, _tie_problem_b
 
@@ -57,9 +60,14 @@ def _pairs(alpha, seed):
     return qs, ts
 
 
-def _jax_runs(qs, ts, sp, mode):
+def _port_sp(sp):
+    """The port's ``ScoringParams`` for a JAX-package one."""
+    return scoring_params(sp.match, sp.mismatch, sp.gap_open, sp.gap_extend, sp.matrix)
+
+
+def _jax_runs(qs, ts, sp, mode, pass2):
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("SEQALIB_FUSED_PASS2", "strip")
+        mp.setenv("SEQALIB_FUSED_PASS2", pass2)
         res = sa.align_batch(qs, ts, scoring=sp, mode=mode, backend="pallas")
         raw = jax_strip_bucket(
             _pad_stack(qs, 256), _pad_stack(ts, 256),
@@ -70,19 +78,27 @@ def _jax_runs(qs, ts, sp, mode):
     return [str(r) for r in res], raw
 
 
-@pytest.fixture(scope="module", params=["local_blosum62_affine", "global_dna_linear"])
+# (case, pass-2 engine): the local case runs on both engines
+CASES = {"local_blosum62_affine": "strip", "local_blosum62_affine-banded": "banded",
+         "global_dna_linear": "strip"}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
 def case(request):
+    pass2 = CASES[request.param]
     if request.param.startswith("local"):
         sp, alpha, mode = ScoringParams.blosum62(gap_open=-10, gap_extend=-1), 20, "local"
     else:
         sp, alpha, mode = ScoringParams.linear(), 4, "global"
-    qs, ts = _pairs(alpha, seed=len(request.param))
-    jax_str, jax_raw = _jax_runs(qs, ts, sp, mode)
-    return dict(sp=sp, mode=mode, qs=qs, ts=ts, jax_str=jax_str, jax_raw=jax_raw)
+    qs, ts = _pairs(alpha, seed=len(request.param.split("-")[0]))
+    jax_str, jax_raw = _jax_runs(qs, ts, sp, mode, pass2)
+    return dict(sp=sp, mode=mode, qs=qs, ts=ts, jax_str=jax_str, jax_raw=jax_raw,
+                pass2=pass2)
 
 
-def test_align_batch_matches_jax_and_oracle(case):
-    res = st.align_batch(case["qs"], case["ts"], scoring=case["sp"],
+def test_align_batch_matches_jax_and_oracle(case, monkeypatch):
+    monkeypatch.setenv("SEQALIB_FUSED_PASS2", case["pass2"])
+    res = st.align_batch(case["qs"], case["ts"], scoring=_port_sp(case["sp"]),
                          mode=case["mode"], device="cpu")
     got = [str(r) for r in res]
     assert got == case["jax_str"]
@@ -97,7 +113,8 @@ def test_strip_bucket_raw_dict_matches_jax(case):
     out = strip_bucket(
         _pad_stack(case["qs"], 256), _pad_stack(case["ts"], 256),
         np.array([len(x) for x in case["qs"]]), np.array([len(x) for x in case["ts"]]),
-        tables_from_params(sp, "cpu"), mode=case["mode"], want_tb=True,
+        tables_from_params(_port_sp(sp), "cpu"), mode=case["mode"], want_tb=True,
+        pass2=case["pass2"],
     )
     for k in KEYS:
         np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(case["jax_raw"][k]), err_msg=k)
@@ -112,17 +129,19 @@ def test_mixed_length_buckets_keep_input_order(case):
     lens = [(0, 5), (3, 0), (1, 1), (17, 300), (260, 40), (70, 90), (5, 140)]
     qs = [rng.integers(0, alpha, size=a).astype(np.uint8) for a, _ in lens]
     ts = [rng.integers(0, alpha, size=b).astype(np.uint8) for _, b in lens]
-    res = st.align_batch(qs, ts, scoring=case["sp"], mode=case["mode"], device="cpu")
+    res = st.align_batch(qs, ts, scoring=_port_sp(case["sp"]), mode=case["mode"],
+                         device="cpu")
     want = [str(oracle_fast.align_oracle(q, t, case["sp"], mode=case["mode"]))
             for q, t in zip(qs, ts)]
     assert [str(r) for r in res] == want
 
 
-def _tie_run(problem):
+def _tie_run(problem, pass2="strip", tie_safe=False):
     q, t, sp = problem()
     return strip_bucket(q[None].astype(np.int32), t[None].astype(np.int32),
                         np.array([len(q)]), np.array([len(t)]),
-                        tables_from_params(sp, "cpu"), mode="local", want_tb=True)
+                        tables_from_params(_port_sp(sp), "cpu"), mode="local",
+                        want_tb=True, pass2=pass2, tie_safe=tie_safe)
 
 
 def test_class_a_tie_returns_the_canonical_start():
@@ -144,13 +163,87 @@ def test_class_b_tie_keeps_the_pinned_start():
     assert not out["escalated"][0]
 
 
+def test_default_engine_is_banded_with_its_class_a_pin(monkeypatch):
+    # with no environment set the port runs the JAX default, the banded
+    # pass-2 engine, and returns its in-band co-optimal start
+    # (test_banded_engine_tie_exposure_is_pinned): no escalation
+    monkeypatch.delenv("SEQALIB_FUSED_PASS2", raising=False)
+    monkeypatch.delenv("SEQALIB_FUSED_TIE_SAFE", raising=False)
+    q, t, sp = _tie_problem()
+    out = strip_bucket(q[None].astype(np.int32), t[None].astype(np.int32),
+                       np.array([len(q)]), np.array([len(t)]),
+                       tables_from_params(_port_sp(sp), "cpu"), mode="local",
+                       want_tb=True)
+    assert int(out["score"][0]) == 84
+    assert (int(out["qe"][0]), int(out["te"][0])) == (49, 84)
+    assert (int(out["qs"][0]), int(out["ts"][0])) == (0, 35)
+    assert not out["escalated"][0]
+    assert out["cigars"][0] == "7M35D35I7M"
+    res = st.align(q, t, scoring=_port_sp(sp), mode="local", device="cpu")
+    assert (res.query_start, res.target_start) == (0, 35)
+
+
+def test_banded_engine_keeps_the_class_b_pin():
+    # test_class_b_exposure_is_pinned_without_tie_safe[banded]
+    out = _tie_run(_tie_problem_b, pass2="banded")
+    assert int(out["score"][0]) == 412
+    assert (int(out["qe"][0]), int(out["te"][0])) == (124, 260)
+    assert (int(out["qs"][0]), int(out["ts"][0])) == (0, 192)
+    assert not out["escalated"][0]
+
+
+@pytest.mark.parametrize("pass2", ["banded", "strip"])
+@pytest.mark.parametrize("problem,start,cigar", [
+    (_tie_problem, (35, 0), "7M70D7M"),
+    (_tie_problem_b, (68, 0), "28M204D28M"),
+])
+def test_tie_safe_closes_both_classes(pass2, problem, start, cigar, monkeypatch):
+    # test_tie_safe_mode_closes_the_exposure / test_tie_safe_closes_class_b,
+    # with tie_safe read from the environment as in the JAX package
+    monkeypatch.setenv("SEQALIB_FUSED_TIE_SAFE", "1")
+    monkeypatch.setenv("SEQALIB_FUSED_PASS2", pass2)
+    q, t, sp = problem()
+    out = strip_bucket(q[None].astype(np.int32), t[None].astype(np.int32),
+                       np.array([len(q)]), np.array([len(t)]),
+                       tables_from_params(_port_sp(sp), "cpu"), mode="local",
+                       want_tb=True)
+    assert (int(out["qs"][0]), int(out["ts"][0])) == start
+    assert out["cigars"][0] == cigar
+    # the banded engine escalates both; the strip engine only the pair
+    # whose target window was cut (class b)
+    assert bool(out["escalated"][0]) == (pass2 == "banded" or problem is _tie_problem_b)
+
+
+@pytest.mark.parametrize("pass2", ["banded", "strip"])
+def test_tie_safe_keeps_clean_pairs_exact(pass2):
+    # test_fused_tie_boundary.py::test_tie_safe_keeps_clean_pairs_exact
+    rng = np.random.default_rng(7)
+    jsp = ScoringParams.blosum62()
+    B, L = 8, 96
+    qs = rng.integers(0, 20, size=(B, L)).astype(np.int32)
+    ts = rng.integers(0, 20, size=(B, L)).astype(np.int32)
+    out = strip_bucket(qs, ts, np.full(B, L), np.full(B, L),
+                       tables_from_params(_port_sp(jsp), "cpu"), mode="local",
+                       want_tb=True, pass2=pass2, tie_safe=True)
+    for b in range(B):
+        o = oracle_fast.align_oracle(qs[b], ts[b], jsp, mode="local")
+        assert (int(out["score"][b]), int(out["qs"][b]), int(out["ts"][b]),
+                out["cigars"][b]) == (o.score, o.query_start, o.target_start, o.cigar), b
+
+
+def test_unknown_pass2_engine_is_refused():
+    with pytest.raises(ValueError, match="pass2"):
+        _tie_run(_tie_problem, pass2="none")
+
+
 def test_small_nonuniform_matrix_follows_the_oracle():
     # Known divergence from JAX: for tables of <= 8 rows the JAX kernel
     # scores by table[0,0] / table[0,1] (strip_pallas._prep_strip) and
     # returns 11 here; the port looks every score up, as the oracle does.
     mat = np.array([[2, -1, -3, -3], [-1, 2, -3, -3], [-3, -3, 2, -1], [-3, -3, -1, 2]])
     sp = ScoringParams(gap_open=0, gap_extend=-2, matrix=mat)
-    got = st.align("ACGTAGGCTA", "ACATGGCTTA", scoring=sp, mode="global", device="cpu")
+    got = st.align("ACGTAGGCTA", "ACATGGCTTA", scoring=_port_sp(sp), mode="global",
+                   device="cpu")
     want = sa.align("ACGTAGGCTA", "ACATGGCTTA", scoring=sp, mode="global", backend="oracle")
     assert str(got) == str(want)
     assert (got.score, got.cigar) == (9, "4M1I3M1D2M")
@@ -158,12 +251,20 @@ def test_small_nonuniform_matrix_follows_the_oracle():
 
 def test_oracle_backend_and_api_errors():
     sp = ScoringParams.linear()
-    got = st.align_batch(["ACGT"], ["AGT"], scoring=sp, backend="oracle", device="cpu")
+    got = st.align_batch(["ACGT"], ["AGT"], scoring=_port_sp(sp), backend="oracle",
+                         device="cpu")
     assert str(got[0]) == str(sa.align("ACGT", "AGT", scoring=sp, mode="local", backend="oracle"))
+    got = st.align_batch(["ACGTTA"], ["AGTA"], scoring=_port_sp(sp), mode="global",
+                         band=2, backend="oracle", device="cpu")
+    want = sa.align("ACGTTA", "AGTA", scoring=sp, mode="global", band=2, backend="oracle")
+    assert str(got[0]) == str(want)
     with pytest.raises(ValueError, match="backend"):
         st.align_batch(["ACGT"], ["AGT"], backend="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        st.align_batch(["ACGT"], ["AGT"], mode="global", band=4, device="cpu")
+    wide = np.full((4, 4), -20)
+    np.fill_diagonal(wide, 20)
+    with pytest.raises(NotImplementedError, match="kernel 7"):
+        st.align_batch(["ACGT"], ["AGT"], mode="global", band=4, device="cpu",
+                       scoring=scoring_params(0, 0, -5, -2, wide))
     with pytest.raises(NotImplementedError, match="item 8"):
         st.align_batch(["ACGT"], ["AGT"], mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="out of contract"):
@@ -178,11 +279,17 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_port_never_imports_jax():
+    # neither jax nor any module of the JAX package, after a local call
+    # and a banded global call
     code = (
         "import sys, seqalib_tpu_torch as st\n"
         "r = st.align_batch(['ACGTACGT', 'TTGCA'], ['ACGACGT', 'TTGGCA'], device='cpu')\n"
         "assert r[0].score > 0, r\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "g = st.align_batch(['ACGTACGTAA'], ['ACGACGTTA'], mode='global', band=3,\n"
+        "                   device='cpu')\n"
+        "assert g[0].cigar, g\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'seqalib_tpu'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of a warm ``seqalib_tpu_torch.align_batch`` call goes.
 
-    python3 tools/profile_port.py [--config 3|1] [--batch B] [--calls N]
+    python3 tools/profile_port.py [--config 3|1|4] [--batch B] [--calls N]
                                   [--device cuda|cpu]
 
 Inputs are those of ``chip_smoke.py`` (seed 0): config 3 is B=512
 BLOSUM62 o=-10 e=-1 local pairs of 1024 x 1024 with full CIGARs, config 1
-is B=512 DNA global linear-gap pairs of 256 x 256.  After two warm-up
-calls the script
+is B=512 DNA global linear-gap pairs of 256 x 256, config 4 is B=64 DNA
+pairs of 10 kb (the target is the query with 2% substitutions) aligned
+globally in a band of 128, match 2, mismatch -3, o=-5, e=-2, with full
+CIGARs.  After two warm-up calls the
+script
 
 1. times N calls by the host clock (median, all values printed);
 2. runs N calls under ``torch.profiler`` and prints each device op's total
@@ -43,6 +46,18 @@ import seqalib_tpu_torch as st  # noqa: E402
 
 def inputs(config: int, batch: int):
     rng = np.random.default_rng(0)
+    if config == 4:
+        sp = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+        length = 10_000
+        qs, ts = [], []
+        for _ in range(batch):
+            q = rng.integers(0, 4, length).astype(np.uint8)
+            t = q.copy()
+            idx = rng.choice(length, length // 50, replace=False)
+            t[idx] = (t[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
+            qs.append(q)
+            ts.append(t)
+        return qs, ts, sp, "global"
     if config == 3:
         sp = st.ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
         alpha, L, mode = 20, 1024, "local"
@@ -73,20 +88,25 @@ def busy_us(intervals):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", type=int, choices=(1, 3), default=3)
-    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--config", type=int, choices=(1, 3, 4), default=3)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="pairs per call (default 512; 64 for config 4)")
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    if args.batch is None:
+        args.batch = 64 if args.config == 4 else 512
     dev = torch.device(args.device)
     if dev.type == "cuda":
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     qs, ts, sp, mode = inputs(args.config, args.batch)
+    band = 128 if args.config == 4 else None
 
     def run():
-        st.align_batch(qs, ts, scoring=sp, mode=mode, traceback=True, device=dev)
+        st.align_batch(qs, ts, scoring=sp, mode=mode, band=band, traceback=True,
+                       device=dev)
         sync(dev)
 
     for _ in range(2):
