@@ -31,9 +31,32 @@ Phases (any failure raises and exits non-zero):
    every CIGAR consumes its pair and re-scores to the reported score; 8
    pairs cut to 1024 x 1088 equal the banded oracle; then a band sweep
    (64, 256) and B=8 pairs of 100 kb at band 64, re-scored;
-6. every kernel was launched by its path: the launch counts are set to 0
+6. the full-matrix sequence-parallel path on a mesh of one device:
+   ``align_sp`` on a 10 240 x 8 192 DNA pair (the target is the query's
+   first 8 192 letters with 150 substitutions; match 2, mismatch -3, o=-5,
+   e=-2; tiles of 256 columns), ``align_score_sp`` global and local on a
+   16 384 x 16 384 pair (2% substitutions and a few indels); warm wall time
+   and GCUPS; every score equals the port's strip-engine ``align_batch``
+   score for the same pair, the CIGAR consumes the pair and re-scores to
+   its score, and ``align_sp`` on a mesh of four entries naming the one
+   card gives the same result; ``align_sp`` on a 1 536-letter pair equals
+   the oracle (``str(AlignResult)``) on meshes of 1 and 4;
+7. the banded route for tables outside [-4, 11] (the full-matrix
+   wavefront): B=64 protein pairs of 1 000 letters (the target is the
+   query with 5% substitutions and a few indels), band 64, 2 x BLOSUM62
+   with o=-20, e=-2, full CIGAR, then score-only; every result equals the
+   BLOSUM62 o=-10, e=-1 banded route's (``band_fill``) with the score
+   doubled, 8 pairs equal the banded oracle; warm wall, pairs/s,
+   GCUPS(n*w);
+8. every kernel was launched by its path: the launch counts are set to 0
    just before each path's runs (1 warm-up + 3 timed calls) and read just
    after.
+
+The kernel phase also holds the sequence-parallel tile (``sp_tile``, three
+modes, on the first 2048 rows of the SP path's tile of the first 256
+columns, with the whole tile's kernel time printed beside) and the
+wavefront fill (pointer and score-only modes, at the wide-table phase's
+shapes) against their plain versions.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  The script imports only the
@@ -69,9 +92,17 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # (and a subtract and a max for the tie_safe bound), pointer emission two
 # compares for the move and two for the extend bits
 OPS_PER_CELL = {"strip_fill/local": 11, "strip_fill/emode": 10, "strip_fill/gmode": 13,
-                "band_fill/fill": 9, "band_fill/ptr": 13, "band_fill/emode": 10}
+                "band_fill/fill": 9, "band_fill/ptr": 13, "band_fill/emode": 10,
+                "sp_tile/global": 9, "sp_tile/local": 11, "sp_tile/ptr": 13,
+                "wavefront_fill/score": 9, "wavefront_fill/ptr": 13}
+# the SP phase (6) and the wide-table phase (7)
+SP_N, SP_M, SP_SUBS, SP_C, SP_LONG, SP_CUT_ROWS = 10_240, 8_192, 150, 256, 16_384, 2048
+SP_ORACLE_N = 1536  # align_sp held to the oracle, str(AlignResult), on meshes of 1 and 4
+B7, L7, BAND7 = 64, 1000, 64
 STRIP = "seqalib_tpu/ops/strip_pallas.py"
 BANDED = "seqalib_tpu/ops/banded_pallas.py"
+SPTILE = "seqalib_tpu/ops/sp_tile_pallas.py"
+WAVEFRONT = "seqalib_tpu/ops/wavefront_pallas.py"
 KERNELS = {  # launch-counter key -> (CUDA source, replaced Pallas kernel, path)
     "row_window": ("row_window.cu", f"{STRIP}:157", "config3"),
     "strip_fill/local": ("strip_fill.cu", f"{STRIP}:230", "config3"),
@@ -82,6 +113,11 @@ KERNELS = {  # launch-counter key -> (CUDA source, replaced Pallas kernel, path)
     "band_fill/fill": ("band_fill.cu", f"{BANDED}:90", "config4"),
     "band_fill/ptr": ("band_fill.cu", f"{BANDED}:90", "config4"),
     "band_walk": ("band_walk.cu", f"{BANDED}:890", "config4"),
+    "sp_tile/global": ("sp_tile.cu", f"{SPTILE}:52", "sp_align"),
+    "sp_tile/ptr": ("sp_tile.cu", f"{SPTILE}:52", "sp_align"),
+    "sp_tile/local": ("sp_tile.cu", f"{SPTILE}:52", "sp_local"),
+    "wavefront_fill/ptr": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide"),
+    "wavefront_fill/score": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide_score"),
 }
 
 
@@ -169,6 +205,16 @@ def bound(key, args, kw, out):
         q, t2, qlen, tlen = args[:4]
         cells = int((qlen.long() * tlen.long()).sum())
         nbytes = _nbytes(args[:4]) + _nbytes(args[4].table) + _nbytes(out)
+    elif name == "sp_tile":  # every cell of the R x C tile; ptr: a byte each
+        cells = args[0].shape[0] * kw["C"]
+        nbytes = _nbytes(args) + _nbytes(out)
+    elif name == "wavefront_fill":  # the in-band cells of each pair's matrix
+        qlen, tlen = (v.cpu().numpy().astype(np.int64) for v in args[2:4])
+        d = tlen - qlen
+        cells = _band_cells(qlen, tlen, np.minimum(0, d) - kw["band"],
+                            np.maximum(0, d) + kw["band"], 0, kw["K"])
+        # the walk reads the in-band cells' bytes of the (K, B, Np) stream
+        nbytes = _nbytes(args) + _nbytes(out["score"]) + cells * ("ptr" in out)
     else:  # band_fill
         qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab = args
         if kw["mode"] == "emode":
@@ -202,36 +248,46 @@ def row_window_library_ms(args, kw):
 
 def check_kernel(key, kernel, plain):
     """Kernel and plain version on the same inputs: exact equality, then
-    both timed per call (wrapper included)."""
+    both timed per call (wrapper included; the plain version on the one
+    call compared, or on a second call when that one was short)."""
     import torch
 
     got = kernel()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     want = plain()
+    end.record()
     torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     err = max_abs_err(got, want)
     if err != 0:
         raise AssertionError(f"{key}: kernel differs from its plain version by {err}")
+    if plain_ms < 100:  # first-use loading of PyTorch's kernels dominates a short call
+        plain_ms = time_ms(plain, 1, warm=False)
     ms = time_ms(kernel, 5)
-    plain_ms = time_ms(plain, 1, warm=False)  # warm from the comparison
     say(f"[kernel] {key}: equal to plain version; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, got
 
 
 def _key(name, kw):
-    return f"{name}/{kw['mode']}" if name in ("strip_fill", "band_fill") else name
+    if name == "wavefront_fill":
+        return f"{name}/" + ("ptr" if kw["want_ptr"] else "score")
+    return f"{name}/{kw['mode']}" if name in ("strip_fill", "band_fill", "sp_tile") else name
 
 
-def record(run, targets):
+def record(run, targets, keep=lambda kw: True):
     """Run ``run()`` with each wrapper ``(module, name, plain)`` of
-    ``targets`` patched to keep its first call per key: (kernel, plain,
-    args, kwargs, result)."""
+    ``targets`` patched to keep its first call per key whose keywords
+    ``keep`` accepts: (kernel, plain, args, kwargs, result)."""
     calls = {}
 
     def recording(name, fn, plain):
         def wrapped(*args, **kw):
             res = fn(*args, **kw)
-            calls.setdefault(_key(name, kw), (fn, plain, args, kw, res))
+            if keep(kw):
+                calls.setdefault(_key(name, kw), (fn, plain, args, kw, res))
             return res
         return wrapped
 
@@ -313,6 +369,52 @@ def kernel_phase4(qs, ts, sp, dev):
     per_kernel["band_fill/ptr"] = kernel_entry("band_fill/ptr", fn, plain, args, cut)
     fn, plain, args, kw, _ = calls["band_walk"]
     per_kernel["band_walk"] = kernel_entry("band_walk", fn, plain, args, kw)
+    return per_kernel
+
+
+def kernel_phase_sp(q, t, sp, dev):
+    """The SP path's tile calls: ``align_sp`` (global fill and pointer
+    tiles) and the local score on (q, t); each mode held against the plain
+    version on the first SP_CUT_ROWS rows of the tile of the first 256
+    columns, where the alignment runs near the diagonal and pointer ties
+    occur (two kernel strips; the plain version takes one Python step per
+    substep), and the kernel timed on the whole tile as well."""
+    from seqalib_tpu_torch.ops import sp_tile as tile_mod
+    from seqalib_tpu_torch.parallel import band_pipeline as bp_mod
+
+    targets = [(bp_mod, "sp_tile", tile_mod.sp_tile_ref)]
+    mesh = (dev,)
+    first = lambda kw: kw["j0"] == 0  # noqa: E731
+    calls, _ = record(lambda: bp_mod.nw_affine_align_sp(q, t, sp, mesh, C=SP_C), targets,
+                      first)
+    calls_l, _ = record(lambda: bp_mod.sw_affine_score_sp(q, t, sp, mesh, C=SP_C), targets,
+                        first)
+    calls.update(calls_l)
+    per_kernel = {}
+    for key in ("sp_tile/global", "sp_tile/local", "sp_tile/ptr"):
+        fn, plain, args, kw, _ = calls[key]
+        whole = time_ms(lambda: fn(*args, **kw), 3)
+        cut = tuple(a[:SP_CUT_ROWS] if i in (0, 4, 5) else a for i, a in enumerate(args))
+        per_kernel[key] = kernel_entry(key, fn, plain, cut, kw)
+        say(f"[kernel] {key}: whole tile {args[0].shape[0]} x {kw['C']} "
+            f"(i0={kw['i0']}, j0={kw['j0']}): {whole:.3f} ms")
+    return per_kernel
+
+
+def kernel_phase_wide(qs, ts, sp, dev):
+    """The wide-table route's fills, pointer and score-only, at the
+    phase's shapes."""
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch.ops import wavefront as wf_mod
+
+    targets = [(wf_mod, "wavefront_fill", wf_mod.wavefront_fill_ref)]
+    per_kernel = {}
+    for tb in (True, False):
+        calls, _ = record(lambda: st.align_batch(qs, ts, scoring=sp, mode="global",
+                                                 band=BAND7, traceback=tb, device=dev),
+                          targets)
+        for key, (fn, plain, args, kw, _) in calls.items():
+            per_kernel[key] = kernel_entry(key, fn, plain, args, kw)
     return per_kernel
 
 
@@ -424,13 +526,138 @@ def config4_oracle(qs, ts, sp, band, dev):
         f"equal to the banded oracle")
 
 
+def sp_pairs(rng):
+    """Phase 6's pairs: (q, t) of 10 240 x 8 192 (t is q's first 8 192
+    letters with 150 substitutions), a 16 384 x 16 384 pair (2%
+    substitutions, three indels) and a SP_ORACLE_N pair (2% substitutions,
+    a 12-letter deletion, a 9-letter insertion)."""
+    q = rng.integers(0, 4, SP_N).astype(np.int32)
+    t = q[:SP_M].copy()
+    idx = rng.choice(SP_M, SP_SUBS, replace=False)
+    t[idx] = (t[idx] + 1 + rng.integers(0, 3, SP_SUBS)) % 4
+    q16 = rng.integers(0, 4, SP_LONG).astype(np.int32)
+    t16 = q16.copy()
+    idx = rng.choice(SP_LONG, SP_LONG // 50, replace=False)
+    t16[idx] = (t16[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
+    a, b, c = SP_LONG // 4, SP_LONG * 9 // 16, SP_LONG * 13 // 16
+    t16 = np.insert(np.delete(t16, np.arange(a, a + 7)), b, rng.integers(0, 4, 5))
+    t16 = np.delete(t16, [c]).astype(np.int32)
+    qo = rng.integers(0, 4, SP_ORACLE_N).astype(np.int32)
+    to = qo.copy()
+    idx = rng.choice(SP_ORACLE_N, SP_ORACLE_N // 50, replace=False)
+    to[idx] = (to[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
+    a, b = SP_ORACLE_N // 3, SP_ORACLE_N * 2 // 3
+    to = np.insert(np.delete(to, np.arange(a, a + 12)), b, rng.integers(0, 4, 9))
+    return q, t, q16, t16, qo, to.astype(np.int32)
+
+
+def strip_score(q, t, sp, mode, dev):
+    """The strip engine's score for one pair (an independent kernel)."""
+    import seqalib_tpu_torch as st
+
+    return st.align_batch([q.astype(np.uint8)], [t.astype(np.uint8)], scoring=sp,
+                          mode=mode, traceback=False, device=dev)[0].score
+
+
+def sp_runs(q, t, q16, t16, qo, to, sp, dev, counts):
+    """Phase 6: ``align_sp`` and ``align_score_sp`` on a mesh of one card."""
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch.ops import reset_launches, launches
+
+    mesh = st.make_band_mesh([dev])
+    reset_launches()
+    res, walls = timed_runs(lambda: st.align_sp(q, t, sp, mesh, C=SP_C))
+    counts["sp_align"] = dict(launches)
+    wall = statistics.median(walls)
+    say(f"[sp] align_sp {len(q)} x {len(t)} C={SP_C} wall {wall:.4f} s (reps {walls}); "
+        f"{len(q) * len(t) / wall / 1e9:.3f} GCUPS")
+    want = strip_score(q, t, sp, "global", dev)
+    check_cigars("sp", [q], [t], [res], sp)
+    if res.score != want:
+        raise AssertionError(f"align_sp score {res.score} != strip engine {want}")
+    four = st.align_sp(q, t, sp, st.make_band_mesh([dev] * 4), C=SP_C)
+    if str(four) != str(res):
+        raise AssertionError(f"align_sp on a mesh of 4: {four} != {res}")
+    say(f"[sp] align_sp score {res.score} == strip engine; the CIGAR consumes the pair "
+        f"and re-scores to it; a mesh of 4 gives the same result")
+    want = st.align(qo, to, scoring=sp, mode="global", backend="oracle")
+    for D in (1, 4):
+        got = st.align_sp(qo, to, sp, st.make_band_mesh([dev] * D), C=SP_C)
+        if str(got) != str(want):
+            raise AssertionError(f"align_sp on a mesh of {D}: {got} != oracle {want}")
+    say(f"[sp] align_sp {len(qo)} x {len(to)} equals the oracle on meshes of 1 and 4")
+    for mode, path in (("global", "sp_score"), ("local", "sp_local")):
+        reset_launches()
+        got, walls = timed_runs(lambda: st.align_score_sp(q16, t16, sp, mesh, mode=mode,
+                                                          C=SP_C))
+        counts[path] = dict(launches)
+        wall = statistics.median(walls)
+        say(f"[sp] align_score_sp {mode} {len(q16)} x {len(t16)} wall {wall:.4f} s "
+            f"(reps {walls}); {len(q16) * len(t16) / wall / 1e9:.3f} GCUPS")
+        t0 = time.perf_counter()
+        want = strip_score(q16, t16, sp, mode, dev)
+        if got != want:
+            raise AssertionError(f"align_score_sp {mode} {got} != strip engine {want}")
+        say(f"[sp] {mode} score {got} == strip engine ({time.perf_counter() - t0:.1f} s)")
+
+
+def wide_pairs(rng):
+    """Phase 7's pairs: proteins of L7 letters, the target the query with
+    5% substitutions, a 3-letter deletion and a 2-letter insertion."""
+    qs, ts = [], []
+    for _ in range(B7):
+        q = rng.integers(0, 20, L7).astype(np.uint8)
+        t = q.copy()
+        idx = rng.choice(L7, L7 // 20, replace=False)
+        t[idx] = (t[idx] + 1 + rng.integers(0, 19, len(idx))) % 20
+        a, b = sorted(rng.choice(np.arange(50, L7 - 50), 2, replace=False))
+        t = np.insert(np.delete(t, [a, a + 1, a + 2]), b, rng.integers(0, 20, 2))
+        qs.append(q)
+        ts.append(t.astype(np.uint8))
+    return qs, ts
+
+
+def wide_runs(qs, ts, sp2, sp1, dev, counts):
+    """Phase 7: the wide-table banded route, full CIGAR then score-only."""
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch.ops import reset_launches, launches
+
+    cells = sum(len(q) * 2 * BAND7 for q in qs)
+    out = {}
+    for tb, path in ((True, "wide"), (False, "wide_score")):
+        reset_launches()
+        res, walls = timed_runs(lambda: st.align_batch(qs, ts, scoring=sp2, mode="global",
+                                                       band=BAND7, traceback=tb, device=dev))
+        counts[path] = dict(launches)
+        wall = statistics.median(walls)
+        say(f"[{path}] B={len(qs)} L={L7} band={BAND7} traceback={tb} wall {wall:.4f} s "
+            f"(reps {walls}); {len(qs) / wall:.2f} pairs/s; {cells / wall / 1e9:.3f} "
+            f"GCUPS(n*w)")
+        out[tb] = res
+    if [r.score for r in out[False]] != [r.score for r in out[True]]:
+        raise AssertionError("wide: score-only scores differ from the full run's")
+    check_cigars("wide", qs, ts, out[True], sp2)
+    ref = st.align_batch(qs, ts, scoring=sp1, mode="global", band=BAND7, device=dev)
+    for b, (x, y) in enumerate(zip(ref, out[True])):
+        if (2 * x.score, str(x).split(" ", 1)[1]) != (y.score, str(y).split(" ", 1)[1]):
+            raise AssertionError(f"wide pair {b}: {y} is not 2 x the banded route's {x}")
+    say(f"[wide] {len(qs)}/{len(qs)} results equal the BLOSUM62 banded route's "
+        f"(band_fill) with the score doubled; every CIGAR re-scores to its score")
+    want = st.align_batch(qs[:N_ORACLE4], ts[:N_ORACLE4], scoring=sp2, mode="global",
+                          band=BAND7, backend="oracle")
+    for b, (g, w) in enumerate(zip(out[True], want)):
+        if str(g) != str(w):
+            raise AssertionError(f"wide pair {b}: {g} != oracle {w}")
+    say(f"[wide] {N_ORACLE4}/{N_ORACLE4} pairs equal to the banded oracle")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from seqalib_tpu_torch import ScoringParams, _build
+    from seqalib_tpu_torch import BLOSUM62, ScoringParams, _build
     from seqalib_tpu_torch.ops import launches, reset_launches
 
     t_start = time.perf_counter()
@@ -458,10 +685,15 @@ def main() -> int:
     t1 = rng.integers(0, 4, size=(B3, 256)).astype(np.uint8)
     sp4 = ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
     qs4, ts4 = long_reads(rng, B4, L4)
+    qsp, tsp, q16, t16, qo, to = sp_pairs(rng)
+    sp7 = ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * BLOSUM62)
+    qs7, ts7 = wide_pairs(rng)
 
     per_kernel, escalated = kernel_phase3(q3, t3, sp3, dev)
     say(f"[config3] escalated pairs: {escalated}/{B3}")
     per_kernel.update(kernel_phase4(qs4, ts4, sp4, dev))
+    per_kernel.update(kernel_phase_sp(qsp, tsp, sp4, dev))
+    per_kernel.update(kernel_phase_wide(qs7, ts7, sp7, dev))
     say(f"[time] kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     counts = {}
@@ -489,6 +721,10 @@ def main() -> int:
         banded_run(f"config4_band{band}", qs4, ts4, sp4, band, dev, 1)
     q100, t100 = long_reads(rng, 8, 100_000)
     banded_run("config4_100kb", q100, t100, sp4, 64, dev, 1)
+    say(f"[time] configs done at {time.perf_counter() - t_start:.1f} s")
+    sp_runs(qsp, tsp, q16, t16, qo, to, sp4, dev, counts)
+    say(f"[time] SP phase done at {time.perf_counter() - t_start:.1f} s")
+    wide_runs(qs7, ts7, sp7, sp3, dev, counts)
     say(f"[time] paths done at {time.perf_counter() - t_start:.1f} s")
 
     for path, c in counts.items():

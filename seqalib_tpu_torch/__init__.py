@@ -1,9 +1,11 @@
 """seqalib_tpu_torch — the PyTorch + CUDA port of seqalib_tpu.
 
 Runs local and global alignment (scores, canonical coordinates, full
-CIGARs) and banded global alignment of long reads (``band=``) on an NVIDIA
-Hopper card through hand-written CUDA kernels, and on the CPU through their
-plain PyTorch versions.  It keeps its own copies of the types, the oracle
+CIGARs), banded global alignment of long reads (``band=``) and the
+full-matrix alignment of one long pair split over a list of devices
+(``align_score_sp``, ``align_sp``) on an NVIDIA Hopper card through
+hand-written CUDA kernels, and on the CPU through their plain PyTorch
+versions.  It keeps its own copies of the types, the oracle
 and the CIGAR codec, and imports nothing of ``seqalib_tpu`` or JAX.
 """
 
@@ -18,3 +20,30 @@ from .types import (  # noqa: F401
 )
 
 from .api import align, align_batch  # noqa: F401
+from .parallel.band_pipeline import make_band_mesh  # noqa: F401
+
+
+def align_score_sp(query, target, scoring, mesh, mode="global", **kw):
+    """Affine score of ONE long pair computed by row-blocks x column tiles
+    over ``mesh`` (a tuple of devices, ``make_band_mesh``).  ``mode``:
+    "global" (NW) or "local" (SW).  ``query``/``target``: 1-D letter codes.
+    See ``parallel.band_pipeline.nw_affine_score_sp`` /
+    ``sw_affine_score_sp``."""
+    from .parallel.band_pipeline import nw_affine_score_sp, sw_affine_score_sp
+
+    if mode == "local":
+        return sw_affine_score_sp(query, target, scoring, mesh, **kw)
+    if mode != "global":
+        raise ValueError(f"mode must be 'global' or 'local', got {mode!r}")
+    return nw_affine_score_sp(query, target, scoring, mesh, **kw)
+
+
+def align_sp(query, target, scoring, mesh, **kw):
+    """Global affine alignment (score + full CIGAR) of ONE long pair over
+    ``mesh``: the pipeline fill with boundary checkpoints, then a walk that
+    recomputes only the pointer tiles the optimal path visits.  See
+    ``parallel.band_pipeline.nw_affine_align_sp``."""
+    from .parallel.band_pipeline import nw_affine_align_sp
+
+    return nw_affine_align_sp(query, target, scoring, mesh, **kw)
+

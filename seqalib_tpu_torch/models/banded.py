@@ -94,9 +94,9 @@ def banded_align_batch(
     if sp.matrix is not None and not banded_matrix_supported(table):
         raise NotImplementedError(
             "banded matrix scoring takes tables in [-4, 11] with at most 30 "
-            "letters, as the JAX package's banded kernel; wider tables run on "
-            "the full-matrix wavefront kernel, not ported yet (ROADMAP.md "
-            "Queue 2, kernel 7)"
+            "letters, as the JAX package's banded kernel; align_batch(band=) "
+            "sends wider tables to the full-matrix wavefront (kernel 7, "
+            "ops/wavefront.py)"
         )
     dev = torch.device("cuda" if device is None else device)
     qs = np.asarray(qs, np.int32)

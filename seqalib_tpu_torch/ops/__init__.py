@@ -2,8 +2,8 @@
 
 ``launches`` counts, per kernel, the launches each wrapper made on a CUDA
 tensor (a call on a CPU tensor runs the plain PyTorch version and counts
-nothing).  ``strip_fill`` and ``band_fill`` count each mode under its own
-key.
+nothing).  ``strip_fill``, ``band_fill``, ``sp_tile`` and ``wavefront_fill``
+count each mode under its own key.
 """
 
 from __future__ import annotations
@@ -18,6 +18,11 @@ launches: dict[str, int] = {
     "band_fill/ptr": 0,
     "band_fill/emode": 0,
     "band_walk": 0,
+    "sp_tile/global": 0,
+    "sp_tile/local": 0,
+    "sp_tile/ptr": 0,
+    "wavefront_fill/ptr": 0,
+    "wavefront_fill/score": 0,
 }
 
 

@@ -1,0 +1,283 @@
+"""Full-matrix anti-diagonal wavefront with a band mask, and the bucket
+function around it (counterpart of ``seqalib_tpu/ops/wavefront_pallas.py``:
+``_fill`` / ``_fill_kernel`` and the banded branch of ``pallas_bucket``).
+
+The route: ``align_batch(band=w, mode="global")`` with a substitution
+table outside the packed-nibble range [-4, 11] (``banded_matrix_supported``
+is false) goes through the length buckets to ``wavefront_bucket``, as in
+the JAX package.  Only the modes that route reaches are ported: global,
+affine (a band forces affine gaps), band mask, with pointers
+(``want_ptr``) or score-only.  Not ported, because no entry point reaches
+them (``pallas_bucket`` sends unbanded work to the strip engine, and banded
+local is out of contract): local with start propagation, linear gaps, no
+band.
+
+``wavefront_fill`` layout: lanes are query positions.  On anti-diagonal
+``k`` slot ``i`` (0 <= i < Np) holds cell (i, j = k - i); every slot is
+computed on every diagonal ``k < K``, the ones with j < 0 included, exactly
+as the TPU kernel computes them (a slot with j < 0 reads target letter 0),
+so every pointer byte the walk can read, the extend bits of row 0 and
+column 0 included, is the TPU kernel's.  Inputs, for a batch of B pairs:
+
+* ``qpad`` (B, Np) int32: ``qpad[:, i] = q[i - 1]`` for 1 <= i <= qlen,
+  else the query sentinel;
+* ``tk`` (B, Kw >= K) int32: ``tk[:, x] = t[x - 1]`` for 1 <= x <= tlen,
+  else the target sentinel;
+* ``qlen``, ``tlen`` (B,) int32; the band of a pair is
+  ``min(0, d) - band <= j - i <= max(0, d) + band`` with d = tlen - qlen;
+* ``tab`` (NT, NT) int32: ``tab[qletter, tletter]``, letters clamped to
+  [0, NT - 1] (``wide_table`` scores the sentinels as the TPU kernel's
+  route does).
+
+Outputs: ``score`` (B,) int32, H of cell (qlen, tlen); with ``want_ptr``
+also ``ptr`` (K, B, Np) uint8, ``ptr[k, b, i]`` = ``PTR_* | ext_e << 2 |
+ext_f << 3`` of cell (i, k - i), taken before the band mask.  Kernel:
+``csrc/wavefront_fill.cu``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..scoring import sentinel_table
+from ..types import NEG_INF, PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP, ScoringParams
+from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD, op_rows_to_cigars
+from . import launches
+
+LANES = 128
+MAX_TABLE = 66  # the kernel keeps the score table in shared memory
+# slot rows (2 H, 2 F, E, shifted H) stay in shared memory while they fit
+# beside the table in this many bytes; wider buckets keep them in a global
+# scratch buffer
+SMEM_BYTES = 200 * 1024
+_EXT_E_BIT = 2
+_EXT_F_BIT = 3
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def wide_table(sp: ScoringParams) -> np.ndarray:
+    """(A + 3, A + 3) int32 table for ``wavefront_fill``: the A real
+    letters score as ``sp`` (as the oracle); letters A + 1 and A + 2 are
+    the query and target sentinels (the JAX kernel's ``SENT_Q = A1``,
+    ``SENT_T = A1 + 1`` over the (A1, A1) sentinel table).  The sentinels
+    score 0 on the JAX kernel's profile route (tables of more than 8 rows)
+    and ``mismatch`` (the sentinel table's ``[0, 1]``) on its scalar route,
+    where they never match."""
+    table = sp.substitution_matrix()
+    A = table.shape[0]
+    sent = 0 if A + 1 > 8 else int(sentinel_table(sp)[0, 1])
+    out = np.full((A + 3, A + 3), sent, np.int32)
+    out[:A, :A] = table
+    return out
+
+
+def _check(qpad, tk, qlen, tlen, tab, K):
+    dev = qpad.device
+    for name, x in (("qpad", qpad), ("tk", tk), ("qlen", qlen), ("tlen", tlen),
+                    ("tab", tab)):
+        if x.dtype != torch.int32 or x.device != dev:
+            raise ValueError(f"wavefront_fill: {name} must be int32 on {dev}")
+    if qpad.dim() != 2 or tk.dim() != 2 or tk.shape[0] != qpad.shape[0]:
+        raise ValueError("wavefront_fill: qpad and tk must be (B, Np) and (B, Kw)")
+    B = qpad.shape[0]
+    if qlen.shape != (B,) or tlen.shape != (B,):
+        raise ValueError(f"wavefront_fill: qlen and tlen must be ({B},)")
+    if not 1 <= K <= tk.shape[1]:
+        raise ValueError("wavefront_fill: need 1 <= K <= tk.shape[1]")
+    NT = tab.shape[0]
+    if tab.shape != (NT, NT) or not 1 <= NT <= MAX_TABLE:
+        raise ValueError(f"wavefront_fill: tab must be (NT, NT) with NT <= {MAX_TABLE}")
+
+
+def wavefront_fill_ref(qpad, tk, qlen, tlen, tab, *, K: int, band: int,
+                       gap_open: int, gap_extend: int, want_ptr: bool):
+    """Plain PyTorch version: vectorized over (B, Np), one Python step per
+    anti-diagonal (int32, the kernel's values)."""
+    dev = qpad.device
+    B, Np = qpad.shape
+    NT = tab.shape[0]
+    e, oe = gap_extend, gap_open + gap_extend
+    i32 = dict(dtype=torch.int32, device=dev)
+    tabf = tab.flatten()
+    qrow = qpad.clamp(0, NT - 1).long() * NT
+    tkc = tk.clamp(0, NT - 1).long()
+    iarr = torch.arange(Np, device=dev)[None, :]
+    ql, tl = qlen.long(), tlen.long()
+    delta = tl - ql
+    dlo = (torch.clamp(delta, max=0) - band)[:, None]
+    dhi = (torch.clamp(delta, min=0) + band)[:, None]
+    fin = ql + tl
+    rows = torch.arange(B, device=dev)
+    qcol = ql.clamp(max=Np - 1)
+    neg_col = torch.full((B, 1), NEG_INF, **i32)
+    H1 = E1 = F1 = sH = torch.full((B, Np), NEG_INF, **i32)
+    score = torch.zeros(B, **i32)
+    ptrs = []
+    for k in range(K):
+        j = k - iarr
+        W = torch.where(j < 0, 0, tkc.gather(1, j.clamp(min=0).expand(B, -1)))
+        s = tabf[qrow + W]
+        sH1 = torch.cat([neg_col, H1[:, :-1]], 1)
+        d = sH + s
+        e_ext, e_opn = E1 + e, H1 + oe
+        f_ext, f_opn = torch.cat([neg_col, F1[:, :-1]], 1) + e, sH1 + oe
+        En = torch.maximum(e_ext, e_opn)
+        Fn = torch.maximum(f_ext, f_opn)
+        best = torch.maximum(torch.maximum(d, Fn), En)
+        ptr = torch.where(d == best, PTR_DIAG, torch.where(Fn == best, PTR_UP, PTR_LEFT))
+        Hn = best
+        if k == 0:  # the origin
+            Hn = torch.where(iarr == 0, 0, Hn).to(torch.int32)
+            ptr = torch.where(iarr == 0, PTR_STOP, ptr)
+        dkj = k - 2 * iarr
+        oob = (dkj < dlo) | (dkj > dhi)
+        Hn = torch.where(oob, NEG_INF, Hn)
+        En = torch.where(oob, NEG_INF, En)
+        Fn = torch.where(oob, NEG_INF, Fn)
+        score = torch.where(fin == k, Hn[rows, qcol], score)
+        if want_ptr:
+            ptrs.append((ptr | ((e_ext >= e_opn).long() << _EXT_E_BIT)
+                         | ((f_ext >= f_opn).long() << _EXT_F_BIT)).to(torch.uint8))
+        H1, sH, E1, F1 = Hn, sH1, En, Fn
+    out = {"score": score}
+    if want_ptr:
+        out["ptr"] = torch.stack(ptrs)
+    return out
+
+
+def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: int,
+                   gap_extend: int, want_ptr: bool):
+    """Fill diagonals [0, K) of every pair; see the module docstring.  A
+    CPU tensor runs ``wavefront_fill_ref``; a CUDA tensor the kernel."""
+    qpad, tk, tab = qpad.contiguous(), tk.contiguous(), tab.contiguous()
+    qlen, tlen = qlen.to(torch.int32).contiguous(), tlen.to(torch.int32).contiguous()
+    _check(qpad, tk, qlen, tlen, tab, K)
+    kw = dict(K=K, band=band, gap_open=gap_open, gap_extend=gap_extend,
+              want_ptr=want_ptr)
+    if qpad.device.type == "cpu":
+        return wavefront_fill_ref(qpad, tk, qlen, tlen, tab, **kw)
+    if qpad.device.type != "cuda":
+        raise ValueError(f"wavefront_fill: unsupported device {qpad.device}")
+    from .._build import check, lib
+
+    dev = qpad.device
+    B, Np = qpad.shape
+    NT = tab.shape[0]
+    out = {"score": torch.zeros(B, dtype=torch.int32, device=dev)}
+    ptr = rows = None
+    if want_ptr:
+        ptr = out["ptr"] = torch.empty((K, B, Np), dtype=torch.uint8, device=dev)
+    if (NT * NT + 6 * Np) * 4 > SMEM_BYTES:
+        rows = torch.empty((B, 6, Np), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib().seqalib_wavefront_fill(
+        qpad.data_ptr(), Np, tk.data_ptr(), tk.shape[1], qlen.data_ptr(),
+        tlen.data_ptr(), tab.data_ptr(), NT, B, K, band, gap_open, gap_extend,
+        out["score"].data_ptr(), ptr.data_ptr() if ptr is not None else None,
+        rows.data_ptr() if rows is not None else None, stream,
+    )
+    check("wavefront_fill", rc)
+    launches["wavefront_fill/" + ("ptr" if want_ptr else "score")] += 1
+    return out
+
+
+def _host_traceback_affine(P, starts_i, starts_j, done0, B):
+    """Vectorized host pointer walk (affine H/E/F state machine); a copy of
+    the JAX package's ``wavefront_pallas._host_traceback_affine``."""
+    ST_H, ST_E, ST_F = 0, 1, 2
+    i = starts_i.copy()
+    j = starts_j.copy()
+    st = np.zeros(B, np.int32)
+    done = done0.copy()
+    barr = np.arange(B)
+    ops = []
+    while not done.all():
+        byte = P[i + j, barr, i].astype(np.int32)
+        ph = byte & 3
+        ext_e = ((byte >> _EXT_E_BIT) & 1).astype(bool)
+        ext_f = ((byte >> _EXT_F_BIT) & 1).astype(bool)
+        in_h = st == ST_H
+        done = done | (in_h & (ph == PTR_STOP))
+        act = ~done
+        act_m = act & in_h & (ph == PTR_DIAG)
+        act_i = act & ((in_h & (ph == PTR_UP)) | (st == ST_F))
+        act_d = act & ((in_h & (ph == PTR_LEFT)) | (st == ST_E))
+        op = np.where(
+            act_m, OP_M, np.where(act_i, OP_I, np.where(act_d, OP_D, OP_PAD))
+        )
+        ops.append(op.astype(np.uint8))
+        st = np.where(
+            act_m,
+            ST_H,
+            np.where(
+                act_i,
+                np.where(ext_f, ST_F, ST_H),
+                np.where(act_d, np.where(ext_e, ST_E, ST_H), st),
+            ),
+        )
+        i = i - (act_m | act_i)
+        j = j - (act_m | act_d)
+    ops_rev = np.stack(ops, axis=1) if ops else np.full((B, 1), OP_PAD, np.uint8)
+    return ops_rev, i, j
+
+
+def wavefront_inputs(q, t, qlen, tlen, sp: ScoringParams):
+    """``wavefront_fill``'s letter and table inputs for a padded bucket
+    (B, n) x (B, m), as numpy arrays: (qpad (B, Np), tk (B, K), tab), with
+    Np = n + 1 rounded up to 128 and K = n + m + 1 (the JAX ``_fill``)."""
+    q = np.asarray(q)
+    t = np.asarray(t)
+    qlen = np.asarray(qlen).astype(np.int64)
+    tlen = np.asarray(tlen).astype(np.int64)
+    B, n = q.shape
+    m = t.shape[1]
+    Np = _ceil_to(n + 1, LANES)
+    K = n + m + 1
+    tab = wide_table(sp)
+    sent_q, sent_t = tab.shape[0] - 2, tab.shape[0] - 1
+    iarr = np.arange(Np)[None, :]
+    qpad = np.full((B, Np), sent_q, np.int32)
+    qpad[:, 1: 1 + min(n, Np - 1)] = q[:, : Np - 1]
+    qpad = np.where((iarr >= 1) & (iarr <= qlen[:, None]), qpad, sent_q)
+    xarr = np.arange(K)[None, :]
+    tk = np.full((B, K), sent_t, np.int32)
+    tk[:, 1: 1 + m] = t
+    tk = np.where((xarr >= 1) & (xarr <= tlen[:, None]), tk, sent_t)
+    return qpad.astype(np.int32), tk.astype(np.int32), tab
+
+
+def wavefront_bucket(q, t, qlen, tlen, sp: ScoringParams, *, band: int,
+                     want_tb: bool, device):
+    """One padded bucket (B, n) x (B, m) on the banded full-matrix route
+    (``pallas_bucket``'s banded branch): global score read at (b, qlen),
+    ``qs = ts = 0``, and with ``want_tb`` the CIGARs from the host walk
+    over the pointer stream.  Returns score/qs/qe/ts/te (+ cigars)."""
+    qlen = np.asarray(qlen).astype(np.int64)
+    tlen = np.asarray(tlen).astype(np.int64)
+    B = len(qlen)
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
+
+    res = wavefront_fill(put(qpad), put(tk), put(qlen), put(tlen), put(tab),
+                         K=tk.shape[1], band=band, gap_open=sp.gap_open,
+                         gap_extend=sp.gap_extend, want_ptr=want_tb)
+    out = {"score": res["score"].cpu().numpy(), "qe": qlen.astype(np.int32),
+           "te": tlen.astype(np.int32)}
+    if not want_tb:
+        out["qs"] = np.zeros(B, np.int32)
+        out["ts"] = np.zeros(B, np.int32)
+        return out
+    P = res["ptr"].cpu().numpy()
+    ops_rev, fi, fj = _host_traceback_affine(P, qlen, tlen, np.zeros(B, bool), B)
+    out["qs"] = fi.astype(np.int32)
+    out["ts"] = fj.astype(np.int32)
+    out["cigars"] = op_rows_to_cigars(ops_rev[:, ::-1])
+    return out

@@ -1,0 +1,250 @@
+"""Sequence-parallel pipelined wavefront for ONE long pair over a device
+list (counterpart of ``seqalib_tpu/parallel/band_pipeline.py``).
+
+The query's rows are split into ``D`` contiguous row-blocks of R rows, one
+per entry of the mesh; the target's columns into tiles of C columns.  Block
+``d`` computes tile ``tt`` at pipeline step ``s = tt + d``.  A tile's only
+dependency on another block is its top boundary (H and F of the row
+above, for its columns), produced by block ``d - 1`` one step earlier;
+its left boundary (H and E of one column) is the block's own, carried
+from its previous tile.  The mesh is an ordered tuple of ``torch.device``
+entries (``make_band_mesh``); one process walks the steps, launches every
+active block's tile (``ops.sp_tile``) on that block's device, then moves
+each block's outgoing packet ``[corner, bottom H, bottom F]`` to the next
+block's device.  This is the single-controller counterpart of the JAX
+``shard_map`` + ``ppermute``; a mesh may name one device several times.
+
+Geometry: R = ceil(n / D) for every tile body (the JAX XLA body's rule;
+the JAX Pallas body rounds R up to its 128-row strips, which changes no
+score or CIGAR).  The query is padded with letter 0, the target with
+``pad_letter`` (4 for match/mismatch scoring, 0 for a matrix), and padded
+rows and columns never feed cell (n, m).
+
+``nw_affine_align_sp`` keeps, for every tile, the boundary it was computed
+from, and walks back from (n, m), recomputing each tile the path visits as
+a pointer tile on its block's device and holding one tile's pointers at a
+time (the walk never returns to a tile it has left): R x C bytes, of which
+only the rows the walk can reach are copied to the host.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..ops.sp_tile import NEG, ptr_index, sp_tile
+from ..types import PTR_DIAG, PTR_LEFT, PTR_UP, AlignResult
+from ..utils.cigar import OP_D, OP_I, OP_M, ops_to_cigar
+
+Mesh = Tuple[torch.device, ...]
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def make_band_mesh(devices=None) -> Mesh:
+    """The mesh: the given devices in order, or every visible CUDA device
+    (raises when there is none)."""
+    from ..api import _device
+
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_band_mesh: no CUDA device; pass devices=")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    mesh = tuple(_device(d) for d in devices)
+    if not mesh:
+        raise ValueError("make_band_mesh: a mesh needs at least one device")
+    return mesh
+
+
+def _sp_fill(q, t, sp, mesh: Mesh, C, sp_sub, want_tb, local=False):
+    """The pipeline fill.  Returns (score, geom), with ``want_tb`` also the
+    per-tile boundaries ``ckpt[(d, tt)] = (H_top, F_top, Hcol, Ecol)``.
+    ``sp_sub`` sets the kernel's strip height to ``sp_sub * 128`` rows."""
+    q = np.asarray(q)
+    t = np.asarray(t)
+    n, m = len(q), len(t)
+    D = len(mesh)
+    R = max(1, _ceil_to(n, D) // D)
+    n_tiles = max(1, _ceil_to(m, C) // C)
+    pad_letter = 0 if sp.matrix is not None else 4
+    q_pad = np.zeros(D * R, np.int32)
+    q_pad[:n] = q
+    t_pad = np.full(n_tiles * C + 1, pad_letter, np.int32)
+    t_pad[1: 1 + m] = t  # t_pad[x] = t[x - 1]: 1-based columns
+    o, e = sp.gap_open, sp.gap_extend
+    tbl = sp.substitution_matrix() if sp.matrix is not None else None
+    strip = sp_sub * 128 if sp_sub else 0
+    kw = dict(n=n, m=m, C=C, match=sp.match, mismatch=sp.mismatch, gap_open=o,
+              gap_extend=e, mode="local" if local else "global", strip=strip)
+
+    def put(x, dev):
+        return torch.as_tensor(np.asarray(x, np.int32)).to(dev)
+
+    qbs = [put(q_pad[d * R: (d + 1) * R], dev) for d, dev in enumerate(mesh)]
+    tks = [put(t_pad, dev) for dev in mesh]
+    tabs = [put(tbl, dev) if tbl is not None else None for dev in mesh]
+    rows = np.arange(1, R + 1)
+    hcols = [put(np.zeros(R) if local else o + (d * R + rows) * e, dev)
+             for d, dev in enumerate(mesh)]
+    ecols = [torch.full((R,), NEG, dtype=torch.int32, device=dev) for dev in mesh]
+    caps = [torch.full((1,), NEG, dtype=torch.int32, device=dev) for dev in mesh]
+
+    def init_top(j0, dev):
+        # DP row 0: global H(0, j) = o + j*e (H(0, 0) = 0), local 0; F = -inf;
+        # built on the device, so that the host never waits for the queue
+        jc = torch.arange(j0, j0 + C + 1, dtype=torch.int32, device=dev)
+        h = torch.zeros_like(jc) if local else torch.where(jc == 0, 0, o + jc * e)
+        return h, torch.full((C,), NEG, dtype=torch.int32, device=dev)
+
+    ckpt = {}
+    pkts = [None] * D  # the packet each block takes at this step
+    for s in range(n_tiles + D - 1):
+        nxt = [None] * D
+        for d, dev in enumerate(mesh):
+            tt = s - d
+            if not 0 <= tt < n_tiles:  # pipeline fill / drain: no tile
+                continue
+            j0 = tt * C
+            h_top, f_top = init_top(j0, dev) if d == 0 else pkts[d]
+            if want_tb:
+                ckpt[(d, tt)] = (h_top, f_top, hcols[d], ecols[d])
+            out = sp_tile(qbs[d], tks[d][j0: j0 + C + 1], h_top, f_top, hcols[d],
+                          ecols[d], caps[d], tabs[d], i0=d * R, j0=j0, **kw)
+            if d + 1 < D:  # corner H(i0 + R, j0), then the bottom rows
+                nd = mesh[d + 1]
+                nxt[d + 1] = (torch.cat([hcols[d][R - 1:], out["hbot"]]).to(nd),
+                              out["fbot"].to(nd))
+            hcols[d], ecols[d], caps[d] = out["hcol"], out["ecol"], out["cap"]
+        pkts = nxt
+    score = max(int(c) for c in caps)
+    geom = dict(R=R, C=C, qb=qbs, tk=tks, tab=tabs, kw=kw)
+    return (score, geom, ckpt) if want_tb else (score, geom)
+
+
+def nw_affine_score_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None) -> int:
+    """Global affine-gap SCORE of one long pair, computed by the tiles of
+    every block of ``mesh``: the exact Gotoh score of ``oracle.nw_affine``.
+    Scoring: match/mismatch or any substitution matrix."""
+    n, m = len(np.asarray(q)), len(np.asarray(t))
+    if n == 0 or m == 0:
+        if n == 0 and m == 0:
+            return 0
+        return sp.gap_open + max(n, m) * sp.gap_extend
+    score, _ = _sp_fill(q, t, sp, mesh, C, sp_sub, want_tb=False)
+    return score
+
+
+def sw_affine_score_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None) -> int:
+    """LOCAL (Smith-Waterman) affine-gap SCORE of one long pair over
+    ``mesh``: the max over all cells, as ``oracle.sw_affine``."""
+    n, m = len(np.asarray(q)), len(np.asarray(t))
+    if n == 0 or m == 0:
+        return 0
+    score, _ = _sp_fill(q, t, sp, mesh, C, sp_sub, want_tb=False, local=True)
+    return max(0, score)
+
+
+def _ptr_rows(geom, ckpt, d, tt, rows):
+    """Block d's tile tt recomputed from its boundaries as a pointer tile,
+    on the block's device, and the bytes of its first ``rows`` rows copied
+    to the host as a (C, rows) array, read through ``ptr_index``.  (The
+    JAX package caches a jitted function for the recompute; eager PyTorch
+    needs no cache.)"""
+    h_top, f_top, hcol, ecol = ckpt[(d, tt)]
+    C, j0 = geom["C"], tt * geom["C"]
+    dev = hcol.device
+    cap = torch.full((1,), NEG, dtype=torch.int32, device=dev)
+    kw = dict(geom["kw"], mode="ptr", n=0, m=0)
+    P = sp_tile(geom["qb"][d], geom["tk"][d][j0: j0 + C + 1], h_top, f_top, hcol, ecol,
+                cap, geom["tab"][d], i0=d * geom["R"], j0=j0, **kw)["ptr"]
+    return P[:, :rows].cpu().numpy()
+
+
+def _rescore_global_affine(q, t, ops, sp) -> int:
+    """Score a global alignment given as a CIGAR op list (verification)."""
+    if sp.matrix is not None:
+        tbl = np.asarray(sp.substitution_matrix())
+        _subst = lambda a, b: int(tbl[a, b])  # noqa: E731
+    else:
+        _subst = lambda a, b: sp.match if a == b else sp.mismatch  # noqa: E731
+    i = j = s = 0
+    prev = None
+    for op in ops:
+        if op == OP_M:
+            s += _subst(int(q[i]), int(t[j]))
+            i += 1
+            j += 1
+        else:
+            s += sp.gap_extend + (sp.gap_open if op != prev else 0)
+            if op == OP_I:
+                i += 1
+            else:
+                j += 1
+        prev = op
+    if i != len(q) or j != len(t):  # survives python -O
+        raise RuntimeError("CIGAR must consume both sequences")
+    return s
+
+
+def nw_affine_align_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None):
+    """Global affine alignment of one long pair over ``mesh``: score and
+    CIGAR.  The fill keeps every tile's boundaries; the walk, the oracle's
+    H/E/F state machine, recomputes each tile it enters as a pointer tile,
+    copies to the host only the cells of the rows above where it entered,
+    and follows the pointers, hopping tiles and blocks.  The CIGAR
+    is re-scored against the fill score before returning."""
+    q = np.asarray(q)
+    t = np.asarray(t)
+    n, m = len(q), len(t)
+    if n == 0 or m == 0:
+        score = 0 if n == m else sp.gap_open + max(n, m) * sp.gap_extend
+        return AlignResult(int(score), 0, n, 0, m,
+                           (f"{m}D" if m else "") if n == 0 else f"{n}I")
+    score, geom, ckpt = _sp_fill(q, t, sp, mesh, C, sp_sub, want_tb=True)
+    R = geom["R"]
+    ops: list = []
+    i, j, state = n, m, "H"
+    while True:
+        if i == 0:
+            ops.extend([OP_D] * j)
+            break
+        if j == 0:
+            ops.extend([OP_I] * i)
+            break
+        d, tt = (i - 1) // R, (j - 1) // C
+        i0, j0 = d * R, tt * C
+        # only rows up to the entry cell can be visited
+        P = _ptr_rows(geom, ckpt, d, tt, i - i0)
+        while i > i0 and j > j0:
+            byte = int(P[ptr_index(i - i0 - 1, j - j0, C)])
+            if state == "H":
+                ph = byte & 3
+                if ph == PTR_DIAG:
+                    ops.append(OP_M)
+                    i -= 1
+                    j -= 1
+                elif ph == PTR_UP:
+                    state = "F"
+                elif ph == PTR_LEFT:
+                    state = "E"
+                else:
+                    raise RuntimeError(f"SP walk: no move at ({i}, {j})")
+            elif state == "F":
+                ops.append(OP_I)
+                if not (byte >> 3) & 1:
+                    state = "H"
+                i -= 1
+            else:  # E
+                ops.append(OP_D)
+                if not (byte >> 2) & 1:
+                    state = "H"
+                j -= 1
+    ops.reverse()
+    walked = _rescore_global_affine(q, t, ops, sp)
+    if walked != score:  # not an assert: must survive python -O
+        raise RuntimeError(f"SP traceback rescore {walked} != fill score {score}")
+    return AlignResult(int(score), 0, n, 0, m, ops_to_cigar(ops))

@@ -2,14 +2,16 @@
 ``seqalib_tpu/parallel/dispatch.py::dispatch_batch`` / ``run_bucket``,
 without the mesh).
 
-Two routes:
+Three routes:
 
-* banded (``band=`` with ``mode="global"``): pairs are grouped by their
-  length delta quantized to the band, ``(len(t) - len(q)) // band``, and
-  each group is aligned by ``models.banded.banded_align_batch``;
-* strip (everything else): pairs are sorted into (Lq, Lt) length buckets
-  (``bucket_len``), each bucket is padded and aligned by ``strip_bucket``.
-  Every bucket is launched before any is turned into ``AlignResult``s.
+* banded (``band=`` with ``mode="global"``, scalar scoring or a table that
+  ``banded_matrix_supported`` accepts): pairs are grouped by their length
+  delta quantized to the band, ``(len(t) - len(q)) // band``, and each
+  group is aligned by ``models.banded.banded_align_batch``;
+* length buckets: pairs are sorted into (Lq, Lt) buckets (``bucket_len``),
+  each bucket is padded and aligned by ``strip_bucket``, or, for a band
+  with a wider table, by the full-matrix ``wavefront_bucket``.  Every
+  bucket is launched before any is turned into ``AlignResult``s.
 
 Results come back in input order.
 """
@@ -23,6 +25,7 @@ import numpy as np
 
 from ..models.banded import banded_align_batch, banded_matrix_supported
 from ..ops.strip import strip_bucket
+from ..ops.wavefront import wavefront_bucket
 from ..scoring import tables_from_params
 from ..types import AlignResult, ScoringParams
 
@@ -54,9 +57,15 @@ def _pad_stack(seqs: List[np.ndarray], L: int) -> np.ndarray:
     return out
 
 
-def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str,
+def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str, band: Optional[int],
                traceback: bool, device) -> Dict[str, np.ndarray]:
-    """Align one padded bucket (B, Lq) x (B, Lt) on ``device``."""
+    """Align one padded bucket (B, Lq) x (B, Lt) on ``device``: the strip
+    engine, or with ``band`` the banded full-matrix wavefront."""
+    if band is not None:
+        if mode != "global":
+            raise ValueError("banded local alignment is out of contract")
+        return wavefront_bucket(q, t, qlen, tlen, sp, band=band, want_tb=traceback,
+                                device=device)
     tables = tables_from_params(sp, device)
     return strip_bucket(q, t, qlen, tlen, tables, mode=mode, want_tb=traceback)
 
@@ -90,14 +99,10 @@ def dispatch_batch(
     device="cuda",
 ) -> List[AlignResult]:
     """Align all pairs on ``device``; results in input order."""
-    if band is not None and mode == "global":
-        if sp.matrix is None or banded_matrix_supported(sp.substitution_matrix()):
-            return dispatch_banded(qs, ts, sp, band, traceback, device)
-        raise NotImplementedError(
-            "band= with a substitution table outside the range [-4, 11] runs on "
-            "the full-matrix wavefront kernel (wavefront_pallas._fill_kernel), "
-            "which is not ported yet (ROADMAP.md Queue 2, kernel 7)"
-        )
+    if (band is not None and mode == "global"
+            and (sp.matrix is None or banded_matrix_supported(sp.substitution_matrix()))):
+        return dispatch_banded(qs, ts, sp, band, traceback, device)
+    # a band with a wider table: the length buckets, as in the JAX package
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for idx, (q, t) in enumerate(zip(qs, ts)):
         buckets.setdefault((bucket_len(len(q)), bucket_len(len(t))), []).append(idx)
@@ -109,7 +114,7 @@ def dispatch_batch(
         qlen = np.array([len(qs[i]) for i in idxs], np.int32)
         tlen = np.array([len(ts[i]) for i in idxs], np.int32)
         pending.append(
-            (idxs, run_bucket(qb, tb, qlen, tlen, sp, mode, traceback, device))
+            (idxs, run_bucket(qb, tb, qlen, tlen, sp, mode, band, traceback, device))
         )
 
     results: List[AlignResult] = [None] * len(qs)  # type: ignore[list-item]

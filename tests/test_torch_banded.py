@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import seqalib_tpu_torch as st
+from seqalib_tpu import align_batch as jax_align_batch
 from seqalib_tpu.models.banded import banded_align_batch as jax_banded_align_batch
 from seqalib_tpu.oracle import nw_affine
 from seqalib_tpu.types import ScoringParams as JaxScoringParams
@@ -157,17 +158,22 @@ def test_many_super_blocks_equal_one(monkeypatch):
 
 
 def test_banded_rejects_wide_range_matrix():
-    """Tables outside [-4, 11] take the JAX package's full-matrix kernel:
-    the port refuses them, in the driver and in the dispatcher."""
+    """Tables outside [-4, 11] take the full-matrix wavefront (kernel 7),
+    as in the JAX package: ``banded_align_batch`` refuses them, and the
+    dispatcher sends them through the length buckets to that route."""
     wide = np.full((4, 4), -20, np.int32)
     np.fill_diagonal(wide, 20)
     sp = scoring_params(0, 0, -5, -2, wide)
+    jsp = JaxScoringParams(gap_open=-5, gap_extend=-2, matrix=wide)
     qs, ts, qlen, tlen = _bucket(5, [16], [16])
     with pytest.raises(NotImplementedError, match="kernel 7"):
         banded_align_batch(qs, ts, qlen, tlen, sp, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="kernel 7"):
-        st.align_batch([qs[0]], [ts[0]], scoring=sp, mode="global", band=4,
-                       device="cpu")
+    got = st.align_batch([qs[0]], [ts[0]], scoring=sp, mode="global", band=4,
+                         device="cpu")
+    jax = jax_align_batch([qs[0]], [ts[0]], scoring=jsp, mode="global", band=4,
+                          backend="pallas")
+    assert [str(r) for r in got] == [str(r) for r in jax] == _oracle(qs, ts, qlen, tlen,
+                                                                      jsp, 4)
 
 
 def test_banded_routes_through_align_batch(monkeypatch):

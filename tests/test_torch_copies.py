@@ -117,3 +117,43 @@ def test_oracles_are_the_same(name, mode, band):
         assert str(port_oracle.align_oracle(q, t, psp, mode=mode, band=band)) == want
         assert str(port_oracle_fast.align_oracle(q, t, psp, mode=mode, band=band)) == want
         assert str(jax_oracle_fast.align_oracle(q, t, jsp, mode=mode, band=band)) == want
+
+
+def test_host_traceback_affine_is_the_same():
+    # the banded full-matrix route's host walk, on a pointer stream the
+    # port's plain fill emits for a bucket with an empty pair
+    import torch
+
+    from seqalib_tpu.ops.wavefront_pallas import _host_traceback_affine as jax_walk
+    from seqalib_tpu_torch.ops import wavefront as port_wf
+
+    rng = np.random.default_rng(2)
+    jsp, sp = _both(jt.ScoringParams(gap_open=-5, gap_extend=-2,
+                                     matrix=np.where(np.eye(4, dtype=bool), 20, -20)))
+    qlen, tlen = np.array([40, 0, 31, 25]), np.array([37, 3, 0, 29])
+    q = rng.integers(0, 4, size=(4, 48))
+    t = q[:, 2:].copy()
+    t[:, ::7] = (t[:, ::7] + 1) % 4
+    qpad, tk, tab = port_wf.wavefront_inputs(q, t, qlen, tlen, sp)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32)  # noqa: E731
+    P = port_wf.wavefront_fill(as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab),
+                               K=tk.shape[1], band=8, gap_open=sp.gap_open,
+                               gap_extend=sp.gap_extend, want_ptr=True)["ptr"].numpy()
+    done = np.array([False, False, False, True])
+    got = port_wf._host_traceback_affine(P, qlen, tlen, done, 4)
+    want = jax_walk(P.view(np.int8), qlen, tlen, done, 4)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_rescore_global_affine_is_the_same():
+    from seqalib_tpu.parallel.band_pipeline import _rescore_global_affine as jax_rescore
+    from seqalib_tpu_torch.parallel.band_pipeline import _rescore_global_affine as port
+
+    q, t = np.array([0, 1, 2, 3, 1]), np.array([0, 2, 2, 3])
+    for name in ("dna_affine", "blosum62"):
+        jsp, sp = _both(SCORINGS[name])
+        for ops in ([0, 0, 0, 0, 1], [1, 1, 0, 2, 0, 0], [2, 2, 2, 2, 1, 1, 1, 1, 1]):
+            assert port(q, t, ops, sp) == jax_rescore(q, t, ops, jsp)
+        with pytest.raises(RuntimeError, match="consume"):
+            port(q, t, [0, 0], sp)

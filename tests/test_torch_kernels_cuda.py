@@ -11,16 +11,21 @@ import pytest
 import torch
 
 from seqalib_tpu import oracle_fast
-from seqalib_tpu.types import ScoringParams
+from seqalib_tpu.types import BLOSUM62, ScoringParams
 from seqalib_tpu_torch import align_batch
 from seqalib_tpu_torch.models.banded import _geometry, _pad_letters
 from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops.band_fill import band_fill, band_fill_ref, band_table
 from seqalib_tpu_torch.ops.band_walk import band_walk, band_walk_ref
+from seqalib_tpu_torch.ops import wavefront as wf_mod
 from seqalib_tpu_torch.ops.row_window import row_window, row_window_ref
+from seqalib_tpu_torch.ops.sp_tile import NEG as SP_NEG
+from seqalib_tpu_torch.ops.sp_tile import sp_tile, sp_tile_ref
 from seqalib_tpu_torch.ops.strip import prep_strip
 from seqalib_tpu_torch.ops.strip_fill import strip_fill, strip_fill_ref
 from seqalib_tpu_torch.ops.strip_walk import strip_walk, strip_walk_ref
+from seqalib_tpu_torch.ops.wavefront import (wavefront_fill, wavefront_fill_ref,
+                                             wavefront_inputs)
 from seqalib_tpu_torch.scoring import scoring_params, tables_from_params
 from seqalib_tpu_torch.types import NEG_INF
 
@@ -214,3 +219,100 @@ def test_banded_align_batch_on_cuda_matches_oracle(dev, scoring):
     got = align_batch(qs, ts, scoring=psp, mode="global", band=16, device=dev)
     for q, t, r in zip(qs, ts, got):
         assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode="global", band=16))
+
+
+def _tile_args(dev, scoring, R=400, C=96, seed=4):
+    """One SP tile's letters and random boundaries; (n, m) inside it."""
+    sp, alpha = SCORINGS[scoring]
+    rng = np.random.default_rng(seed)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    qb = rng.integers(0, alpha, R)
+    tk = rng.integers(0, alpha, C + 1)
+    tk[1: C // 2] = qb[5: 4 + C // 2]
+    htop = np.abs(rng.integers(-60, 40, C + 1))
+    hcol = np.abs(rng.integers(-60, 40, R))
+    args = [as_t(qb), as_t(tk), as_t(htop), as_t(htop[1:] - 3), as_t(hcol),
+            as_t(hcol - 5), as_t([SP_NEG]),
+            as_t(sp.substitution_matrix()) if sp.matrix is not None else None]
+    kw = dict(i0=300, j0=64, n=300 + R - 7, m=64 + C - 2, C=C, match=sp.match,
+              mismatch=sp.mismatch, gap_open=sp.gap_open, gap_extend=sp.gap_extend)
+    return args, kw
+
+
+@pytest.mark.parametrize("C", [96, 53])
+@pytest.mark.parametrize("strip", [0, 128, 256])
+@pytest.mark.parametrize("scoring", ["dna_affine", "blosum62_affine"])
+@pytest.mark.parametrize("mode", ["global", "local", "ptr"])
+def test_sp_tile_kernel_matches_plain_version(dev, mode, scoring, strip, C):
+    # strips of 128 rows: three full strips and a ragged one of 16 rows;
+    # C = 53: the pointer tile's rows fold modulo a C that divides no strip
+    args, kw = _tile_args(dev, scoring, C=C)
+    before = launches[f"sp_tile/{mode}"]
+    got = sp_tile(*args, mode=mode, strip=strip, **kw)
+    torch.cuda.synchronize()
+    assert launches[f"sp_tile/{mode}"] == before + 1
+    _same(got, sp_tile_ref(*args, mode=mode, **kw))
+
+
+def _wavefront_args(dev, scoring, B=9, seed=5):
+    sp = scoring_params(0, 0, -20, -2, 2 * BLOSUM62) if scoring == "profile" else \
+        scoring_params(0, 0, -5, -2, np.where(np.eye(4, dtype=bool), 20, -20))
+    alpha = 20 if scoring == "profile" else 4
+    rng = np.random.default_rng(seed)
+    qlen = rng.integers(0, 300, size=B)
+    tlen = np.clip(qlen + rng.integers(-9, 10, size=B), 0, None)
+    q = rng.integers(0, alpha, size=(B, 320))
+    t = rng.integers(0, alpha, size=(B, 320))
+    t[:, 10:200] = q[:, 12:202]
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    args = [as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab)]
+    return args, dict(K=tk.shape[1], band=12, gap_open=sp.gap_open,
+                      gap_extend=sp.gap_extend)
+
+
+@pytest.mark.parametrize("rows_in", ["shared", "global"])
+@pytest.mark.parametrize("scoring", ["profile", "scalar"])
+@pytest.mark.parametrize("want_ptr", [True, False])
+def test_wavefront_fill_kernel_matches_plain_version(dev, want_ptr, scoring, rows_in,
+                                                     monkeypatch):
+    if rows_in == "global":  # slot rows in the global scratch buffer
+        monkeypatch.setattr(wf_mod, "SMEM_BYTES", 0)
+    args, kw = _wavefront_args(dev, scoring)
+    key = "wavefront_fill/" + ("ptr" if want_ptr else "score")
+    before = launches[key]
+    got = wavefront_fill(*args, want_ptr=want_ptr, **kw)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    _same(got, wavefront_fill_ref(*args, want_ptr=want_ptr, **kw))
+
+
+@pytest.mark.parametrize("D", [1, 3])
+def test_sp_paths_on_cuda_match_oracle(dev, D):
+    from seqalib_tpu.oracle import nw_affine, sw_affine
+
+    sp, _ = SCORINGS["dna_affine"]
+    psp = scoring_params(sp.match, sp.mismatch, sp.gap_open, sp.gap_extend, sp.matrix)
+    rng = np.random.default_rng(D)
+    q = rng.integers(0, 4, 700).astype(np.int32)
+    t = np.delete(q, np.arange(100, 140))
+    t[::37] = (t[::37] + 1) % 4
+    mesh = (dev,) * D
+    from seqalib_tpu_torch import align_score_sp, align_sp
+
+    assert str(align_sp(q, t, psp, mesh, C=128)) == str(nw_affine(q, t, sp))
+    assert align_score_sp(q, t, psp, mesh, C=96, sp_sub=1) == nw_affine(q, t, sp).score
+    assert align_score_sp(q, t, psp, mesh, mode="local") == sw_affine(q, t, sp).score
+
+
+def test_wide_table_align_batch_on_cuda_matches_oracle(dev):
+    wide = np.where(np.eye(4, dtype=bool), 20, -20).astype(np.int32)
+    sp = ScoringParams(gap_open=-5, gap_extend=-2, matrix=wide)
+    psp = scoring_params(0, 0, -5, -2, wide)
+    rng = np.random.default_rng(12)
+    qs = [rng.integers(0, 4, size=rng.integers(0, 400)).astype(np.uint8) for _ in range(12)]
+    ts = [np.concatenate([q[4:], rng.integers(0, 4, size=rng.integers(0, 20))])
+          .astype(np.uint8) for q in qs]
+    got = align_batch(qs, ts, scoring=psp, mode="global", band=24, device=dev)
+    for q, t, r in zip(qs, ts, got):
+        assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode="global", band=24))

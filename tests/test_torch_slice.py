@@ -260,11 +260,14 @@ def test_oracle_backend_and_api_errors():
     assert str(got[0]) == str(want)
     with pytest.raises(ValueError, match="backend"):
         st.align_batch(["ACGT"], ["AGT"], backend="pallas", device="cpu")
+    # a band with a table outside [-4, 11]: the full-matrix wavefront route
     wide = np.full((4, 4), -20)
     np.fill_diagonal(wide, 20)
-    with pytest.raises(NotImplementedError, match="kernel 7"):
-        st.align_batch(["ACGT"], ["AGT"], mode="global", band=4, device="cpu",
-                       scoring=scoring_params(0, 0, -5, -2, wide))
+    wsp = ScoringParams(gap_open=-5, gap_extend=-2, matrix=wide)
+    got = st.align_batch(["ACGT"], ["AGT"], mode="global", band=4, device="cpu",
+                         scoring=_port_sp(wsp))
+    want = sa.align("ACGT", "AGT", scoring=wsp, mode="global", band=4, backend="oracle")
+    assert str(got[0]) == str(want)
     with pytest.raises(NotImplementedError, match="item 8"):
         st.align_batch(["ACGT"], ["AGT"], mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="out of contract"):
@@ -279,15 +282,24 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_port_never_imports_jax():
-    # neither jax nor any module of the JAX package, after a local call
-    # and a banded global call
+    # neither jax nor any module of the JAX package, after a local call, a
+    # banded global call (both banded routes) and a sequence-parallel one
     code = (
-        "import sys, seqalib_tpu_torch as st\n"
+        "import sys, numpy as np, seqalib_tpu_torch as st\n"
         "r = st.align_batch(['ACGTACGT', 'TTGCA'], ['ACGACGT', 'TTGGCA'], device='cpu')\n"
         "assert r[0].score > 0, r\n"
         "g = st.align_batch(['ACGTACGTAA'], ['ACGACGTTA'], mode='global', band=3,\n"
         "                   device='cpu')\n"
         "assert g[0].cigar, g\n"
+        "wide = st.ScoringParams(gap_open=-5, gap_extend=-2,\n"
+        "                        matrix=np.where(np.eye(4, dtype=bool), 20, -20))\n"
+        "w = st.align_batch(['ACGTACGTAA'], ['ACGACGTTA'], scoring=wide, mode='global',\n"
+        "                   band=3, device='cpu')\n"
+        "assert w[0].cigar, w\n"
+        "dna = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)\n"
+        "a = st.align_sp(st.encode_dna('ACGTACGTAACG'), st.encode_dna('ACGACGTTACG'), dna,\n"
+        "                st.make_band_mesh(['cpu'] * 2), C=4)\n"
+        "assert a.cigar, a\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'seqalib_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

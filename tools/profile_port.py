@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Where the time of a warm ``seqalib_tpu_torch.align_batch`` call goes.
 
-    python3 tools/profile_port.py [--config 3|1|4] [--batch B] [--calls N]
-                                  [--device cuda|cpu]
+    python3 tools/profile_port.py [--config 3|1|4|sp|wide] [--batch B]
+                                  [--calls N] [--device cuda|cpu]
 
 Inputs are those of ``chip_smoke.py`` (seed 0): config 3 is B=512
 BLOSUM62 o=-10 e=-1 local pairs of 1024 x 1024 with full CIGARs, config 1
 is B=512 DNA global linear-gap pairs of 256 x 256, config 4 is B=64 DNA
 pairs of 10 kb (the target is the query with 2% substitutions) aligned
 globally in a band of 128, match 2, mismatch -3, o=-5, e=-2, with full
-CIGARs.  After two warm-up calls the
-script
+CIGARs.  ``sp`` is ``align_sp`` on one 10 240 x 8 192 DNA pair (the
+target is the query's first 8 192 letters with 150 substitutions; the
+config-4 scoring; tiles of 256 columns) over a mesh of one device
+(``--batch`` is ignored); ``wide`` is B=64 protein pairs of 1 000 letters
+(5% substitutions, one deletion, one insertion) aligned globally in a
+band of 64 under 2 x BLOSUM62, o=-20, e=-2, with full CIGARs: the
+full-matrix wavefront route.  After two warm-up calls the script
 
 1. times N calls by the host clock (median, all values printed);
 2. runs N calls under ``torch.profiler`` and prints each device op's total
@@ -44,9 +49,29 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import seqalib_tpu_torch as st  # noqa: E402
 
 
-def inputs(config: int, batch: int):
+def inputs(config: str, batch: int):
     rng = np.random.default_rng(0)
-    if config == 4:
+    if config == "sp":
+        sp = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+        q = rng.integers(0, 4, 10_240).astype(np.int32)
+        t = q[:8192].copy()
+        idx = rng.choice(8192, 150, replace=False)
+        t[idx] = (t[idx] + 1 + rng.integers(0, 3, 150)) % 4
+        return q, t, sp, "global"
+    if config == "wide":
+        sp = st.ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * st.BLOSUM62)
+        qs, ts = [], []
+        for _ in range(batch):
+            q = rng.integers(0, 20, 1000).astype(np.uint8)
+            t = q.copy()
+            idx = rng.choice(1000, 50, replace=False)
+            t[idx] = (t[idx] + 1 + rng.integers(0, 19, 50)) % 20
+            a, b = sorted(rng.choice(np.arange(50, 950), 2, replace=False))
+            t = np.insert(np.delete(t, [a, a + 1, a + 2]), b, rng.integers(0, 20, 2))
+            qs.append(q)
+            ts.append(t.astype(np.uint8))
+        return qs, ts, sp, "global"
+    if config == "4":
         sp = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
         length = 10_000
         qs, ts = [], []
@@ -58,7 +83,7 @@ def inputs(config: int, batch: int):
             qs.append(q)
             ts.append(t)
         return qs, ts, sp, "global"
-    if config == 3:
+    if config == "3":
         sp = st.ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
         alpha, L, mode = 20, 1024, "local"
     else:
@@ -88,25 +113,29 @@ def busy_us(intervals):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", type=int, choices=(1, 3, 4), default=3)
+    ap.add_argument("--config", choices=("1", "3", "4", "sp", "wide"), default="3")
     ap.add_argument("--batch", type=int, default=None,
                     help="pairs per call (default 512; 64 for config 4)")
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     if args.batch is None:
-        args.batch = 64 if args.config == 4 else 512
+        args.batch = 64 if args.config in ("4", "wide") else 512
     dev = torch.device(args.device)
     if dev.type == "cuda":
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     qs, ts, sp, mode = inputs(args.config, args.batch)
-    band = 128 if args.config == 4 else None
+    band = {"4": 128, "wide": 64}.get(args.config)
+    mesh = st.make_band_mesh([dev]) if args.config == "sp" else None
 
     def run():
-        st.align_batch(qs, ts, scoring=sp, mode=mode, band=band, traceback=True,
-                       device=dev)
+        if mesh is not None:
+            st.align_sp(qs, ts, sp, mesh, C=256)
+        else:
+            st.align_batch(qs, ts, scoring=sp, mode=mode, band=band, traceback=True,
+                           device=dev)
         sync(dev)
 
     for _ in range(2):
