@@ -48,15 +48,32 @@ Phases (any failure raises and exits non-zero):
    BLOSUM62 o=-10, e=-1 banded route's (``band_fill``) with the score
    doubled, 8 pairs equal the banded oracle; warm wall, pairs/s,
    GCUPS(n*w);
-8. every kernel was launched by its path: the launch counts are set to 0
+8. banded sequence parallelism on meshes naming the one card: B=16 DNA
+   pairs of 100 kb (config 4's generator and scoring), band 256,
+   ``align_score_banded_sp`` on a mesh of 4 (R = 25 000, two relay groups,
+   5 super-steps), every score equal to ``align_batch(band=256,
+   traceback=False)``; ``align_banded_sp`` on one of them over meshes of 4
+   and 1, the CIGAR re-scored and ``str`` equal on both and to
+   ``align_batch(band=256)``'s; 10 DNA pairs of 600-1000 letters (one
+   empty) at band 32 and one BLOSUM62 protein pair of 800 letters equal to
+   the banded oracle on meshes of 1 and 4;
+9. every kernel was launched by its path: the launch counts are set to 0
    just before each path's runs (1 warm-up + 3 timed calls) and read just
    after.
 
 The kernel phase also holds the sequence-parallel tile (``sp_tile``, three
 modes, on the first 2048 rows of the SP path's tile of the first 256
-columns, with the whole tile's kernel time printed beside) and the
+columns, with the whole tile's kernel time printed beside), the
 wavefront fill (pointer and score-only modes, at the wide-table phase's
-shapes) against their plain versions.
+shapes) and phase 8's kernels against their plain versions: the resumed
+block fill of a block d >= 1 on a mesh of 4, in the score relay of
+phase 8's 100 kb pairs (``band_fill/relay``, 8 live pairs) and in the
+align of the first of them (``band_fill/relay_ptr``), on diagonals
+[0, 2048) (the boundary injection) and [2R - 1024, 2R + 1024) resumed
+from the kernel's own state (the capture of row R), with the whole
+block's time beside, and the walk with the row-0 floor
+(``band_walk/floor``) on the block's lowest 4096 diagonals, entered with
+the states of the kernel's walk of those above.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  The script imports only the
@@ -93,12 +110,17 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # compares for the move and two for the extend bits
 OPS_PER_CELL = {"strip_fill/local": 11, "strip_fill/emode": 10, "strip_fill/gmode": 13,
                 "band_fill/fill": 9, "band_fill/ptr": 13, "band_fill/emode": 10,
+                "band_fill/relay": 9, "band_fill/relay_ptr": 13,
                 "sp_tile/global": 9, "sp_tile/local": 11, "sp_tile/ptr": 13,
                 "wavefront_fill/score": 9, "wavefront_fill/ptr": 13}
 # the SP phase (6) and the wide-table phase (7)
 SP_N, SP_M, SP_SUBS, SP_C, SP_LONG, SP_CUT_ROWS = 10_240, 8_192, 150, 256, 16_384, 2048
 SP_ORACLE_N = 1536  # align_sp held to the oracle, str(AlignResult), on meshes of 1 and 4
 B7, L7, BAND7 = 64, 1000, 64
+# the banded-SP phase (8): long reads, the relay's mesh, the kernel cuts
+BSP, LSP, BANDSP, DSP = 16, 100_000, 256, 4
+RELAY_CUT, WALK_CUT = 2048, 4096
+BSP_ORACLE_N, BSP_ORACLE_BAND, BSP_PROTEIN_N = 10, 32, 800
 STRIP = "seqalib_tpu/ops/strip_pallas.py"
 BANDED = "seqalib_tpu/ops/banded_pallas.py"
 SPTILE = "seqalib_tpu/ops/sp_tile_pallas.py"
@@ -118,6 +140,9 @@ KERNELS = {  # launch-counter key -> (CUDA source, replaced Pallas kernel, path)
     "sp_tile/local": ("sp_tile.cu", f"{SPTILE}:52", "sp_local"),
     "wavefront_fill/ptr": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide"),
     "wavefront_fill/score": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide_score"),
+    "band_fill/relay": ("band_fill.cu", f"{BANDED}:90", "banded_sp_score"),
+    "band_fill/relay_ptr": ("band_fill.cu", f"{BANDED}:90", "banded_sp_align"),
+    "band_walk/floor": ("band_walk.cu", f"{BANDED}:890", "banded_sp_align"),
 }
 
 
@@ -173,15 +198,21 @@ def _nbytes(x) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(x))
 
 
-def _band_cells(qlen, tlen, dlo_p, dhi_p, k0, k1) -> int:
-    """Valid in-band cells (i, j) with k0 <= i + j < k1, summed over pairs."""
-    total = 0
+def _band_cells(qlen, tlen, dlo_p, dhi_p, k0, k1):
+    """(cells, letters, pairs): the valid in-band cells (i, j) with
+    k0 <= i + j < k1, the query rows plus the target columns they span, and
+    the pairs that have such cells, summed over pairs."""
+    cells = letters = pairs = 0
     for n, m, lo, hi in zip(qlen, tlen, dlo_p, dhi_p):
         i = np.arange(n + 1)
         jlo = np.maximum.reduce([np.zeros_like(i), i + lo, k0 - i])
         jhi = np.minimum.reduce([np.full_like(i, m), i + hi, k1 - 1 - i])
-        total += int(np.maximum(0, jhi - jlo + 1).sum())
-    return total
+        has = jhi >= jlo
+        if has.any():
+            cells += int((jhi - jlo + 1)[has].sum())
+            letters += int(has.sum()) + int(jhi[has].max() - jlo[has].min() + 1)
+            pairs += 1
+    return cells, letters, pairs
 
 
 def bound(key, args, kw, out):
@@ -211,18 +242,25 @@ def bound(key, args, kw, out):
     elif name == "wavefront_fill":  # the in-band cells of each pair's matrix
         qlen, tlen = (v.cpu().numpy().astype(np.int64) for v in args[2:4])
         d = tlen - qlen
-        cells = _band_cells(qlen, tlen, np.minimum(0, d) - kw["band"],
-                            np.maximum(0, d) + kw["band"], 0, kw["K"])
+        cells, _, _ = _band_cells(qlen, tlen, np.minimum(0, d) - kw["band"],
+                                  np.maximum(0, d) + kw["band"], 0, kw["K"])
         # the walk reads the in-band cells' bytes of the (K, B, Np) stream
         nbytes = _nbytes(args) + _nbytes(out["score"]) + cells * ("ptr" in out)
-    else:  # band_fill
-        qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab = args
-        if kw["mode"] == "emode":
-            cells = score.shape[0] * score.shape[1] * (kw["k1"] - kw["k0"])
-        else:
-            cells = _band_cells(*(v.cpu().numpy().astype(np.int64)
-                                  for v in (qlen, tlen, dlo_p, dhi_p)), kw["k0"], kw["k1"])
+    elif kw["mode"] == "emode":  # band_fill, pass 2: every slot of every diagonal
+        score = args[7]
+        cells = score.shape[0] * score.shape[1] * (kw["k1"] - kw["k0"])
         nbytes = _nbytes(args) + _nbytes(out)
+    else:  # band_fill, fill and ptr modes: the in-band cells of [k0, k1)
+        qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab = args
+        cells, letters, pairs = _band_cells(*(v.cpu().numpy().astype(np.int64)
+                                              for v in (qlen, tlen, dlo_p, dhi_p)),
+                                            kw["k0"], kw["k1"])
+        # the letters those cells read, not the letter windows; a byte per
+        # in-band cell of the pointer output, as for sp_tile and wavefront_fill
+        nbytes = (4 * letters + _nbytes(args[2:]) + _nbytes(out) - _nbytes(out.get("ptr"))
+                  + cells * ("ptr" in out))
+        if kw.get("bh") is not None:  # a resumed block: H and F of row 0, k <= dhi
+            nbytes += 2 * 4 * pairs * max(0, min(kw["k1"], kw["dhi"] + 1) - kw["k0"])
     ops = cells * (OPS_PER_CELL.get(key, 0) + 2 * bool(kw.get("tie_safe")))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
@@ -274,19 +312,23 @@ def check_kernel(key, kernel, plain):
 def _key(name, kw):
     if name == "wavefront_fill":
         return f"{name}/" + ("ptr" if kw["want_ptr"] else "score")
+    if name == "band_fill" and kw.get("bh") is not None:
+        return "band_fill/relay" + ("" if kw["mode"] == "fill" else "_ptr")
+    if name == "band_walk" and kw.get("i_floor", -1) >= 0:
+        return "band_walk/floor"
     return f"{name}/{kw['mode']}" if name in ("strip_fill", "band_fill", "sp_tile") else name
 
 
-def record(run, targets, keep=lambda kw: True):
+def record(run, targets, keep=lambda args, kw: True):
     """Run ``run()`` with each wrapper ``(module, name, plain)`` of
-    ``targets`` patched to keep its first call per key whose keywords
+    ``targets`` patched to keep its first call per key whose arguments
     ``keep`` accepts: (kernel, plain, args, kwargs, result)."""
     calls = {}
 
     def recording(name, fn, plain):
         def wrapped(*args, **kw):
             res = fn(*args, **kw)
-            if keep(kw):
+            if keep(args, kw):
                 calls.setdefault(_key(name, kw), (fn, plain, args, kw, res))
             return res
         return wrapped
@@ -384,7 +426,7 @@ def kernel_phase_sp(q, t, sp, dev):
 
     targets = [(bp_mod, "sp_tile", tile_mod.sp_tile_ref)]
     mesh = (dev,)
-    first = lambda kw: kw["j0"] == 0  # noqa: E731
+    first = lambda args, kw: kw["j0"] == 0  # noqa: E731
     calls, _ = record(lambda: bp_mod.nw_affine_align_sp(q, t, sp, mesh, C=SP_C), targets,
                       first)
     calls_l, _ = record(lambda: bp_mod.sw_affine_score_sp(q, t, sp, mesh, C=SP_C), targets,
@@ -415,6 +457,57 @@ def kernel_phase_wide(qs, ts, sp, dev):
                           targets)
         for key, (fn, plain, args, kw, _) in calls.items():
             per_kernel[key] = kernel_entry(key, fn, plain, args, kw)
+    return per_kernel
+
+
+def kernel_phase_banded_sp(qs, ts, sp, dev):
+    """Phase 8's kernels over a mesh of DSP entries naming the card: the
+    first resumed fill of a block d >= 1 (its local rows end before the
+    pairs') of the score relay on (qs, ts), a group of GB live pairs; the
+    first pointer recompute and the first walk (block d_start) of
+    ``align_banded_sp`` on (qs[0], ts[0])."""
+    from seqalib_tpu_torch.ops import band_fill as bf_mod
+    from seqalib_tpu_torch.ops import band_walk as bw_mod
+    from seqalib_tpu_torch.parallel import banded_sp as bsp_mod
+
+    targets = [(bsp_mod, "band_fill", bf_mod.band_fill_ref),
+               (bsp_mod, "band_walk", bw_mod.band_walk_ref)]
+    n = min(len(q) for q in qs)
+    lower = lambda args, kw: "bh" not in kw or int(args[2].max()) < n  # noqa: E731
+    relay, _ = record(lambda: bsp_mod.banded_nw_affine_score_sp(
+        qs, ts, sp, BANDSP, (dev,) * DSP), targets, lower)
+    calls, _ = record(lambda: bsp_mod.banded_nw_affine_align_sp(
+        qs[0], ts[0], sp, BANDSP, (dev,) * DSP), targets, lower)
+    calls["band_fill/relay"] = relay["band_fill/relay"]
+    live = int((calls["band_fill/relay"][2][2] > 0).sum())
+    if live != bsp_mod.GB:
+        raise AssertionError(f"band_fill/relay: {live} live pairs of {bsp_mod.GB}")
+    per_kernel = {}
+    for key in ("band_fill/relay", "band_fill/relay_ptr"):
+        fn, plain, args, kw, _ = calls[key]
+        whole = time_ms(lambda: fn(*args, **kw), 3)
+        k2 = 2 * kw["bout_row"] - RELAY_CUT // 2  # the capture of row R starts at 2R
+        # the kernel's own state entering diagonal k2
+        state = fn(*args, **dict(kw, k1=k2, want_bout=False))["state"]
+        cuts = [(args, dict(kw, k1=RELAY_CUT)),
+                (args[:6] + (state,) + args[7:], dict(kw, k0=k2, k1=k2 + RELAY_CUT))]
+        for n_cut, (a, k) in enumerate(cuts):
+            entry = kernel_entry(key, fn, plain, a, k)
+            if n_cut == 0:
+                per_kernel[key] = entry
+            else:  # the key keeps the injection cut's numbers; both are printed
+                if entry["max_abs_err"] != 0:
+                    raise AssertionError(f"{key}: the capture cut differs")
+            say(f"[kernel] {key}: diagonals [{k['k0']}, {k['k1']}) of block "
+                f"({kw['K']} diagonals, Wp {args[6].shape[2]}); whole block {whole:.3f} ms")
+    fn, plain, args, kw, _ = calls["band_walk/floor"]
+    whole = time_ms(lambda: fn(*args, **kw), 3)
+    ptr = args[0]
+    top = fn(ptr[WALK_CUT // 2:], *args[1:], **dict(kw, k0=WALK_CUT))
+    cut = (ptr[: WALK_CUT // 2], *top[1:])
+    per_kernel["band_walk/floor"] = kernel_entry("band_walk/floor", fn, plain, cut, kw)
+    say(f"[kernel] band_walk/floor: the lowest {WALK_CUT} of {2 * ptr.shape[0]} diagonals; "
+        f"whole block {whole:.3f} ms")
     return per_kernel
 
 
@@ -651,6 +744,101 @@ def wide_runs(qs, ts, sp2, sp1, dev, counts):
     say(f"[wide] {N_ORACLE4}/{N_ORACLE4} pairs equal to the banded oracle")
 
 
+def banded_sp_pairs():
+    """Phase 8's pairs, from their own generator: BSP long reads of LSP
+    letters (config 4's), BSP_ORACLE_N DNA pairs of 600-1000 letters with
+    2% substitutions and an indel run of up to 20 letters (the first pair
+    empty), and a protein pair of BSP_PROTEIN_N letters (5% substitutions,
+    a 4-letter deletion)."""
+    rng = np.random.default_rng(SEED + 8)
+    qs, ts = long_reads(rng, BSP, LSP)
+    qo, to = [np.zeros(0, np.uint8)], [rng.integers(0, 4, 5).astype(np.uint8)]
+    for _ in range(BSP_ORACLE_N - 1):
+        L = int(rng.integers(600, 1001))
+        q = rng.integers(0, 4, L).astype(np.uint8)
+        t = q.copy()
+        idx = rng.choice(L, L // 50, replace=False)
+        t[idx] = (t[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
+        a, g = int(rng.integers(100, L - 100)), int(rng.integers(-20, 21))
+        t = (np.delete(t, np.arange(a, a - g)) if g < 0
+             else np.insert(t, a, rng.integers(0, 4, g))).astype(np.uint8)
+        qo.append(q)
+        to.append(t)
+    qp = rng.integers(0, 20, BSP_PROTEIN_N).astype(np.uint8)
+    tp = qp.copy()
+    idx = rng.choice(BSP_PROTEIN_N, BSP_PROTEIN_N // 20, replace=False)
+    tp[idx] = (tp[idx] + 1 + rng.integers(0, 19, len(idx))) % 20
+    a = BSP_PROTEIN_N // 2
+    tp = np.delete(tp, np.arange(a, a + 4)).astype(np.uint8)
+    return qs, ts, qo, to, qp, tp
+
+
+def banded_sp_runs(qs, ts, qo, to, qp, tp, sp, spp, dev, counts):
+    """Phase 8: the banded-SP score relay and align on meshes naming the
+    card, against the single-device banded route and the oracle."""
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch.ops import reset_launches, launches
+    from seqalib_tpu_torch.parallel import banded_sp as bsp_mod
+
+    mesh4 = st.make_band_mesh([dev] * DSP)
+    geom, _ = bsp_mod._sp_setup(qs, ts, sp, BANDSP, mesh4, 512)
+    say(f"[banded_sp] geometry: R {geom['R']}, Dband {geom['Dband']}, Wp {geom['Wp']}, "
+        f"Kloc {geom['Kloc']}, {geom['NG']} relay groups, "
+        f"{geom['NG'] + DSP - 1} super-steps")
+    cells = sum(len(q) * 2 * BANDSP for q in qs)
+    reset_launches()
+    got, walls = timed_runs(lambda: st.align_score_banded_sp(qs, ts, sp, BANDSP, mesh4))
+    counts["banded_sp_score"] = dict(launches)
+    wall = statistics.median(walls)
+    say(f"[banded_sp] align_score_banded_sp B={len(qs)} L={LSP} band={BANDSP} mesh of "
+        f"{DSP}: wall {wall:.4f} s (reps {walls}); {len(qs) / wall:.2f} pairs/s; "
+        f"{cells / wall / 1e9:.3f} GCUPS(n*w)")
+    want = st.align_batch(qs, ts, scoring=sp, mode="global", band=BANDSP, traceback=False,
+                          device=dev)
+    if got != [r.score for r in want]:
+        raise AssertionError(f"banded SP scores {got} != align_batch(band=) "
+                             f"{[r.score for r in want]}")
+    say(f"[banded_sp] {len(qs)}/{len(qs)} scores equal align_batch(band={BANDSP})")
+    res = {}
+    for D in (DSP, 1):
+        reset_launches()
+        res[D], walls = timed_runs(lambda: st.align_banded_sp(
+            qs[0], ts[0], sp, BANDSP, st.make_band_mesh([dev] * D)))
+        if D == DSP:
+            counts["banded_sp_align"] = dict(launches)
+        wall = statistics.median(walls)
+        say(f"[banded_sp] align_banded_sp L={LSP} band={BANDSP} mesh of {D}: wall "
+            f"{wall:.4f} s (reps {walls}); {len(qs[0]) * 2 * BANDSP / wall / 1e9:.3f} "
+            f"GCUPS(n*w)")
+    check_cigars("banded_sp", qs[:1], ts[:1], [res[DSP]], sp)
+    ref = st.align_batch(qs[:1], ts[:1], scoring=sp, mode="global", band=BANDSP,
+                         device=dev)[0]
+    if not str(res[DSP]) == str(res[1]) == str(ref):
+        raise AssertionError(f"align_banded_sp: mesh of {DSP} {res[DSP]}, mesh of 1 "
+                             f"{res[1]}, align_batch(band=) {ref}")
+    say(f"[banded_sp] align_banded_sp: the CIGAR re-scores to {res[DSP].score}; meshes "
+        f"of {DSP} and 1 and align_batch(band={BANDSP}) give the same result")
+    want = st.align_batch(qo, to, scoring=sp, mode="global", band=BSP_ORACLE_BAND,
+                          backend="oracle")
+    wantp = st.align(qp, tp, scoring=spp, mode="global", band=BSP_ORACLE_BAND,
+                     backend="oracle")
+    for D in (1, DSP):
+        mesh = st.make_band_mesh([dev] * D)
+        got = st.align_banded_sp(qo, to, sp, BSP_ORACLE_BAND, mesh)
+        for b, (g, w) in enumerate(zip(got, want)):
+            if str(g) != str(w):
+                raise AssertionError(f"align_banded_sp pair {b}, mesh of {D}: {g} != "
+                                     f"oracle {w}")
+        gotp = st.align_banded_sp(qp, tp, spp, BSP_ORACLE_BAND, mesh)
+        scorep = st.align_score_banded_sp(qp, tp, spp, BSP_ORACLE_BAND, mesh)
+        if str(gotp) != str(wantp) or scorep != wantp.score:
+            raise AssertionError(f"BLOSUM62 pair, mesh of {D}: {gotp} / {scorep} != "
+                                 f"oracle {wantp}")
+    say(f"[banded_sp] {len(qo)} DNA pairs (one empty) and a BLOSUM62 pair of "
+        f"{len(qp)} letters, band {BSP_ORACLE_BAND}, equal the oracle on meshes of 1 "
+        f"and {DSP}")
+
+
 def main() -> int:
     import torch
 
@@ -688,12 +876,14 @@ def main() -> int:
     qsp, tsp, q16, t16, qo, to = sp_pairs(rng)
     sp7 = ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * BLOSUM62)
     qs7, ts7 = wide_pairs(rng)
+    qsb, tsb, qob, tob, qpb, tpb = banded_sp_pairs()
 
     per_kernel, escalated = kernel_phase3(q3, t3, sp3, dev)
     say(f"[config3] escalated pairs: {escalated}/{B3}")
     per_kernel.update(kernel_phase4(qs4, ts4, sp4, dev))
     per_kernel.update(kernel_phase_sp(qsp, tsp, sp4, dev))
     per_kernel.update(kernel_phase_wide(qs7, ts7, sp7, dev))
+    per_kernel.update(kernel_phase_banded_sp(qsb, tsb, sp4, dev))
     say(f"[time] kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     counts = {}
@@ -725,6 +915,8 @@ def main() -> int:
     sp_runs(qsp, tsp, q16, t16, qo, to, sp4, dev, counts)
     say(f"[time] SP phase done at {time.perf_counter() - t_start:.1f} s")
     wide_runs(qs7, ts7, sp7, sp3, dev, counts)
+    say(f"[time] wide-table phase done at {time.perf_counter() - t_start:.1f} s")
+    banded_sp_runs(qsb, tsb, qob, tob, qpb, tpb, sp4, sp3, dev, counts)
     say(f"[time] paths done at {time.perf_counter() - t_start:.1f} s")
 
     for path, c in counts.items():

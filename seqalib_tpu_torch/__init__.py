@@ -1,9 +1,11 @@
 """seqalib_tpu_torch — the PyTorch + CUDA port of seqalib_tpu.
 
 Runs local and global alignment (scores, canonical coordinates, full
-CIGARs), banded global alignment of long reads (``band=``) and the
+CIGARs), banded global alignment of long reads (``band=``), the
 full-matrix alignment of one long pair split over a list of devices
-(``align_score_sp``, ``align_sp``) on an NVIDIA Hopper card through
+(``align_score_sp``, ``align_sp``) and banded long pairs split into row
+blocks over a list of devices (``align_score_banded_sp``,
+``align_banded_sp``) on an NVIDIA Hopper card through
 hand-written CUDA kernels, and on the CPU through their plain PyTorch
 versions.  It keeps its own copies of the types, the oracle
 and the CIGAR codec, and imports nothing of ``seqalib_tpu`` or JAX.
@@ -36,6 +38,26 @@ def align_score_sp(query, target, scoring, mesh, mode="global", **kw):
     if mode != "global":
         raise ValueError(f"mode must be 'global' or 'local', got {mode!r}")
     return nw_affine_score_sp(query, target, scoring, mesh, **kw)
+
+
+def align_score_banded_sp(queries, targets, scoring, band, mesh, **kw):
+    """Banded affine global score(s) with each pair's band split into row
+    blocks over ``mesh`` (a tuple of devices), the blocks relayed from one
+    device to the next; one pair (1-D codes) or a batch.  See
+    ``parallel.banded_sp.banded_nw_affine_score_sp``."""
+    from .parallel.banded_sp import banded_nw_affine_score_sp
+
+    return banded_nw_affine_score_sp(queries, targets, scoring, band, mesh, **kw)
+
+
+def align_banded_sp(query, target, scoring, band, mesh, **kw):
+    """Banded affine global alignment (score + full CIGAR) of one long pair,
+    or a batch, with the band relayed as row blocks over ``mesh``;
+    re-score-verified traceback.  See
+    ``parallel.banded_sp.banded_nw_affine_align_sp``."""
+    from .parallel.banded_sp import banded_nw_affine_align_sp
+
+    return banded_nw_affine_align_sp(query, target, scoring, band, mesh, **kw)
 
 
 def align_sp(query, target, scoring, mesh, **kw):

@@ -46,9 +46,9 @@ _SIGNATURES = {
     "seqalib_strip_walk": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "seqalib_band_fill": [
         _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
     ],
-    "seqalib_band_walk": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "seqalib_band_walk": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "seqalib_sp_tile": [_P] * 8 + [_I] * 13 + [_P] * 7,
     "seqalib_wavefront_fill": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P] * 4,
 }

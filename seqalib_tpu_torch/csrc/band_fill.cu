@@ -9,8 +9,12 @@
 //           nibbles two diagonals per byte (config-4 traceback recompute);
 //   kEmode  the TPU's `emode`: no mask, per-slot first maximum (BV, BK) and
 //           the tie_safe edge bound EV (local alignment's pass 2).
+// In kFill and kPtr a banded sequence-parallel row block (the TPU's `bh`/`bf`
+// and `want_bout`, parallel/banded_sp.py) resumes from the block above: on
+// every diagonal k <= dhi slot 0 (local row 0) takes H and F from the
+// boundary streams after the mask and the origin, and row `bout_row` is
+// captured, one (H, F) store per diagonal, into column k - 2 * bout_row.
 // Tie-breaks are the oracle's: DIAG > UP(F) > LEFT(E), extend >= open.
-// Not ported: the banded-SP boundary-row injection and capture.
 //
 // Bound on the H100: latency, not memory or integer throughput.  A cell
 // costs ~25 integer operations and reads two letters and one table word;
@@ -70,7 +74,18 @@ struct BandArgs {
   int32_t* score;  // (B, Wp) in/out: capture (kFill) or EV (kEmode)
   int32_t* ckpt;   // (NC, 4, B, Wp) or null
   uint8_t* ptr;    // ((k1 - k0) / 2, B, Wp) or null
+  const int32_t* bh;  // (B, Wb) boundary H and F injected at slot 0, or null
+  const int32_t* bf;
+  int Wb;
+  int32_t* bout;  // (2, B, Wbo) capture of row bout_row, or null
+  int Wbo;
+  int bout_row;
 };
+
+// offset of bout's F plane
+__device__ __forceinline__ size_t plane_bo(const BandArgs& a) {
+  return (size_t)a.B * a.Wbo;
+}
 
 template <int MODE>
 __global__ void __launch_bounds__(32) band_fill_kernel(const BandArgs a) {
@@ -134,6 +149,14 @@ __global__ void __launch_bounds__(32) band_fill_kernel(const BandArgs a) {
     int32_t* Hn = Hb + hn * Wp;
     int32_t* En = Eb + (ec ^ 1) * Wp;
     int32_t* Fn = Fb + (ec ^ 1) * Wp;
+    // boundary capture: column bx of bout takes slot pcap's H and F
+    const int bx = k - 2 * a.bout_row;
+    const int pcap = a.bout_row - ih;
+    const bool cap = MODE != kEmode && a.bout != nullptr && bx >= 0 && bx < a.Wbo;
+    if (cap && lane == 0 && (pcap < 0 || pcap >= Wp)) {  // no slot: 0, as the TPU
+      a.bout[(size_t)b * a.Wbo + bx] = 0;
+      a.bout[plane_bo(a) + (size_t)b * a.Wbo + bx] = 0;
+    }
     for (int p = lane; p < Wp; p += 32) {
       int pl = p + d1;  // left: (p + d1) mod Wp
       if (pl >= Wp) pl -= Wp;
@@ -187,6 +210,15 @@ __global__ void __launch_bounds__(32) band_fill_kernel(const BandArgs a) {
                         j <= tlen && !origin;
         H = origin ? 0 : (ok ? best : kNegInf);
         if (!ok) E = F = kNegInf;
+        if (a.bh != nullptr && p == 0 && k <= a.dhi) {  // local row 0
+          const size_t x = (size_t)b * a.Wb + min(k, a.Wb - 1);
+          H = a.bh[x];
+          F = a.bf[x];
+        }
+        if (cap && p == pcap) {
+          a.bout[(size_t)b * a.Wbo + bx] = H;
+          a.bout[plane_bo(a) + (size_t)b * a.Wbo + bx] = F;
+        }
         if (MODE == kFill && k == qlen + tlen && i == qlen && k < a.K)
           a.score[row + p] = max(a.score[row + p], H);
       }
@@ -239,11 +271,15 @@ extern "C" int seqalib_band_fill(
     const int32_t* dhi_p, const int32_t* table, int NT, int B, int Wp, int k0,
     int k1, int K, int dhi, int gap_open, int gap_extend, int mode, int CK,
     int tie_safe, int smax, int32_t* state, int32_t* score, int32_t* ckpt,
-    uint8_t* ptr, void* stream) {
-  const BandArgs a{qk,   q_width, tk,       t_width,    qlen,  tlen,     dlo_p,
-                   dhi_p, table,  NT,       B,          Wp,    k0,       k1,
-                   K,    dhi,     gap_open, gap_extend, CK,    tie_safe, smax,
-                   state, score,  ckpt,     ptr};
+    uint8_t* ptr, const int32_t* bh, const int32_t* bf, int Wb, int32_t* bout,
+    int Wbo, int bout_row, void* stream) {
+  if ((bh != nullptr && Wb < 1) || (bout != nullptr && (Wbo < 1 || bout_row < 0)))
+    return (int)cudaErrorInvalidValue;
+  const BandArgs a{qk,    q_width, tk,       t_width,    qlen,  tlen,     dlo_p,
+                   dhi_p, table,   NT,       B,          Wp,    k0,       k1,
+                   K,     dhi,     gap_open, gap_extend, CK,    tie_safe, smax,
+                   state, score,   ckpt,     ptr,        bh,    bf,       Wb,
+                   bout,  Wbo,     bout_row};
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case kFill:

@@ -1,12 +1,14 @@
 // Banded traceback walk over one super-block of packed pointer nibbles.
 //
-// Replaces seqalib_tpu/ops/banded_pallas.py::band_walk_range (packed=True;
-// the banded-SP i_floor handoff is not ported).  ops/band_walk.py's
-// docstring states the layout.  Each walker runs the H/E/F state machine
-// from its cell (i, j): on the diagonal k = i + j it reads the nibble of
-// slot clamp(i - ihat(k), 0, Wp - 1), stops at a STOP pointer in state H,
-// and otherwise emits one op and steps back (M: two diagonals, I or D:
-// one).  Every diagonal of the block gets a column: the op, or 255.
+// Replaces seqalib_tpu/ops/banded_pallas.py::band_walk_range (packed=True,
+// with the banded-SP i_floor handoff).  ops/band_walk.py's docstring states
+// the layout.  Each walker runs the H/E/F state machine from its cell
+// (i, j): on the diagonal k = i + j it reads the nibble of slot
+// clamp(i - ihat(k), 0, Wp - 1), stops at a STOP pointer in state H, and
+// otherwise emits one op and steps back (M: two diagonals, I or D: one).
+// Every diagonal of the block gets a column: the op, or 255.  Before the
+// read on every diagonal a walker on a row <= i_floor is marked done: in
+// banded SP, local row 0 is the block above's last row (-1 never stops).
 //
 // Bound on the H100: memory latency.  A walker's reads are a chain of
 // dependent byte loads from a block of up to 192 MB, one per op; the bytes
@@ -36,7 +38,7 @@ constexpr uint8_t kOpNone = 255;
 
 __global__ void band_walk_kernel(const uint8_t* __restrict__ ptr, int KW,
                                  int B, int Wp, int k0, int dhi,
-                                 int32_t* __restrict__ iv,
+                                 int i_floor, int32_t* __restrict__ iv,
                                  int32_t* __restrict__ jv,
                                  int32_t* __restrict__ stv,
                                  int32_t* __restrict__ donev,
@@ -48,6 +50,7 @@ __global__ void band_walk_kernel(const uint8_t* __restrict__ ptr, int KW,
   for (int x = KW - 1; x >= 0; --x) {
     const int k = k0 + x;
     uint8_t op = kOpNone;
+    if (i <= i_floor) done = 1;
     if (!done && i + j == k) {
       const int p = min(max(i - ihat(k, dhi), 0), Wp - 1);
       const int byte = ptr[((size_t)(x >> 1) * B + b) * Wp + p];
@@ -80,12 +83,12 @@ __global__ void band_walk_kernel(const uint8_t* __restrict__ ptr, int KW,
 }  // namespace
 
 extern "C" int seqalib_band_walk(const uint8_t* ptr, int KW, int B, int Wp,
-                                 int k0, int dhi, int32_t* iv, int32_t* jv,
-                                 int32_t* stv, int32_t* donev, uint8_t* ops,
-                                 void* stream) {
+                                 int k0, int dhi, int i_floor, int32_t* iv,
+                                 int32_t* jv, int32_t* stv, int32_t* donev,
+                                 uint8_t* ops, void* stream) {
   const int threads = 64;
   const unsigned blocks = (unsigned)((B + threads - 1) / threads);
   band_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      ptr, KW, B, Wp, k0, dhi, iv, jv, stv, donev, ops);
+      ptr, KW, B, Wp, k0, dhi, i_floor, iv, jv, stv, donev, ops);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,7 @@
 ``launches`` counts, per kernel, the launches each wrapper made on a CUDA
 tensor (a call on a CPU tensor runs the plain PyTorch version and counts
 nothing).  ``strip_fill``, ``band_fill``, ``sp_tile`` and ``wavefront_fill``
-count each mode under its own key.
+count each mode under its own key, ``band_walk`` its ``i_floor`` handoff.
 """
 
 from __future__ import annotations
@@ -17,7 +17,10 @@ launches: dict[str, int] = {
     "band_fill/fill": 0,
     "band_fill/ptr": 0,
     "band_fill/emode": 0,
+    "band_fill/relay": 0,
+    "band_fill/relay_ptr": 0,
     "band_walk": 0,
+    "band_walk/floor": 0,
     "sp_tile/global": 0,
     "sp_tile/local": 0,
     "sp_tile/ptr": 0,

@@ -1,5 +1,5 @@
 """Banded traceback walk (counterpart of ``banded_pallas.band_walk_range``
-with ``packed=True``, without the banded-SP ``i_floor`` handoff).
+with ``packed=True``).
 
 ``band_walk(ptr, i, j, st, done, k0=, dhi=)`` walks one super-block of
 ``band_fill``'s pointer nibbles: ``ptr`` (KW / 2, B, Wp) uint8 holds
@@ -11,7 +11,12 @@ to the window), stops at a STOP pointer in state H, and otherwise emits one
 op (``utils.cigar.OP_M/I/D``) and steps back.  Returns ``(ops, i, j, st,
 done)``: ``ops`` (B, KW) uint8, column ``x`` the op consumed at diagonal
 ``k0 + x`` (255 = none), and the walkers' (B,) int32 states, which the
-next (lower) super-block resumes from.  Kernel: ``csrc/band_walk.cu``.
+next (lower) super-block resumes from.
+
+``i_floor``: before the read on every diagonal of the block, a walker on a
+row ``<= i_floor`` is marked done (banded sequence parallelism: local row
+0 is the block above's last row, whose pointers are never read).  The
+default -1 never stops a walker.  Kernel: ``csrc/band_walk.cu``.
 """
 
 from __future__ import annotations
@@ -36,14 +41,14 @@ def _check(ptr, state, k0):
         raise ValueError(f"band_walk: k0 must be even and >= 0, got {k0}")
 
 
-def band_walk_ref(ptr, i, j, st, done, *, k0: int, dhi: int):
+def band_walk_ref(ptr, i, j, st, done, *, k0: int, dhi: int, i_floor: int = -1):
     """Plain PyTorch version: the lockstep walk (one op per active pair
     per step), vectorized over pairs."""
     KW2, B, Wp = ptr.shape
     KW = 2 * KW2
     dev = ptr.device
     i, j, st = i.long(), j.long(), st.long()
-    done = done != 0
+    done = (done != 0) | ((i <= i_floor) & (KW > 0))  # the test on the top diagonal
     ops = torch.full((B, KW), OP_PAD, dtype=torch.uint8, device=dev)
     rows = torch.arange(B, device=dev)
     while True:
@@ -73,20 +78,23 @@ def band_walk_ref(ptr, i, j, st, done, *, k0: int, dhi: int):
         )
         i = i - (act_m | act_i).long()
         j = j - (act_m | act_d).long()
+        # the floor test on the diagonal below this one, if the block has it
+        done = done | (act & (i <= i_floor) & (x >= 1))
     return (ops, i.to(torch.int32), j.to(torch.int32), st.to(torch.int32),
             done.to(torch.int32))
 
 
-def band_walk(ptr, i, j, st, done, *, k0: int, dhi: int):
+def band_walk(ptr, i, j, st, done, *, k0: int, dhi: int, i_floor: int = -1):
     """Walk every pair through one super-block; see the module docstring.
     The input states are not modified.  A CPU tensor runs
-    ``band_walk_ref``; a CUDA tensor the kernel."""
+    ``band_walk_ref``; a CUDA tensor the kernel.  A call with
+    ``i_floor >= 0`` counts under ``band_walk/floor``."""
     ptr = ptr.contiguous()
     # the kernel updates the walker state in place: work on copies
     state = [v.to(torch.int32).clone().contiguous() for v in (i, j, st, done)]
     _check(ptr, state, k0)
     if ptr.device.type == "cpu":
-        return band_walk_ref(ptr, *state, k0=k0, dhi=dhi)
+        return band_walk_ref(ptr, *state, k0=k0, dhi=dhi, i_floor=i_floor)
     if ptr.device.type != "cuda":
         raise ValueError(f"band_walk: unsupported device {ptr.device}")
     from .._build import check, lib
@@ -97,9 +105,9 @@ def band_walk(ptr, i, j, st, done, *, k0: int, dhi: int):
         return (ops.fill_(OP_PAD), *state)
     stream = torch.cuda.current_stream(ptr.device).cuda_stream
     rc = lib().seqalib_band_walk(
-        ptr.data_ptr(), 2 * KW2, B, Wp, k0, dhi, *(v.data_ptr() for v in state),
-        ops.data_ptr(), stream,
+        ptr.data_ptr(), 2 * KW2, B, Wp, k0, dhi, i_floor,
+        *(v.data_ptr() for v in state), ops.data_ptr(), stream,
     )
     check("band_walk", rc)
-    launches["band_walk"] += 1
+    launches["band_walk/floor" if i_floor >= 0 else "band_walk"] += 1
     return (ops, *state)

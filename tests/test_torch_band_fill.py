@@ -256,3 +256,117 @@ def test_bad_arguments_are_refused():
         band_fill(z, z, v, v, v, v, st, sc, tab, k0=0, k1=4, mode="emode", **kw)
     with pytest.raises(ValueError, match="unknown mode"):
         band_fill(z, z, v, v, v, v, st, sc, tab, k0=0, k1=4, mode="walk", **kw)
+
+
+# ---- banded-SP resume: boundary injection (bh/bf) and capture (bout) -------
+
+BOUT_ROW = 20  # capture zone [40, 168): real, 0 (no slot) and NEG_INF columns
+
+
+@pytest.fixture(scope="module", params=sorted(SCORINGS))
+def relay_case(request):
+    """A block resumed from a boundary row (H/F streams with real and
+    NEG_INF entries), filled by JAX from diagonal 0 in fill and ptr modes
+    with the capture of row BOUT_ROW."""
+    sp, alpha = SCORINGS[request.param]
+    rng = np.random.default_rng(20 + len(request.param))
+    B, n, m = len(QLEN), int(QLEN.max()), int(TLEN.max())
+    qs = rng.integers(0, alpha, size=(B, n)).astype(np.int32)
+    ts = rng.integers(0, alpha, size=(B, m)).astype(np.int32)
+    ts[:, 3:45] = qs[:, 5:47]
+    deltas = TLEN - QLEN
+    dlo_p = np.minimum(0, deltas) - BAND
+    dhi_p = np.maximum(0, deltas) + BAND
+    dlo, dhi = int(dlo_p.min()), int(dhi_p.max())
+    Wp, K = jax_banded._geometry(dlo, dhi, n, m)
+    Kp = -(-K // CK) * CK
+    Wbo = -(-(dhi - dlo + 1) // 128) * 128
+    Wb = Wbo + 256
+    A = sp.substitution_matrix().shape[0]
+    qk = jax_banded._pad_letters(qs, Kp + Wp + 256, A, QLEN)
+    tk = jax_banded._pad_letters(ts, Kp + 256, A + 1, TLEN)
+    qin, kwj = _jax_letters(sp, qk)
+    state0 = bp.init_band_state(qin, B, Wp, profile=kwj["profile"])
+    score0 = np.full((B, Wp), NEG_INF, np.int32)
+    # a boundary row: real values on part of the band, NEG_INF elsewhere
+    bh = (O + E * np.arange(Wb) + rng.integers(-6, 7, size=(B, Wb))).astype(np.int32)
+    bf = (bh + rng.integers(-9, 0, size=(B, Wb))).astype(np.int32)
+    bh[:, 14:] = NEG_INF
+    bh[1, :3] = NEG_INF
+    bf[:, 10:] = NEG_INF
+    geo = dict(K=K, Wp=Wp, dlo=dlo, dhi=dhi, gap_open=O, gap_extend=E, CK=CK,
+               interpret=True, nsub=4, **kwj)
+    vecs = (QLEN, TLEN, dlo_p, dhi_p)
+    args = [_j(qin), _j(tk)] + [_j(v) for v in vecs] + [_j(state0), _j(score0)]
+    inj = dict(bh=_j(bh), bf=_j(bf), want_bout=True, bout_row=BOUT_ROW, k_start=0,
+               k_end=Kp, want_ckpt=False)
+    score, state, _, _, bout = bp.band_fill_range(*args, want_ptr=False, **inj, **geo)
+    _, pstate, _, ptr, pbout = bp.band_fill_range(
+        *args, want_ptr=True, want_score=False, pack_ptr=True, **inj, **geo)
+    port_args = [_t(qk), _t(tk)] + [_t(v) for v in vecs]
+    return dict(
+        port_args=port_args, state0=_t(state0[:4]), score0=_t(score0), bh=_t(bh),
+        bf=_t(bf), K=K, Kp=Kp, dlo=dlo, dhi=dhi,
+        tab=_t(band_table(sp.substitution_matrix(), _sent(sp))),
+        jax=dict(score=np.asarray(score), state=np.asarray(state)[:4],
+                 bout=np.asarray(bout), pstate=np.asarray(pstate)[:4],
+                 ptr=np.asarray(ptr).view(np.uint8), pbout=np.asarray(pbout)),
+    )
+
+
+@pytest.mark.parametrize("mode", ["fill", "ptr"])
+def test_injection_and_capture_match_jax(relay_case, mode):
+    c = relay_case
+    before = dict(launches)
+    r = band_fill(*c["port_args"], c["state0"], c["score0"], c["tab"], k0=0, k1=c["Kp"],
+                  K=c["K"], dlo=c["dlo"], dhi=c["dhi"], gap_open=O, gap_extend=E,
+                  mode=mode, bh=c["bh"], bf=c["bf"], want_bout=True, bout_row=BOUT_ROW)
+    assert launches == before  # the CPU path runs the plain version
+    jax = c["jax"]
+    if mode == "fill":
+        np.testing.assert_array_equal(r["score"].numpy(), jax["score"])
+        np.testing.assert_array_equal(r["state"].numpy(), jax["state"])
+        want_bout = jax["bout"]
+    else:
+        np.testing.assert_array_equal(r["ptr"].numpy(), jax["ptr"])
+        np.testing.assert_array_equal(r["state"].numpy(), jax["pstate"])
+        want_bout = jax["pbout"]
+    bout = r["bout"].numpy()
+    assert bout.shape == want_bout.shape == (2, len(QLEN), 128)
+    np.testing.assert_array_equal(bout, want_bout)
+    # the three kinds of capture column: a slot's value, 0 where no slot
+    # holds the row, NEG_INF past the last diagonal
+    x_end = c["Kp"] - 2 * BOUT_ROW
+    assert (bout[:, :, x_end:] == NEG_INF).all()
+    assert (bout[:, :, 19:x_end] == 0).all()
+    assert ((bout[0, :, :19] > NEG_INF // 2) & (bout[0, :, :19] != 0)).any()
+
+
+def test_injection_changes_the_fill(relay_case):
+    # the boundary reaches the final cells: without it the scores differ
+    c = relay_case
+    kw = dict(k0=0, k1=c["Kp"], K=c["K"], dlo=c["dlo"], dhi=c["dhi"], gap_open=O,
+              gap_extend=E, mode="fill")
+    plain = band_fill(*c["port_args"], c["state0"], c["score0"], c["tab"], **kw)
+    inj = band_fill(*c["port_args"], c["state0"], c["score0"], c["tab"], bh=c["bh"],
+                    bf=c["bf"], **kw)
+    assert "bout" not in inj
+    assert not torch.equal(plain["score"], inj["score"])
+    np.testing.assert_array_equal(inj["score"].numpy(), c["jax"]["score"])
+
+
+def test_boundary_arguments_are_refused():
+    z = torch.zeros((1, 4), dtype=torch.int32)
+    v = torch.zeros(1, dtype=torch.int32)
+    st = torch.zeros((4, 1, 128), dtype=torch.int32)
+    sc = torch.zeros((1, 128), dtype=torch.int32)
+    tab = torch.zeros((6, 6), dtype=torch.int32)
+    kw = dict(K=9, dlo=-2, dhi=2, gap_open=O, gap_extend=E, k0=0, k1=4)
+    bh = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="together"):
+        band_fill(z, z, v, v, v, v, st, sc, tab, mode="fill", bh=bh, **kw)
+    with pytest.raises(ValueError, match="fill/ptr"):
+        band_fill(z, z, v, v, v, v, torch.zeros((6, 1, 128), dtype=torch.int32), sc, tab,
+                  mode="emode", want_bout=True, **kw)
+    with pytest.raises(ValueError, match="bh must be"):
+        band_fill(z, z, v, v, v, v, st, sc, tab, mode="fill", bh=bh.long(), bf=bh, **kw)

@@ -83,7 +83,7 @@ def _walk_all(blocks, walk):
     return per_block
 
 
-def _jax_walk(blocks):
+def _jax_walk(blocks, i_floor=-1):
     B, Wp, dhi = len(QLEN), blocks["Wp"], blocks["dhi"]
 
     def walk(ptr, i, j, st, done, k0):
@@ -91,7 +91,8 @@ def _jax_walk(blocks):
         ops, *state = band_walk_range(
             jnp.asarray(ptr.numpy().view(np.int8)), *(jnp.asarray(v.numpy()) for v in
                                                       (i, j, st, done)),
-            k0, KW=KW, dhi=dhi, Wp=Wp, B=B, interpret=True, packed=True)
+            k0, KW=KW, dhi=dhi, Wp=Wp, B=B, interpret=True, packed=True,
+            i_floor=i_floor)
         return (np.asarray(ops)[:, :KW], *(torch.from_numpy(np.asarray(v).copy())
                                           for v in state))
 
@@ -143,3 +144,33 @@ def test_odd_k0_is_refused(blocks):
     v = _t(np.zeros(len(QLEN)))
     with pytest.raises(ValueError, match="even"):
         band_walk(ptr, v, v, v, v, k0=3, dhi=blocks["dhi"])
+
+
+@pytest.mark.parametrize("i_floor", [0, 9])
+def test_floor_handoff_matches_jax(blocks, i_floor):
+    """With ``i_floor`` a walker is done once it stands on a row <= i_floor
+    (banded SP: local row 0 belongs to the block above); the walkers
+    cross row i_floor inside the lowest blocks."""
+    before = dict(launches)
+    got = _walk_all(blocks, lambda ptr, *st: band_walk(ptr, *st[:4], k0=st[4],
+                                                       dhi=blocks["dhi"], i_floor=i_floor))
+    assert launches == before
+    want = _jax_walk(blocks, i_floor)
+    for (ops, st), (wops, wst) in zip(got, want, strict=True):
+        np.testing.assert_array_equal(ops, wops)
+        for a, b in zip(st, wst):
+            np.testing.assert_array_equal(a, b)
+    i, j, _, done = got[-1][1]
+    live = QLEN > 0
+    assert (i[live] == i_floor).all() and done[live].all()  # stopped on the floor
+    if i_floor == 0:
+        assert (j[live] > 0).any()  # ... before the column-0 end of a path
+
+
+def test_floor_minus_one_never_stops(blocks):
+    walk = lambda f: _walk_all(blocks, lambda ptr, *st: band_walk(  # noqa: E731
+        ptr, *st[:4], k0=st[4], dhi=blocks["dhi"], **f))
+    for (ops, st), (wops, wst) in zip(walk({}), walk({"i_floor": -1}), strict=True):
+        np.testing.assert_array_equal(ops, wops)
+        for a, b in zip(st, wst):
+            np.testing.assert_array_equal(a, b)

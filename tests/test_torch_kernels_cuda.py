@@ -207,6 +207,77 @@ def test_band_walk_kernel_matches_plain_version(dev, scoring):
         state = list(got[1:])
 
 
+@pytest.mark.parametrize("Wb", [384, 7])  # 7 < dhi: the stream index clamps
+@pytest.mark.parametrize("scoring", sorted(SCORINGS))
+@pytest.mark.parametrize("mode", ["fill", "ptr"])
+def test_band_fill_relay_kernel_matches_plain_version(dev, scoring, mode, Wb):
+    """A block resumed from a boundary row (bh/bf) with the capture of row
+    60: real, 0 (no slot holds the row) and NEG_INF capture columns."""
+    c = _band_bucket(dev, scoring, seed=4)
+    B = c["score"].shape[0]
+    rng = np.random.default_rng(Wb)
+    bh = torch.as_tensor(-5 - 2 * np.arange(Wb) + rng.integers(-6, 7, size=(B, Wb)),
+                         dtype=torch.int32, device=dev)
+    bh[:, 20:] = NEG_INF
+    bf = (bh - 3).clamp(min=NEG_INF)
+    call = dict(k0=0, k1=c["Kp"], mode=mode, bh=bh, bf=bf, want_bout=True, bout_row=60,
+                **c["kw"])
+    key = "band_fill/relay" if mode == "fill" else "band_fill/relay_ptr"
+    before = launches[key]
+    got = band_fill(*c["args"], c["state"], c["score"], c["tab"], **call)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    want = band_fill_ref(*c["args"], c["state"], c["score"], c["tab"], **call)
+    _same(got, want)
+    bout = want["bout"]
+    assert (bout == 0).any() and (bout == NEG_INF).any() and (bout > NEG_INF // 2).any()
+
+
+@pytest.mark.parametrize("i_floor", [0, 40])
+@pytest.mark.parametrize("scoring", sorted(SCORINGS))
+def test_band_walk_floor_kernel_matches_plain_version(dev, scoring, i_floor):
+    c = _band_bucket(dev, scoring, seed=3)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    state = [as_t(c["qlen"]), as_t(c["tlen"]), as_t(np.zeros(len(c["qlen"]))),
+             as_t(np.zeros(len(c["qlen"])))]
+    NC = c["ckpt"].shape[0]
+    for cg in range((NC - 1) // 2 * 2, -1, -2):  # super-blocks of two chunks, high k first
+        ptr = band_fill_ref(*c["args"], c["ckpt"][cg], c["score"], c["tab"],
+                            k0=cg * c["CK"], k1=min(cg + 2, NC) * c["CK"], mode="ptr",
+                            **c["kw"])["ptr"]
+        before = launches["band_walk/floor"]
+        got = band_walk(ptr, *state, k0=cg * c["CK"], dhi=c["dhi"], i_floor=i_floor)
+        torch.cuda.synchronize()
+        assert launches["band_walk/floor"] == before + 1
+        want = band_walk_ref(ptr, *state, k0=cg * c["CK"], dhi=c["dhi"], i_floor=i_floor)
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+        state = list(got[1:])
+    live = torch.as_tensor(c["qlen"] > i_floor, device=dev)
+    assert bool((state[0][live] == i_floor).all())  # every walker stopped on the floor
+
+
+@pytest.mark.parametrize("scoring", ["dna_affine", "blosum62_affine"])
+def test_banded_sp_on_cuda_matches_oracle(dev, scoring):
+    """align_banded_sp / align_score_banded_sp on meshes of 1 and 3
+    entries naming the card, against the banded oracle."""
+    from seqalib_tpu.oracle import nw_affine
+    from seqalib_tpu_torch import align_banded_sp, align_score_banded_sp
+
+    sp, alpha = SCORINGS[scoring]
+    psp = scoring_params(sp.match, sp.mismatch, sp.gap_open, sp.gap_extend, sp.matrix)
+    rng = np.random.default_rng(13)
+    qs = [rng.integers(0, alpha, size=L).astype(np.int32) for L in (700, 520, 0, 611)]
+    ts = [np.concatenate([q[6:], rng.integers(0, alpha, size=9)]).astype(np.int32)
+          for q in qs]
+    want = [nw_affine(q, t, sp, band=24) for q, t in zip(qs, ts)]
+    for D in (1, 3):
+        got = align_banded_sp(qs, ts, psp, 24, (dev,) * D, CK=128)
+        assert [str(r) for r in got] == [str(w) for w in want]
+        scores = align_score_banded_sp(qs, ts, psp, 24, (dev,) * D)
+        assert scores == [w.score for w in want]
+
+
 @pytest.mark.parametrize("scoring", sorted(SCORINGS))
 def test_banded_align_batch_on_cuda_matches_oracle(dev, scoring):
     sp, alpha = SCORINGS[scoring]

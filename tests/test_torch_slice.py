@@ -283,7 +283,7 @@ def test_cuda_device_without_a_card_raises():
 
 def test_port_never_imports_jax():
     # neither jax nor any module of the JAX package, after a local call, a
-    # banded global call (both banded routes) and a sequence-parallel one
+    # banded global call (both banded routes) and both sequence-parallel ones
     code = (
         "import sys, numpy as np, seqalib_tpu_torch as st\n"
         "r = st.align_batch(['ACGTACGT', 'TTGCA'], ['ACGACGT', 'TTGGCA'], device='cpu')\n"
@@ -300,6 +300,9 @@ def test_port_never_imports_jax():
         "a = st.align_sp(st.encode_dna('ACGTACGTAACG'), st.encode_dna('ACGACGTTACG'), dna,\n"
         "                st.make_band_mesh(['cpu'] * 2), C=4)\n"
         "assert a.cigar, a\n"
+        "b = st.align_banded_sp(st.encode_dna('ACGTACGTAACG'), st.encode_dna('ACGACGTTACG'),\n"
+        "                       dna, 3, st.make_band_mesh(['cpu'] * 2), CK=8)\n"
+        "assert b.cigar == a.cigar, (a, b)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'seqalib_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

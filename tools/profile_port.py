@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a warm ``seqalib_tpu_torch.align_batch`` call goes.
 
-    python3 tools/profile_port.py [--config 3|1|4|sp|wide] [--batch B]
+    python3 tools/profile_port.py [--config 3|1|4|sp|wide|banded_sp] [--batch B]
                                   [--calls N] [--device cuda|cpu]
 
 Inputs are those of ``chip_smoke.py`` (seed 0): config 3 is B=512
@@ -15,7 +15,11 @@ config-4 scoring; tiles of 256 columns) over a mesh of one device
 (``--batch`` is ignored); ``wide`` is B=64 protein pairs of 1 000 letters
 (5% substitutions, one deletion, one insertion) aligned globally in a
 band of 64 under 2 x BLOSUM62, o=-20, e=-2, with full CIGARs: the
-full-matrix wavefront route.  After two warm-up calls the script
+full-matrix wavefront route.  ``banded_sp`` is banded sequence
+parallelism over a mesh of 4 entries naming the device: first
+``align_score_banded_sp`` on B=16 config-4 pairs of 100 kb at band 256 (two
+relay groups), then ``align_banded_sp`` on the first of them.  For each
+run, after two warm-up calls the script
 
 1. times N calls by the host clock (median, all values printed);
 2. runs N calls under ``torch.profiler`` and prints each device op's total
@@ -49,8 +53,25 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import seqalib_tpu_torch as st  # noqa: E402
 
 
+def long_reads(rng, batch: int, length: int):
+    """Config 4's pairs: the target is the query with length // 50
+    substitutions."""
+    qs, ts = [], []
+    for _ in range(batch):
+        q = rng.integers(0, 4, length).astype(np.uint8)
+        t = q.copy()
+        idx = rng.choice(length, length // 50, replace=False)
+        t[idx] = (t[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
+        qs.append(q)
+        ts.append(t)
+    return qs, ts
+
+
 def inputs(config: str, batch: int):
     rng = np.random.default_rng(0)
+    if config == "banded_sp":
+        sp = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+        return (*long_reads(rng, batch, 100_000), sp, "global")
     if config == "sp":
         sp = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
         q = rng.integers(0, 4, 10_240).astype(np.int32)
@@ -73,16 +94,7 @@ def inputs(config: str, batch: int):
         return qs, ts, sp, "global"
     if config == "4":
         sp = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
-        length = 10_000
-        qs, ts = [], []
-        for _ in range(batch):
-            q = rng.integers(0, 4, length).astype(np.uint8)
-            t = q.copy()
-            idx = rng.choice(length, length // 50, replace=False)
-            t[idx] = (t[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
-            qs.append(q)
-            ts.append(t)
-        return qs, ts, sp, "global"
+        return (*long_reads(rng, batch, 10_000), sp, "global")
     if config == "3":
         sp = st.ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
         alpha, L, mode = 20, 1024, "local"
@@ -111,50 +123,30 @@ def busy_us(intervals):
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("1", "3", "4", "sp", "wide"), default="3")
-    ap.add_argument("--batch", type=int, default=None,
-                    help="pairs per call (default 512; 64 for config 4)")
-    ap.add_argument("--calls", type=int, default=5)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
-    if args.batch is None:
-        args.batch = 64 if args.config in ("4", "wide") else 512
-    dev = torch.device(args.device)
-    if dev.type == "cuda":
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            check=True, capture_output=True, text=True).stdout.strip(), flush=True)
-    qs, ts, sp, mode = inputs(args.config, args.batch)
-    band = {"4": 128, "wide": 64}.get(args.config)
-    mesh = st.make_band_mesh([dev]) if args.config == "sp" else None
-
-    def run():
-        if mesh is not None:
-            st.align_sp(qs, ts, sp, mesh, C=256)
-        else:
-            st.align_batch(qs, ts, scoring=sp, mode=mode, band=band, traceback=True,
-                           device=dev)
+def profile(label: str, run, calls: int, dev) -> dict:
+    """Walls, device time per op and busy share of ``calls`` warm calls of
+    ``run``, then one call under cProfile; returns the JSON summary."""
+    def synced():
+        run()
         sync(dev)
 
     for _ in range(2):
-        run()
+        synced()
     walls = []
-    for _ in range(args.calls):
+    for _ in range(calls):
         t0 = time.perf_counter()
-        run()
+        synced()
         walls.append(time.perf_counter() - t0)
-    print(f"[wall] config {args.config} B={args.batch}: median "
-          f"{statistics.median(walls) * 1e3:.3f} ms over {walls}", flush=True)
+    print(f"[wall] {label}: median {statistics.median(walls) * 1e3:.3f} ms over {walls}",
+          flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.calls):
-            run()
+        for _ in range(calls):
+            synced()
         prof_wall_us = (time.perf_counter() - t0) * 1e6
     per_op: dict[str, float] = {}
     intervals = []
@@ -166,29 +158,61 @@ def main() -> int:
         intervals.append((s, t))
     busy = busy_us(intervals)
     for name, us in sorted(per_op.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[device] {us / args.calls / 1e3:9.3f} ms/call  {name[:90]}")
+        print(f"[device] {us / calls / 1e3:9.3f} ms/call  {name[:90]}")
     share = busy / prof_wall_us
-    print(f"[device] busy {busy / args.calls / 1e3:.3f} ms/call of "
-          f"{prof_wall_us / args.calls / 1e3:.3f} ms/call wall: busy share "
+    print(f"[device] busy {busy / calls / 1e3:.3f} ms/call of "
+          f"{prof_wall_us / calls / 1e3:.3f} ms/call wall: busy share "
           f"{share:.4f}, idle share {1 - share:.4f}", flush=True)
 
     pr = cProfile.Profile()
     pr.enable()
-    run()
+    synced()
     pr.disable()
     buf = io.StringIO()
     pstats.Stats(pr, stream=buf).strip_dirs().sort_stats("cumulative").print_stats(25)
-    print("[host] cProfile, one call, by cumulative time:")
+    print(f"[host] {label}: cProfile, one call, by cumulative time:")
     print(buf.getvalue())
-
-    print(json.dumps({
-        "config": args.config, "batch": args.batch, "calls": args.calls,
+    return {
+        "run": label, "calls": calls,
         "wall_ms": [w * 1e3 for w in walls],
-        "device_busy_ms_per_call": busy / args.calls / 1e3,
-        "profiled_wall_ms_per_call": prof_wall_us / args.calls / 1e3,
+        "device_busy_ms_per_call": busy / calls / 1e3,
+        "profiled_wall_ms_per_call": prof_wall_us / calls / 1e3,
         "busy_share": share,
-        "device_ms_per_call": {k: v / args.calls / 1e3 for k, v in per_op.items()},
-    }))
+        "device_ms_per_call": {k: v / calls / 1e3 for k, v in per_op.items()},
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=("1", "3", "4", "sp", "wide", "banded_sp"),
+                    default="3")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="pairs per call (default 512; 64 for config 4, 16 for banded_sp)")
+    ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    if args.batch is None:
+        args.batch = {"4": 64, "wide": 64, "banded_sp": 16}.get(args.config, 512)
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    qs, ts, sp, mode = inputs(args.config, args.batch)
+    band = {"4": 128, "wide": 64, "banded_sp": 256}.get(args.config)
+    if args.config == "sp":
+        mesh = st.make_band_mesh([dev])
+        runs = [("sp", lambda: st.align_sp(qs, ts, sp, mesh, C=256))]
+    elif args.config == "banded_sp":
+        mesh = st.make_band_mesh([dev] * 4)
+        runs = [("banded_sp_score", lambda: st.align_score_banded_sp(qs, ts, sp, band, mesh)),
+                ("banded_sp_align", lambda: st.align_banded_sp(qs[0], ts[0], sp, band, mesh))]
+    else:
+        runs = [(f"config {args.config} B={args.batch}",
+                 lambda: st.align_batch(qs, ts, scoring=sp, mode=mode, band=band,
+                                        traceback=True, device=dev))]
+    summary = [profile(label, run, args.calls, dev) for label, run in runs]
+    print(json.dumps({"config": args.config, "batch": args.batch, "runs": summary}))
     return 0
 
 
