@@ -19,7 +19,10 @@ Phases (any failure raises and exits non-zero):
      in ``emode`` (pass 2, all of its diagonals);
    - config 4 (B=64 DNA pairs of 10 kb, band 128): the banded fill and
      its pointer mode on 2048 diagonals resumed from the fill's own
-     checkpoints, and the walk over one recomputed super-block;
+     checkpoints (each whole call timed as well), and the walk over one
+     recomputed super-block;
+   every ``band_fill`` key also prints its slot width Wp and its time per
+   anti-diagonal;
 3. config 3, the main path: ``align_batch`` local, BLOSUM62 o=-10 e=-1,
    full CIGAR, pass 2 on the default banded engine; warm wall time,
    pairs/s, GCUPS; 32 pairs checked against the oracle.  Then the same
@@ -95,6 +98,7 @@ SEED = 0
 B3 = 512
 B4, L4, BAND4 = 64, 10_000, 128
 REPS = 3
+SHORT_REPS = 100  # timed calls of a kernel or library call that takes under 0.1 ms
 N_ORACLE = 32
 N_ORACLE4 = 8
 CMP_DIAGONALS = 2048  # config-4 fill and ptr: diagonals held against the plain version
@@ -269,16 +273,19 @@ def bound(key, args, kw, out):
 
 def row_window_library_ms(args, kw):
     """One ``torch.gather`` plus a mask computing ``row_window`` on the
-    same inputs (the index and mask built beforehand)."""
+    same inputs (the index and mask built beforehand; a reversed read
+    gathers at the mirrored index)."""
     import torch
 
     src, starts, hi = args
     W = src.shape[1]
     x = torch.arange(kw["L"], device=src.device)[None, :]
     idx = (starts.long()[:, None] + x).clamp(0, W - 1)
+    if kw.get("reverse"):
+        idx = W - 1 - idx
     keep = (x >= kw["lo"]) & (x < hi.long()[:, None])
     fill = torch.tensor(kw["fill"], dtype=src.dtype, device=src.device)
-    return time_ms(lambda: torch.where(keep, torch.gather(src, 1, idx), fill), 20)
+    return time_ms(lambda: torch.where(keep, torch.gather(src, 1, idx), fill), SHORT_REPS)
 
 
 # ---- kernel phase -------------------------------------------------------
@@ -305,7 +312,9 @@ def check_kernel(key, kernel, plain):
     if plain_ms < 100:  # first-use loading of PyTorch's kernels dominates a short call
         plain_ms = time_ms(plain, 1, warm=False)
     ms = time_ms(kernel, 5)
-    say(f"[kernel] {key}: equal to plain version; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    if ms < 0.1:  # a call bound by its host time: average over more calls
+        ms = time_ms(kernel, SHORT_REPS)
+    say(f"[kernel] {key}: equal to plain version; {ms:.4f} ms vs plain {plain_ms:.3f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, got
 
 
@@ -344,12 +353,23 @@ def record(run, targets, keep=lambda args, kw: True):
     return calls, out
 
 
+def per_diagonal(kw, ms):
+    """µs per anti-diagonal of a ``band_fill`` call over [k0, k1)."""
+    return ms * 1e3 / max(1, kw["k1"] - kw["k0"])
+
+
 def kernel_entry(key, fn, plain, args, kw):
-    stats, out = check_kernel(key, lambda: fn(*args, **kw), lambda: plain(*args, **kw))
+    # the plain version has no deferred range check: it checks at once
+    pkw = {k: v for k, v in kw.items() if k != "err"}
+    stats, out = check_kernel(key, lambda: fn(*args, **kw), lambda: plain(*args, **pkw))
     b_ms, b_by = bound(key, args, kw, out)
     lib_ms = row_window_library_ms(args, kw) if key == "row_window" else None
     say(f"[bound] {key}: {b_ms:.4f} ms by {b_by}"
-        + (f"; library call {lib_ms:.3f} ms" if lib_ms is not None else ""))
+        + (f"; library call {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    if key.startswith("band_fill/"):
+        say(f"[kernel] {key}: Wp {args[6].shape[2]}, B {args[6].shape[1]}, "
+            f"{kw['k1'] - kw['k0']} diagonals: {per_diagonal(kw, stats['ms']):.4f} µs "
+            f"per anti-diagonal")
     return dict(stats, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
@@ -395,6 +415,11 @@ def kernel_phase4(qs, ts, sp, dev):
     calls, _ = record(lambda: banded_mod.banded_align_batch(
         np.stack(qs), np.stack(ts), qlen, tlen, sp, BAND4, device=dev), targets)
     per_kernel = {}
+    for key in ("band_fill/fill", "band_fill/ptr"):
+        fn, _, args, kw, _ = calls[key]
+        whole = time_ms(lambda: fn(*args, **kw), 3)
+        say(f"[kernel] {key}: whole call, diagonals [{kw['k0']}, {kw['k1']}): "
+            f"{whole:.3f} ms, {per_diagonal(kw, whole):.4f} µs per anti-diagonal")
     fn, plain, args, kw, full = calls["band_fill/fill"]
     CK = kw["CK"]
     cg = full["ckpt"].shape[0] // 2
@@ -499,7 +524,8 @@ def kernel_phase_banded_sp(qs, ts, sp, dev):
                 if entry["max_abs_err"] != 0:
                     raise AssertionError(f"{key}: the capture cut differs")
             say(f"[kernel] {key}: diagonals [{k['k0']}, {k['k1']}) of block "
-                f"({kw['K']} diagonals, Wp {args[6].shape[2]}); whole block {whole:.3f} ms")
+                f"({kw['K']} diagonals, Wp {args[6].shape[2]}); whole block {whole:.3f} ms, "
+                f"{per_diagonal(kw, whole):.4f} µs per anti-diagonal")
     fn, plain, args, kw, _ = calls["band_walk/floor"]
     whole = time_ms(lambda: fn(*args, **kw), 3)
     ptr = args[0]

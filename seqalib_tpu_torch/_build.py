@@ -20,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -38,7 +40,7 @@ _I = ctypes.c_int
 # argtypes of every entry point: without them ctypes passes a pointer as
 # a 32-bit int and cuts it
 _SIGNATURES = {
-    "seqalib_row_window": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P],
+    "seqalib_row_window": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "seqalib_strip_fill": [
         _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _P, _P, _P, _P, _P, _P,
@@ -137,6 +139,12 @@ def lib() -> ctypes.CDLL:
         loaded.seqalib_error_string.restype = ctypes.c_char_p
         _lib = loaded
     return _lib
+
+
+def current_stream(device) -> int:
+    """The handle of PyTorch's current stream on a CUDA tensor's ``device``, read
+    without building a ``torch.cuda.Stream`` (a few µs per call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(name: str, rc: int) -> None:

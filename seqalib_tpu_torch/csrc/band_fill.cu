@@ -16,25 +16,41 @@
 // captured, one (H, F) store per diagonal, into column k - 2 * bout_row.
 // Tie-breaks are the oracle's: DIAG > UP(F) > LEFT(E), extend >= open.
 //
-// Bound on the H100: latency, not memory or integer throughput.  A cell
-// costs ~25 integer operations and reads two letters and one table word;
-// the state never leaves shared memory.  Every diagonal depends on the two
-// before it, so one pair is a chain of K steps, each a warp sync plus a
-// few shared-memory round trips over Wp/32 slots per lane.  With one warp
-// per pair, config 4's B=64 fills 64 of the 132 SMs with one warp each.
+// Bound on the H100: the instructions of one diagonal, not memory or
+// integer throughput.  A cell needs ~25 integer operations and reads two
+// letters and one table word, but every diagonal depends on the two before
+// it, so a pair is a chain of K steps, and a step costs each thread the
+// recurrence, the band mask, its letters' loads and table lookups, the
+// neighbour exchange and a barrier: ~150-230 instructions.  With one CTA of
+// 8-12 warps per SM (config 4, banded SP) the latency of that chain sets
+// the pace; with ~16 warps per SM (pass 2's 512 pairs) the SM's issue rate
+// does.  tools/band_fill_ablation.py puts the barrier at 4-18% of a step
+// and the letter loads at 13-26%; fewer threads with 4 slots each were
+// slower at Wp 256-384, with 2 slots each no faster overall.
 //
-// Design: one warp (one block) per pair.  The slot rows H(k), H(k-1),
-// H(k-2) rotate through three shared-memory buffers and E, F through two;
-// lane l computes slots l, l+32, ... and a __syncwarp closes each diagonal.
-// Neighbour slots wrap around Wp, as the TPU's circular lane rolls do (the
-// wrap brings in a slot that is NEG_INF or a cell that is thrown away), so
-// every slot, junk included, holds the TPU kernel's value.  The TPU slid
-// letter windows and a packed-nibble profile along the band because it has
-// no gathers; here each slot reads its two letters by index and looks the
-// score up in a shared-memory table whose sentinel entries score as the
-// TPU kernel scored its sentinels.  The TPU's clamp/dyn/steady phase split,
-// its NSUB unrolling, letter streaming and batch padding change no value
-// and are not carried over.
+// Design: one CTA per pair, thread t owning the S adjacent slots
+// [t*S, t*S + S) (S by Wp: 1 up to Wp 512, then 2, 4, 8, 16, so that a CTA
+// has at most 512 threads; blockDim is rounded up to whole warps and the
+// slots past Wp - 1 are idle).  H(k-1), H(k-2), E(k-1), F(k-1) of a
+// thread's slots, the kEmode BV/BK/EV and the pending kPtr nibble stay in
+// registers.  Since d1 = ihat(k) - ihat(k-1) and d2 = ihat(k) - ihat(k-2)
+// depend on k alone, a slot's neighbours p-1 and p+1 are the same shift
+// for every thread: inside a warp they come by __shfl_up_sync /
+// __shfl_down_sync, across warps through a double-buffered edge array in
+// shared memory (per warp the H, E of its first slot and the H, F of its
+// last), one __syncthreads per diagonal.  H(k-2)'s neighbours are the
+// H(k-1) neighbours of the step before, kept in registers.  The slots wrap
+// around Wp as the TPU's lane rolls do (slot Wp - 1 <-> slot 0, through
+// two more shared words), so every slot, junk included, holds the TPU
+// kernel's value.  The next diagonal's letters are loaded with __ldg at the
+// top of a step and looked up in the shared-memory score table before the
+// barrier, off the recurrence's chain; so is the next boundary word of a
+// resumed block.  What only a resumed block needs (injection, capture) is
+// compiled in only for it (RELAY), per-pair pointers are set up once, and
+// the rare stores (checkpoints, capture, final cell) sit under conditions
+// that hold for the whole diagonal.  The TPU's clamp/dyn/steady phase
+// split, its NSUB unrolling, letter streaming and batch padding change no
+// value and are not carried over.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,6 +64,8 @@ using namespace seqalib;
 constexpr int kFill = 0;
 constexpr int kPtr = 1;
 constexpr int kEmode = 2;
+constexpr int kMaxThreads = 512;
+constexpr int kEdge = 4;  // words per warp and buffer: H, E first; H, F last
 
 struct BandArgs {
   const int32_t* qk;  // (B, q_width) letters, row i at [i]
@@ -82,42 +100,72 @@ struct BandArgs {
   int bout_row;
 };
 
-// offset of bout's F plane
-__device__ __forceinline__ size_t plane_bo(const BandArgs& a) {
-  return (size_t)a.B * a.Wbo;
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(32) band_fill_kernel(const BandArgs a) {
+// RELAY: a resumed row block (bh/bf and/or bout given), so that the
+// other launches issue none of its per-diagonal work
+template <int MODE, int S, bool RELAY>
+__global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(const BandArgs a) {
   extern __shared__ int32_t smem[];
   const int Wp = a.Wp;
   const int NT = a.NT;
-  int32_t* tab = smem;          // NT * NT
-  int32_t* Hb = tab + NT * NT;  // 3 rows: H at k, k-1, k-2 (rotating)
-  int32_t* Eb = Hb + 3 * Wp;    // 2 rows
-  int32_t* Fb = Eb + 2 * Wp;    // 2 rows
-  int32_t* BV = Fb + 2 * Wp;    // kEmode: BV, BK, EV
-  int32_t* BK = BV + Wp;
-  int32_t* EV = BK + Wp;
-  uint8_t* lo = reinterpret_cast<uint8_t*>(BV);  // kPtr: pending nibbles
+  const int nwarp = blockDim.x >> 5;
+  // per buffer: kEdge words per warp, then H, F of slot Wp - 1
+  const int ebuf = nwarp * kEdge + 2;
+  int32_t* tab = smem;            // NT * NT
+  int32_t* edge = tab + NT * NT;  // [2][ebuf]
 
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int b = blockIdx.x;
-  for (int x = lane; x < NT * NT; x += 32) tab[x] = a.table[x];
+  for (int x = tid; x < NT * NT; x += blockDim.x) tab[x] = a.table[x];
+
+  const int base = tid * S;     // the thread's first slot
+  const int tl = (Wp - 1) / S;  // the thread that owns slot Wp - 1
+  // the local slot whose right neighbour lies in another thread: the next
+  // thread's first slot, or slot 0 for slot Wp - 1
+  const int Lt = tid == tl ? Wp - 1 - base : S - 1;
+  const bool live = base < Wp;
+  // where the thread's neighbours across its edges come from after a
+  // barrier: the next warp's first slot (slot 0 for slot Wp - 1), the
+  // previous warp's last slot (slot Wp - 1 for slot 0); every thread reads
+  // (most at offset 0, a broadcast) and keeps what it needs, without a branch
+  const bool r_edge = tid == tl || (lane == 31 && warp + 1 < nwarp);
+  const bool l_edge = tid == 0 || (lane == 0 && warp > 0);
+  const int r_off = tid == tl ? 0 : (r_edge ? (warp + 1) * kEdge : 0);
+  const int l_off = tid == 0 ? nwarp * kEdge : (l_edge ? (warp - 1) * kEdge + 2 : 0);
   const size_t plane = (size_t)a.B * Wp;
   const size_t row = (size_t)b * Wp;
-  for (int p = lane; p < Wp; p += 32) {
-    Hb[Wp + p] = a.state[row + p];                // H(k0 - 1)
-    Hb[2 * Wp + p] = a.state[plane + row + p];    // H(k0 - 2)
-    Eb[p] = a.state[2 * plane + row + p];
-    Fb[p] = a.state[3 * plane + row + p];
+
+  int h1[S], h2[S], e1[S], f1[S], bv[S], bk[S], ev[S], lo[S], sc[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int p = base + s;
+    const bool in = p < Wp;
+    h1[s] = in ? a.state[row + p] : kNegInf;               // H(k0 - 1)
+    h2[s] = in ? a.state[plane + row + p] : kNegInf;       // H(k0 - 2)
+    e1[s] = in ? a.state[2 * plane + row + p] : kNegInf;
+    f1[s] = in ? a.state[3 * plane + row + p] : kNegInf;
     if (MODE == kEmode) {
-      BV[p] = a.state[4 * plane + row + p];
-      BK[p] = a.state[5 * plane + row + p];
-      EV[p] = a.score[row + p];
+      bv[s] = in ? a.state[4 * plane + row + p] : kNegInf;
+      bk[s] = in ? a.state[5 * plane + row + p] : 0;
+      ev[s] = in ? a.score[row + p] : kNegInf;
     }
+    lo[s] = 0;
   }
-  __syncwarp();
+  // neighbours across the thread's edges: left of its first slot, right of
+  // its last (both around the ring)
+  int lnH1 = kNegInf, rnH1 = kNegInf, rnE1 = kNegInf, lnF1 = kNegInf;
+  int lnH2 = kNegInf, rnH2 = kNegInf;
+  if (live) {
+    const int pl = base == 0 ? Wp - 1 : base - 1;
+    const int pr = base + Lt + 1 >= Wp ? 0 : base + Lt + 1;
+    lnH1 = a.state[row + pl];
+    rnH1 = a.state[row + pr];
+    lnH2 = a.state[plane + row + pl];
+    rnH2 = a.state[plane + row + pr];
+    rnE1 = a.state[2 * plane + row + pr];
+    lnF1 = a.state[3 * plane + row + pl];
+  }
 
   const int qlen = a.qlen[b];
   const int tlen = a.tlen[b];
@@ -128,68 +176,124 @@ __global__ void __launch_bounds__(32) band_fill_kernel(const BandArgs a) {
   const unsigned last = (unsigned)(NT - 1);
   const int32_t* qb = a.qk + (size_t)b * a.q_width;
   const int32_t* tb = a.tk + (size_t)b * a.t_width;
-  int hn = 0, h1 = 1, h2 = 2, ec = 0;  // buffer indices
-  for (int k = a.k0; k < a.k1; ++k) {
-    if (MODE == kFill && a.CK > 0 && (k - a.k0) % a.CK == 0) {
-      int32_t* ck = a.ckpt + (size_t)((k - a.k0) / a.CK) * 4 * plane + row;
-      for (int p = lane; p < Wp; p += 32) {
-        ck[p] = Hb[h1 * Wp + p];
-        ck[plane + p] = Hb[h2 * Wp + p];
-        ck[2 * plane + p] = Eb[ec * Wp + p];
-        ck[3 * plane + p] = Fb[ec * Wp + p];
-      }
+  // letters of slot s on diagonal k: query row i, target column j (a
+  // negative column reads letter 0, past the arrays letter NT - 1)
+  unsigned qn[S], tn[S];
+  auto fetch = [&](int k, int ih) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int i = ih + base + s;
+      const int j = k - i;
+      unsigned qv = last, tv = 0;  // predicated loads, no branch
+      if (i < a.q_width) qv = (unsigned)__ldg(qb + i);
+      const bool tin = (unsigned)j < (unsigned)a.t_width;
+      if (tin) tv = (unsigned)__ldg(tb + j);
+      qn[s] = qv;
+      tn[s] = tin ? tv : (j < 0 ? 0u : last);
     }
-    const int ih = ihat(k, a.dhi);
-    const int d1 = ih - ihat(k - 1, a.dhi);  // 0 or 1
-    const int d2 = ih - ihat(k - 2, a.dhi);  // 0, 1 or 2
-    const int32_t* H1 = Hb + h1 * Wp;
-    const int32_t* H2 = Hb + h2 * Wp;
-    const int32_t* E1 = Eb + ec * Wp;
-    const int32_t* F1 = Fb + ec * Wp;
-    int32_t* Hn = Hb + hn * Wp;
-    int32_t* En = Eb + (ec ^ 1) * Wp;
-    int32_t* Fn = Fb + (ec ^ 1) * Wp;
+  };
+  // ihat of diagonals k - 2, k - 1, k, k + 1, rotated along the loop
+  int ih2 = ihat(a.k0 - 2, a.dhi), ih1 = ihat(a.k0 - 1, a.dhi);
+  int ih = ihat(a.k0, a.dhi);
+  fetch(a.k0, ih);
+  __syncthreads();  // the table is in
+#pragma unroll
+  for (int s = 0; s < S; ++s) sc[s] = tab[min(qn[s], last) * NT + min(tn[s], last)];
+
+  const bool inject = RELAY && a.bh != nullptr;
+  const int32_t* bhp = inject ? a.bh + (size_t)b * a.Wb : nullptr;
+  const int32_t* bfp = inject ? a.bf + (size_t)b * a.Wb : nullptr;
+  int32_t* bo_h = RELAY && a.bout != nullptr ? a.bout + (size_t)b * a.Wbo : nullptr;
+  int32_t* bo_f = bo_h != nullptr ? bo_h + (size_t)a.B * a.Wbo : nullptr;
+  int32_t* score_row = a.score + row;
+  uint8_t* ptr_row = MODE == kPtr ? a.ptr + row : nullptr;  // advances a plane per 2 diagonals
+  int bhc = 0, bfc = 0;  // the boundary words of the current diagonal
+  if (inject && a.k0 <= a.dhi) {
+    bhc = bhp[min(a.k0, a.Wb - 1)];
+    bfc = bfp[min(a.k0, a.Wb - 1)];
+  }
+  int ck_left = 0;  // diagonals to the next checkpoint
+  int32_t* ck = a.ckpt != nullptr ? a.ckpt + row : nullptr;  // the next checkpoint
+  for (int k = a.k0; k < a.k1; ++k) {
+    if (MODE == kFill && a.CK > 0) {
+      if (ck_left == 0) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int p = base + s;
+          if (p < Wp) {
+            ck[p] = h1[s];
+            ck[plane + p] = h2[s];
+            ck[2 * plane + p] = e1[s];
+            ck[3 * plane + p] = f1[s];
+          }
+        }
+        ck += 4 * plane;
+        ck_left = a.CK;
+      }
+      --ck_left;
+    }
+    const int ihn = ihat(k + 1, a.dhi);
+    fetch(k + 1, ihn);  // the next diagonal's letters, used before the barrier
+    int bhn = 0, bfn = 0;
+    if (inject && k + 1 <= a.dhi) {  // every thread: a broadcast, no branch
+      bhn = bhp[min(k + 1, a.Wb - 1)];
+      bfn = bfp[min(k + 1, a.Wb - 1)];
+    }
+
+    const int d1 = ih - ih1;  // 0 or 1
+    const int d2 = ih - ih2;  // 0, 1 or 2
     // boundary capture: column bx of bout takes slot pcap's H and F
     const int bx = k - 2 * a.bout_row;
     const int pcap = a.bout_row - ih;
-    const bool cap = MODE != kEmode && a.bout != nullptr && bx >= 0 && bx < a.Wbo;
-    if (cap && lane == 0 && (pcap < 0 || pcap >= Wp)) {  // no slot: 0, as the TPU
-      a.bout[(size_t)b * a.Wbo + bx] = 0;
-      a.bout[plane_bo(a) + (size_t)b * a.Wbo + bx] = 0;
+    const bool cap = bo_h != nullptr && bx >= 0 && bx < a.Wbo;
+    const bool cap_in = cap && pcap >= 0 && pcap < Wp;
+    if (cap && !cap_in && tid == 0) {  // no slot: 0, as the TPU
+      bo_h[bx] = 0;
+      bo_f[bx] = 0;
     }
-    for (int p = lane; p < Wp; p += 32) {
-      int pl = p + d1;  // left: (p + d1) mod Wp
-      if (pl >= Wp) pl -= Wp;
-      int pu = pl - 1;  // up: (p + d1 - 1) mod Wp
-      if (pu < 0) pu += Wp;
-      int pd = p + d2 - 1;  // diagonal: (p + d2 - 1) mod Wp
-      if (pd < 0) pd += Wp;
-      if (pd >= Wp) pd -= Wp;
+    const int r = k - a.k0;
+    const bool k_origin = k == 0;
+    const bool k_inject = inject && k <= a.dhi;
+    const bool k_final = MODE == kFill && k == qlen + tlen && k < a.K;
+    const bool k_edge = MODE == kEmode && a.tie_safe && k > a.dhi;
+    int hn[S], en[S], fn[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int p = base + s;
+      const int sn = s + 1 < S ? s + 1 : s;  // static indices of the
+      const int sp = s > 0 ? s - 1 : 0;      // neighbours inside the thread
+      const int hR = s == Lt ? rnH1 : h1[sn];
+      const int eR = s == Lt ? rnE1 : e1[sn];
+      const int hL = s == 0 ? lnH1 : h1[sp];
+      const int fL = s == 0 ? lnF1 : f1[sp];
+      // left (p + d1), up (p + d1 - 1), diagonal (p + d2 - 1)
+      const int Hl = d1 ? hR : h1[s];
+      const int El = d1 ? eR : e1[s];
+      const int Hu = d1 ? h1[s] : hL;
+      const int Fu = d1 ? f1[s] : fL;
+      const int Hd = d2 == 1 ? h2[s]
+                             : (d2 == 0 ? (s == 0 ? lnH2 : h2[sp])
+                                        : (s == Lt ? rnH2 : h2[sn]));
       const int i = ih + p;
       const int j = k - i;
-      const unsigned qc = i < a.q_width ? min((unsigned)qb[i], last) : last;
-      const unsigned tc =
-          j < 0 ? 0u : (j < a.t_width ? min((unsigned)tb[j], last) : last);
-      const int s = tab[qc * NT + tc];
-      const int e_ext = E1[pl] + e, e_opn = H1[pl] + oe;
-      const int f_ext = F1[pu] + e, f_opn = H1[pu] + oe;
+      const int e_ext = El + e, e_opn = Hl + oe;
+      const int f_ext = Fu + e, f_opn = Hu + oe;
       int E = max(e_ext, e_opn);
       int F = max(f_ext, f_opn);
-      const int d = H2[pd] + s;
+      const int d = Hd + sc[s];
       const int best = max(max(d, F), E);
-      const bool origin = k == 0 && i == 0;
+      const bool origin = k_origin && i == 0;
       int H;
       if (MODE == kEmode) {
         H = origin ? 0 : best;
         if (p == Wp - 1) H = E = F = kNegInf;
-        if (H > BV[p]) {  // strict: the first maximum of the slot
-          BV[p] = H;
-          BK[p] = k;
+        if (H > bv[s]) {  // strict: the first maximum of the slot
+          bv[s] = H;
+          bk[s] = k;
         }
         if (a.tie_safe) {
-          const int cand =
-              (p == 0 && k > a.dhi) ? E : (p == Wp - 2 ? F : kNegInf);
-          EV[p] = max(EV[p], cand - a.smax * i);
+          const int cand = (p == 0 && k_edge) ? E : (p == Wp - 2 ? F : kNegInf);
+          ev[s] = max(ev[s], cand - a.smax * i);
         }
       } else {
         if (MODE == kPtr) {  // from the unmasked values, as the TPU kernel
@@ -197,12 +301,10 @@ __global__ void __launch_bounds__(32) band_fill_kernel(const BandArgs a) {
                            : (d == best ? kPtrDiag
                                         : (F == best ? kPtrUp : kPtrLeft));
           nib |= (e_ext >= e_opn ? 4 : 0) | (f_ext >= f_opn ? 8 : 0);
-          const int r = k - a.k0;
           if ((r & 1) == 0) {
-            lo[p] = (uint8_t)nib;
-          } else {
-            a.ptr[((size_t)(r >> 1) * a.B + b) * Wp + p] =
-                (uint8_t)(lo[p] | (nib << 4));
+            lo[s] = nib;
+          } else if (p < Wp) {
+            ptr_row[p] = (uint8_t)(lo[s] | (nib << 4));
           }
         }
         const int dkj = j - i;
@@ -210,57 +312,121 @@ __global__ void __launch_bounds__(32) band_fill_kernel(const BandArgs a) {
                         j <= tlen && !origin;
         H = origin ? 0 : (ok ? best : kNegInf);
         if (!ok) E = F = kNegInf;
-        if (a.bh != nullptr && p == 0 && k <= a.dhi) {  // local row 0
-          const size_t x = (size_t)b * a.Wb + min(k, a.Wb - 1);
-          H = a.bh[x];
-          F = a.bf[x];
+        if (k_inject && p == 0) {  // local row 0
+          H = bhc;
+          F = bfc;
         }
-        if (cap && p == pcap) {
-          a.bout[(size_t)b * a.Wbo + bx] = H;
-          a.bout[plane_bo(a) + (size_t)b * a.Wbo + bx] = F;
-        }
-        if (MODE == kFill && k == qlen + tlen && i == qlen && k < a.K)
-          a.score[row + p] = max(a.score[row + p], H);
       }
-      Hn[p] = H;
-      En[p] = E;
-      Fn[p] = F;
+      hn[s] = H;
+      en[s] = E;
+      fn[s] = F;
     }
-    __syncwarp();  // the diagonal is complete before the next reads it
-    const int t = h2;
-    h2 = h1;
-    h1 = hn;
-    hn = t;
-    ec ^= 1;
+    // rare stores, under conditions that hold for the whole diagonal
+    if (cap_in) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (base + s == pcap) {
+          bo_h[bx] = hn[s];
+          bo_f[bx] = fn[s];
+        }
+      }
+    }
+    if (k_final) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int p = base + s;
+        if (ih + p == qlen && p < Wp) score_row[p] = max(score_row[p], hn[s]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      h2[s] = h1[s];
+      h1[s] = hn[s];
+      e1[s] = en[s];
+      f1[s] = fn[s];
+      sc[s] = tab[min(qn[s], last) * NT + min(tn[s], last)];
+    }
+    if (MODE == kPtr && (r & 1)) ptr_row += plane;
+    lnH2 = lnH1;
+    rnH2 = rnH1;
+    ih2 = ih1;
+    ih1 = ih;
+    ih = ihn;
+    bhc = bhn;
+    bfc = bfn;
+    // the new diagonal's neighbours: inside the warp by shuffles, across
+    // warps and around the ring through shared memory
+    rnH1 = __shfl_down_sync(kFull, h1[0], 1);
+    rnE1 = __shfl_down_sync(kFull, e1[0], 1);
+    lnH1 = __shfl_up_sync(kFull, h1[S - 1], 1);
+    lnF1 = __shfl_up_sync(kFull, f1[S - 1], 1);
+    int32_t* eg = edge + (k & 1) * ebuf;
+    if (lane == 0) {
+      eg[warp * kEdge] = h1[0];
+      eg[warp * kEdge + 1] = e1[0];
+    }
+    if (lane == 31) {
+      eg[warp * kEdge + 2] = h1[S - 1];
+      eg[warp * kEdge + 3] = f1[S - 1];
+    }
+    if (tid == tl) {  // slot Wp - 1, local index Lt
+      int wh = h1[0], wf = f1[0];
+#pragma unroll
+      for (int s = 1; s < S; ++s) {
+        if (s == Lt) {
+          wh = h1[s];
+          wf = f1[s];
+        }
+      }
+      eg[nwarp * kEdge] = wh;
+      eg[nwarp * kEdge + 1] = wf;
+    }
+    __syncthreads();  // the diagonal's edges are out before the next reads them
+    const int xh = eg[r_off], xe = eg[r_off + 1];
+    const int yh = eg[l_off], yf = eg[l_off + 1];
+    rnH1 = r_edge ? xh : rnH1;
+    rnE1 = r_edge ? xe : rnE1;
+    lnH1 = l_edge ? yh : lnH1;
+    lnF1 = l_edge ? yf : lnF1;
   }
 
-  for (int p = lane; p < Wp; p += 32) {
-    a.state[row + p] = Hb[h1 * Wp + p];
-    a.state[plane + row + p] = Hb[h2 * Wp + p];
-    a.state[2 * plane + row + p] = Eb[ec * Wp + p];
-    a.state[3 * plane + row + p] = Fb[ec * Wp + p];
-    if (MODE == kEmode) {
-      a.state[4 * plane + row + p] = BV[p];
-      a.state[5 * plane + row + p] = BK[p];
-      a.score[row + p] = EV[p];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int p = base + s;
+    if (p < Wp) {
+      a.state[row + p] = h1[s];
+      a.state[plane + row + p] = h2[s];
+      a.state[2 * plane + row + p] = e1[s];
+      a.state[3 * plane + row + p] = f1[s];
+      if (MODE == kEmode) {
+        a.state[4 * plane + row + p] = bv[s];
+        a.state[5 * plane + row + p] = bk[s];
+        a.score[row + p] = ev[s];
+      }
     }
   }
 }
 
+template <int MODE, int S>
+int launch_s(const BandArgs& a, cudaStream_t stream) {
+  const int threads = ((a.Wp + S - 1) / S + 31) / 32 * 32;
+  const size_t smem = ((size_t)a.NT * a.NT + 2 * ((threads / 32) * kEdge + 2)) * sizeof(int32_t);
+  if (MODE != kEmode && (a.bh != nullptr || a.bout != nullptr))
+    band_fill_kernel<MODE, S, true><<<a.B, threads, smem, stream>>>(a);
+  else
+    band_fill_kernel<MODE, S, false><<<a.B, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// S slots per thread: at most 512 threads a CTA
 template <int MODE>
 int launch(const BandArgs& a, cudaStream_t stream) {
-  size_t words = (size_t)a.NT * a.NT + 7 * (size_t)a.Wp;
-  if (MODE == kEmode) words += 3 * (size_t)a.Wp;
-  if (MODE == kPtr) words += ((size_t)a.Wp + 3) / 4;
-  const size_t smem = words * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        band_fill_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  band_fill_kernel<MODE><<<a.B, 32, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (a.Wp <= kMaxThreads) return launch_s<MODE, 1>(a, stream);
+  if (a.Wp <= 2 * kMaxThreads) return launch_s<MODE, 2>(a, stream);
+  if (a.Wp <= 4 * kMaxThreads) return launch_s<MODE, 4>(a, stream);
+  if (a.Wp <= 8 * kMaxThreads) return launch_s<MODE, 8>(a, stream);
+  if (a.Wp <= 16 * kMaxThreads) return launch_s<MODE, 16>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -78,6 +78,9 @@ REF_CHUNK = 64  # diagonals whose scores and mask the plain version gathers at o
 # the kernel keeps the (NT, NT) score table in shared memory: the 63
 # letters strip_fill takes, plus the zero sentinel row and two sentinels
 MAX_TABLE = 66
+# the kernel runs one CTA of at most 512 threads per pair, each thread
+# holding at most 16 slots in registers
+MAX_WP_CUDA = 16 * 512
 
 
 def n_state(mode: str) -> int:
@@ -295,10 +298,12 @@ def band_fill(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *, k0: int,
         return band_fill_ref(qk, tk, *vecs, state, score, tab, **kw)
     if qk.device.type != "cuda":
         raise ValueError(f"band_fill: unsupported device {qk.device}")
-    from .._build import check, lib
+    B, Wp = score.shape
+    if Wp > MAX_WP_CUDA:
+        raise ValueError(f"band_fill: the CUDA kernel takes Wp <= {MAX_WP_CUDA}, got {Wp}")
+    from .._build import check, current_stream, lib
 
     dev = qk.device
-    B, Wp = score.shape
     # the kernel updates state and score in place: work on copies
     out = {"state": state.clone(), "score": score.clone()}
     ckpt = ptr = None
@@ -314,7 +319,7 @@ def band_fill(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *, k0: int,
                                         dtype=torch.int32, device=dev)
     if B == 0 or k1 == k0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = current_stream(dev)
     rc = lib().seqalib_band_fill(
         qk.data_ptr(), qk.shape[1], tk.data_ptr(), tk.shape[1],
         *(v.data_ptr() for v in vecs), tab.data_ptr(), tab.shape[0], B, Wp,

@@ -97,13 +97,13 @@ def band_walk(ptr, i, j, st, done, *, k0: int, dhi: int, i_floor: int = -1):
         return band_walk_ref(ptr, *state, k0=k0, dhi=dhi, i_floor=i_floor)
     if ptr.device.type != "cuda":
         raise ValueError(f"band_walk: unsupported device {ptr.device}")
-    from .._build import check, lib
+    from .._build import check, current_stream, lib
 
     KW2, B, Wp = ptr.shape
     ops = torch.empty((B, 2 * KW2), dtype=torch.uint8, device=ptr.device)
     if B == 0 or KW2 == 0:
         return (ops.fill_(OP_PAD), *state)
-    stream = torch.cuda.current_stream(ptr.device).cuda_stream
+    stream = current_stream(ptr.device)
     rc = lib().seqalib_band_walk(
         ptr.data_ptr(), 2 * KW2, B, Wp, k0, dhi, i_floor,
         *(v.data_ptr() for v in state), ops.data_ptr(), stream,

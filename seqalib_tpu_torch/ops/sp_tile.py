@@ -188,7 +188,7 @@ def sp_tile(qb, tk, htop, ftop, hcol, ecol, cap, tab, *, i0: int, j0: int, n: in
         return sp_tile_ref(qb, tk, htop, ftop, hcol, ecol, cap, tab, **kw)
     if qb.device.type != "cuda":
         raise ValueError(f"sp_tile: unsupported device {qb.device}")
-    from .._build import check, lib
+    from .._build import check, current_stream, lib
 
     dev = qb.device
     R = qb.shape[0]
@@ -199,7 +199,7 @@ def sp_tile(qb, tk, htop, ftop, hcol, ecol, cap, tab, *, i0: int, j0: int, n: in
     ptr = None
     if mode == "ptr":
         ptr = out["ptr"] = torch.empty((C, R), dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = current_stream(dev)
     rc = lib().seqalib_sp_tile(
         qb.data_ptr(), tk.data_ptr(), htop.data_ptr(), ftop.data_ptr(),
         hcol.data_ptr(), ecol.data_ptr(), cap.data_ptr(),

@@ -49,7 +49,7 @@ from ..utils.cigar import OP_D, OP_I, op_rows_to_cigars
 from ..scoring import NIBBLE_BIAS, Tables, fits_nibbles
 from ..types import NEG_INF
 from .band_fill import band_fill, band_table
-from .row_window import row_window
+from .row_window import error_words, raise_on_error, row_window
 from .strip_fill import strip_fill
 from .strip_walk import strip_walk
 
@@ -231,26 +231,30 @@ def banded_pass2(qr, tr, qe, te2, score, tables: Tables, *, mq: int, WR: int,
 
 
 def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
-                pass2: str, tie_safe: bool):
+                pass2: str, tie_safe: bool, err):
     """Passes 1 and 2 on device tensors: score, canonical end (qe, te),
     start (qs, ts) and the pass-2 score ``score2`` (a pair with
-    ``score2 != score`` must escalate).  Counterpart of
-    ``_strip_local_fused``."""
+    ``score2 != score`` must escalate).  ``err`` holds the deferred range
+    checks of the ``row_window`` calls (``error_words(4)``: the two pass-2
+    windows here, the two pass-3 windows of ``local_fused_tb``) and comes
+    back as ``row_err``.  Counterpart of ``_strip_local_fused``."""
     SENT_Q, SENT_T = tables.A1, tables.A1 + 1
     r1 = strip_fill(qpad, t2, qlen, tlen, tables, mq=mq, mode="local")
     score, qe, te = reduce_best(r1["bv"], r1["bk"], mq + 1)
     n_pad = qpad.shape[1]
     W2 = t2.shape[1]
     WR = min(WR, n_pad)  # qe <= qlen <= n_pad
-    # reversed prefixes: row k <-> q[qe-1-k] = flip(qpad)[n_pad-qe+k];
-    # column x <-> t[te-x] = t2[te-x+1] = flip(t2)[W2-2-te+x]
-    qr = row_window(torch.flip(qpad, [1]), n_pad - qe, qe, L=WR, lo=0, fill=SENT_Q)
+    # reversed prefixes, read from the flipped arrays: row k <-> q[qe-1-k]
+    # = flip(qpad)[n_pad-qe+k]; column x <-> t[te-x] = t2[te-x+1] =
+    # flip(t2)[W2-2-te+x]
+    qr = row_window(qpad, n_pad - qe, qe, L=WR, lo=0, fill=SENT_Q, reverse=True,
+                    err=err[0:1])
     # clamped pass-2 target width: data columns 1..TWD plus 2 blocks of slack
     W2r = min(W2, (_ceil_to(2 * WR, LANES) // LANES + 2) * LANES)
     TWD = W2r - 2 * LANES
     te2 = torch.clamp(te, max=TWD)
-    tr = row_window(torch.flip(t2, [1]), W2 - 2 - te, te2 + 1, L=W2r, lo=1,
-                    fill=SENT_T)
+    tr = row_window(t2, W2 - 2 - te, te2 + 1, L=W2r, lo=1, fill=SENT_T, reverse=True,
+                    err=err[1:2])
     if pass2 == "banded" and jax_route(tables) != "wide":
         score2, ri, rj = banded_pass2(qr, tr, qe, te2, score, tables, mq=mq, WR=WR,
                                       TWD=TWD, tie_safe=tie_safe)
@@ -271,18 +275,19 @@ def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
         "qs": torch.where(pos, qe - ri, zero),
         "ts": torch.where(pos, te - rj, zero),
         "score2": score2,
+        "row_err": err,
     }
 
 
 def local_fused_tb(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
-                   pass2: str, tie_safe: bool):
+                   pass2: str, tie_safe: bool, err):
     """``local_fused`` plus pass 3 on device: each pair's [qs:qe] x
     [ts:te] window, cut at the pass-1 shapes, filled globally with
     pointers and walked.  Adds the window-global score ``score_w`` and
     the walk's ``ops``/``ifin``/``jfin``.  Counterpart of
     ``_strip_local_fused_tb`` (without its link-era packing)."""
     res = local_fused(qpad, t2, qlen, tlen, tables, mq=mq, WR=WR, pass2=pass2,
-                      tie_safe=tie_safe)
+                      tie_safe=tie_safe, err=err)
     SENT_Q, SENT_T = tables.A1, tables.A1 + 1
     n_pad = qpad.shape[1]
     W2 = t2.shape[1]
@@ -291,10 +296,10 @@ def local_fused_tb(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
     wq = torch.where(live, res["qe"] - res["qs"], zero)
     wt = torch.where(live, res["te"] - res["ts"], zero)
     qw = row_window(qpad, torch.where(live, res["qs"], zero), wq, L=n_pad,
-                    lo=0, fill=SENT_Q)
+                    lo=0, fill=SENT_Q, err=err[2:3])
     # window column x <-> t[ts + x - 1] = t2[ts + x]; x = 0 stays sentinel
     tw = row_window(t2, torch.where(live, res["ts"], zero), wt + 1, L=W2, lo=1,
-                    fill=SENT_T)
+                    fill=SENT_T, err=err[3:4])
     r3 = strip_fill(qw, tw, wq, wt, tables, mq=mq, mode="gmode", want_ptr=True)
     ops, ifin, jfin, _, _ = strip_walk(
         r3["P"], wq, wt, zero, ((wq == 0) | (wt == 0)).to(torch.int32),
@@ -439,8 +444,10 @@ def strip_bucket(q, t, qlen, tlen, tables: Tables, *, mode: str,
     fused_tb = want_tb and B * per_pair <= ptr_cap_bytes()
     fused = local_fused_tb if fused_tb else local_fused
     res = fused(qpad, t2, qlen_d, tlen_d, tables, mq=m, WR=WR, pass2=pass2,
-                tie_safe=tie_safe)
+                tie_safe=tie_safe, err=error_words(4, device))
     host = {k: v.cpu().numpy() for k, v in res.items()}
+    # the four row windows' deferred range checks, read in the same copy
+    raise_on_error(host["row_err"], (n_pad, W2, n_pad, W2))
     score = host["score"].astype(np.int32)
     qe = host["qe"].astype(np.int64)
     te = host["te"].astype(np.int64)

@@ -162,7 +162,7 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: in
         return wavefront_fill_ref(qpad, tk, qlen, tlen, tab, **kw)
     if qpad.device.type != "cuda":
         raise ValueError(f"wavefront_fill: unsupported device {qpad.device}")
-    from .._build import check, lib
+    from .._build import check, current_stream, lib
 
     dev = qpad.device
     B, Np = qpad.shape
@@ -175,7 +175,7 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: in
         rows = torch.empty((B, 6, Np), dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = current_stream(dev)
     rc = lib().seqalib_wavefront_fill(
         qpad.data_ptr(), Np, tk.data_ptr(), tk.shape[1], qlen.data_ptr(),
         tlen.data_ptr(), tab.data_ptr(), NT, B, K, band, gap_open, gap_extend,

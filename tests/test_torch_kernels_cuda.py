@@ -18,7 +18,8 @@ from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops.band_fill import band_fill, band_fill_ref, band_table
 from seqalib_tpu_torch.ops.band_walk import band_walk, band_walk_ref
 from seqalib_tpu_torch.ops import wavefront as wf_mod
-from seqalib_tpu_torch.ops.row_window import row_window, row_window_ref
+from seqalib_tpu_torch.ops.row_window import (NO_ERROR, error_words, raise_on_error,
+                                              row_window, row_window_ref)
 from seqalib_tpu_torch.ops.sp_tile import NEG as SP_NEG
 from seqalib_tpu_torch.ops.sp_tile import sp_tile, sp_tile_ref
 from seqalib_tpu_torch.ops.strip import prep_strip
@@ -91,17 +92,70 @@ def test_strip_walk_kernel_matches_plain_version(dev, scoring):
         assert torch.equal(g, w)
 
 
+def _window_args(dev, seed, N=40):
+    rng = np.random.default_rng(seed)
+    src = torch.as_tensor(rng.integers(0, 30, size=(N, 300)), dtype=torch.int32, device=dev)
+    starts = torch.as_tensor(rng.integers(0, 200, size=N), dtype=torch.int32, device=dev)
+    hi = torch.as_tensor(rng.integers(0, 100, size=N), dtype=torch.int32, device=dev)
+    return src, starts, hi
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("lo", [0, 1])
-def test_row_window_kernel_matches_plain_version(dev, lo):
-    rng = np.random.default_rng(lo)
-    src = torch.as_tensor(rng.integers(0, 30, size=(40, 300)), dtype=torch.int32, device=dev)
-    starts = torch.as_tensor(rng.integers(0, 200, size=40), dtype=torch.int32, device=dev)
-    hi = torch.as_tensor(rng.integers(0, 100, size=40), dtype=torch.int32, device=dev)
+def test_row_window_kernel_matches_plain_version(dev, lo, reverse, deferred):
+    src, starts, hi = _window_args(dev, lo)
+    err = error_words(1, dev) if deferred else None
     before = launches["row_window"]
-    got = row_window(src, starts, hi, L=128, lo=lo, fill=-1)
+    got = row_window(src, starts, hi, L=128, lo=lo, fill=-1, reverse=reverse, err=err)
     torch.cuda.synchronize()
     assert launches["row_window"] == before + 1
-    assert torch.equal(got, row_window_ref(src, starts, hi, L=128, lo=lo, fill=-1))
+    assert torch.equal(got, row_window_ref(src, starts, hi, L=128, lo=lo, fill=-1,
+                                           reverse=reverse))
+    if deferred:
+        assert int(err) == NO_ERROR
+
+
+def test_row_window_with_an_error_word_does_not_sync(dev):
+    """The deferred range check records the first bad row on the card; the
+    call itself makes no device-to-host transfer."""
+    src, starts, hi = _window_args(dev, 2)
+    starts[[7, 3, 30]] = torch.tensor([290, -4, 299], dtype=torch.int32, device=dev)
+    hi[[7, 3, 30]] = 50
+    err = error_words(1, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = row_window(src, starts, hi, L=128, lo=0, fill=-1, reverse=True, err=err)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, row_window_ref(src, starts, hi, L=128, lo=0, fill=-1,
+                                           reverse=True))
+    assert int(err) == 3  # the first of the rows that overrun
+    with pytest.raises(ValueError, match="outside a source"):
+        raise_on_error(err.cpu(), [300])
+
+
+def test_strip_bucket_on_cuda_refuses_an_overrun(dev, monkeypatch):
+    """A window start pushed out of its source inside ``strip_bucket``
+    raises the ValueError at the host copy."""
+    from seqalib_tpu_torch.ops import strip as strip_mod
+
+    real = strip_mod.row_window
+    calls = []
+
+    def shifted(src, starts, hi, **kw):
+        calls.append(kw.get("err") is not None)
+        return real(src, starts + src.shape[1], hi, **kw)
+
+    monkeypatch.setattr(strip_mod, "row_window", shifted)
+    rng = np.random.default_rng(3)
+    q = rng.integers(0, 4, size=(2, 40))
+    tables = tables_from_params(scoring_params(2, -3, -5, -2, None), dev)
+    with pytest.raises(ValueError, match="outside a source"):
+        strip_mod.strip_bucket(q, q.copy(), np.array([40, 31]), np.array([40, 35]), tables,
+                               mode="local", want_tb=True)
+    assert calls == [True] * 4  # every window ran, deferred
 
 
 @pytest.mark.parametrize("mode", ["local", "global"])
@@ -117,9 +171,17 @@ def test_align_batch_on_cuda_matches_oracle(dev, mode, scoring):
         assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode=mode))
 
 
-def _band_bucket(dev, scoring, B=21, band=9, CK=32, seed=2):
+# slot widths: the callers' (multiples of 128; 1152 holds 4 slots a
+# thread), one with idle threads (100) and one whose last thread holds a
+# slot and an idle one (1001)
+WPS = [128, 256, 384, 1152, 1001, 100]
+
+
+def _band_bucket(dev, scoring, B=21, band=9, CK=32, seed=2, Wp=None):
     """A mixed-delta bucket laid out as ``banded_align_batch`` lays it out,
-    filled by the plain version with checkpoints."""
+    filled by the plain version with checkpoints; ``Wp`` widens the slot
+    rows past the geometry's (the extra slots are junk, held all the
+    same)."""
     sp, alpha = SCORINGS[scoring]
     rng = np.random.default_rng(seed)
     qlen = rng.integers(0, 300, size=B)
@@ -131,7 +193,9 @@ def _band_bucket(dev, scoring, B=21, band=9, CK=32, seed=2):
     deltas = tlen - qlen
     dlo_p, dhi_p = np.minimum(0, deltas) - band, np.maximum(0, deltas) + band
     dlo, dhi = int(dlo_p.min()), int(dhi_p.max())
-    Wp, K = _geometry(dlo, dhi, n, m)
+    Wg, K = _geometry(dlo, dhi, n, m)
+    Wp = Wp or Wg
+    assert Wp >= (dhi - dlo + 1) // 2 + 2
     Kp = -(-K // CK) * CK
     table = sp.substitution_matrix()
     A = table.shape[0]
@@ -153,10 +217,11 @@ def _same(got, want):
         assert torch.equal(got[k], want[k]), k
 
 
+@pytest.mark.parametrize("Wp", WPS)
 @pytest.mark.parametrize("scoring", sorted(SCORINGS))
 @pytest.mark.parametrize("mode", ["fill", "ptr"])
-def test_band_fill_kernel_matches_plain_version(dev, scoring, mode):
-    c = _band_bucket(dev, scoring)
+def test_band_fill_kernel_matches_plain_version(dev, scoring, mode, Wp):
+    c = _band_bucket(dev, scoring, Wp=Wp)
     if mode == "fill":
         call = dict(k0=0, k1=c["Kp"], mode="fill", CK=c["CK"])
         state = c["state"]
@@ -171,10 +236,11 @@ def test_band_fill_kernel_matches_plain_version(dev, scoring, mode):
     _same(got, band_fill_ref(*c["args"], state, c["score"], c["tab"], **call, **c["kw"]))
 
 
+@pytest.mark.parametrize("Wp", WPS)
 @pytest.mark.parametrize("tie_safe", [False, True])
 @pytest.mark.parametrize("scoring", sorted(SCORINGS))
-def test_band_fill_emode_kernel_matches_plain_version(dev, scoring, tie_safe):
-    c = _band_bucket(dev, scoring, band=64)
+def test_band_fill_emode_kernel_matches_plain_version(dev, scoring, tie_safe, Wp):
+    c = _band_bucket(dev, scoring, band=64, Wp=Wp)
     B, Wp = c["score"].shape
     state = torch.cat([c["state"], c["score"][None],
                        torch.zeros((1, B, Wp), dtype=torch.int32, device=dev)])
@@ -207,13 +273,14 @@ def test_band_walk_kernel_matches_plain_version(dev, scoring):
         state = list(got[1:])
 
 
+@pytest.mark.parametrize("Wp", WPS)
 @pytest.mark.parametrize("Wb", [384, 7])  # 7 < dhi: the stream index clamps
 @pytest.mark.parametrize("scoring", sorted(SCORINGS))
 @pytest.mark.parametrize("mode", ["fill", "ptr"])
-def test_band_fill_relay_kernel_matches_plain_version(dev, scoring, mode, Wb):
+def test_band_fill_relay_kernel_matches_plain_version(dev, scoring, mode, Wb, Wp):
     """A block resumed from a boundary row (bh/bf) with the capture of row
     60: real, 0 (no slot holds the row) and NEG_INF capture columns."""
-    c = _band_bucket(dev, scoring, seed=4)
+    c = _band_bucket(dev, scoring, seed=4, Wp=Wp)
     B = c["score"].shape[0]
     rng = np.random.default_rng(Wb)
     bh = torch.as_tensor(-5 - 2 * np.arange(Wb) + rng.integers(-6, 7, size=(B, Wb)),

@@ -52,6 +52,19 @@ def test_row_window_matches_jax(lo, seed):
     assert launches == before  # a CPU tensor runs the plain version
 
 
+@pytest.mark.parametrize("lo", [0, 1])
+def test_row_window_reversed_matches_jax_on_the_flipped_source(lo):
+    src, starts, hi = _case(2)
+    flipped = np.ascontiguousarray(src[:, ::-1])
+    want = np.asarray(
+        _row_window(jnp.asarray(flipped), jnp.asarray(starts), jnp.asarray(hi),
+                    L=L, lo=lo, fill=-7, interpret=True)
+    )
+    got = row_window(torch.from_numpy(src), torch.from_numpy(starts),
+                     torch.from_numpy(hi), L=L, lo=lo, fill=-7, reverse=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_row_window_reads_up_to_the_right_edge():
     # no superset-load rule in the port: a window may end exactly at W
     src = torch.arange(2 * 10, dtype=torch.int32).reshape(2, 10)
@@ -74,3 +87,24 @@ def test_row_window_unused_rows_may_start_anywhere():
     out = row_window(src, torch.tensor([99, -5], dtype=torch.int32),
                      torch.tensor([0, 1], dtype=torch.int32), L=3, lo=1, fill=5)
     assert out.tolist() == [[5, 5, 5], [5, 5, 5]]
+
+
+def test_strip_bucket_refuses_an_overrun(monkeypatch):
+    """A window start pushed out of its source inside ``strip_bucket``
+    raises (on the CPU at once; on the card at the host copy, see
+    test_torch_kernels_cuda.py)."""
+    from seqalib_tpu_torch.ops import strip as strip_mod
+    from seqalib_tpu_torch.scoring import scoring_params, tables_from_params
+
+    real = strip_mod.row_window
+
+    def shifted(src, starts, hi, **kw):
+        return real(src, starts + src.shape[1], hi, **kw)
+
+    monkeypatch.setattr(strip_mod, "row_window", shifted)
+    rng = np.random.default_rng(3)
+    q = rng.integers(0, 4, size=(2, 12))
+    tables = tables_from_params(scoring_params(2, -3, -5, -2, None), torch.device("cpu"))
+    with pytest.raises(ValueError, match="outside a source"):
+        strip_mod.strip_bucket(q, q.copy(), np.array([12, 9]), np.array([12, 10]), tables,
+                               mode="local")
