@@ -33,7 +33,10 @@ Phases (any failure raises and exits non-zero):
    mismatch -3, o=-5, e=-2): warm wall time, pairs/s and GCUPS(n*w);
    every CIGAR consumes its pair and re-scores to the reported score; 8
    pairs cut to 1024 x 1088 equal the banded oracle; then a band sweep
-   (64, 256) and B=8 pairs of 100 kb at band 64, re-scored;
+   (64, 256) and B=8 pairs of 100 kb at band 64, re-scored; then one 10 kb
+   read against a 27 kb window (a length delta of 17 000, slot width Wp
+   8 704: the wide variant of the banded fill), its CIGAR re-scored and its
+   score equal to ``align_score_sp``'s;
 6. the full-matrix sequence-parallel path on a mesh of one device:
    ``align_sp`` on a 10 240 x 8 192 DNA pair (the target is the query's
    first 8 192 letters with 150 substitutions; match 2, mismatch -3, o=-5,
@@ -43,7 +46,11 @@ Phases (any failure raises and exits non-zero):
    score for the same pair, the CIGAR consumes the pair and re-scores to
    its score, and ``align_sp`` on a mesh of four entries naming the one
    card gives the same result; ``align_sp`` on a 1 536-letter pair equals
-   the oracle (``str(AlignResult)``) on meshes of 1 and 4;
+   the oracle (``str(AlignResult)``) on meshes of 1 and 4, and with tiles of
+   2 048 columns (one tile: a run of one, a pointer batch of one) on a mesh
+   of 1, its local score equal to the strip engine's; ``align_score_sp``
+   makes one tile launch per call, ``align_sp`` fewer pointer launches than
+   the tiles its walk enters;
 7. the banded route for tables outside [-4, 11] (the full-matrix
    wavefront): B=64 protein pairs of 1 000 letters (the target is the
    query with 5% substitutions and a few indels), band 64, 2 x BLOSUM62
@@ -64,9 +71,13 @@ Phases (any failure raises and exits non-zero):
    just before each path's runs (1 warm-up + 3 timed calls) and read just
    after.
 
-The kernel phase also holds the sequence-parallel tile (``sp_tile``, three
-modes, on the first 2048 rows of the SP path's tile of the first 256
-columns, with the whole tile's kernel time printed beside), the
+The kernel phase also holds the sequence-parallel tile kernel (``sp_tile``:
+the runs of a block's tiles in global and local mode and the pointer
+batch, on their first 2048 rows and first 4 tiles (3 of a batch), with the
+whole call's time printed beside, and the one-tile launches of the
+2 048-column tiles whole), the wide banded fill (fill and pointer modes on
+2048 diagonals of the 17 000-delta pair, and of pairs whose deltas give Wp
+8 320 and 16 384), the
 wavefront fill (pointer and score-only modes, at the wide-table phase's
 shapes) and phase 8's kernels against their plain versions: the resumed
 block fill of a block d >= 1 on a mesh of 4, in the score relay of
@@ -115,11 +126,18 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_CELL = {"strip_fill/local": 11, "strip_fill/emode": 10, "strip_fill/gmode": 13,
                 "band_fill/fill": 9, "band_fill/ptr": 13, "band_fill/emode": 10,
                 "band_fill/relay": 9, "band_fill/relay_ptr": 13,
+                "band_fill/wide": 9, "band_fill/wide_ptr": 13,
                 "sp_tile/global": 9, "sp_tile/local": 11, "sp_tile/ptr": 13,
+                "sp_tile/run_global": 9, "sp_tile/run_local": 11, "sp_tile/ptr_batch": 13,
                 "wavefront_fill/score": 9, "wavefront_fill/ptr": 13}
 # the SP phase (6) and the wide-table phase (7)
 SP_N, SP_M, SP_SUBS, SP_C, SP_LONG, SP_CUT_ROWS = 10_240, 8_192, 150, 256, 16_384, 2048
 SP_ORACLE_N = 1536  # align_sp held to the oracle, str(AlignResult), on meshes of 1 and 4
+SP_ONE_C = 2048  # tiles as wide as the SP_ORACLE_N pair: one tile per block
+SP_CUT_TILES, SP_CUT_BATCH = 4, 3  # tiles of a run and of a pointer batch held to plain
+# config 4 with a long window: a 10 kb read against L4 + delta letters; the
+# deltas give the wide fill Wp 8 704 (the path), 8 320 and 16 384
+WIDE_DELTA, WIDE_DELTAS_HELD = 17_000, (16_300, 32_400)
 B7, L7, BAND7 = 64, 1000, 64
 # the banded-SP phase (8): long reads, the relay's mesh, the kernel cuts
 BSP, LSP, BANDSP, DSP = 16, 100_000, 256, 4
@@ -138,10 +156,15 @@ KERNELS = {  # launch-counter key -> (CUDA source, replaced Pallas kernel, path)
     "band_fill/emode": ("band_fill.cu", f"{BANDED}:90", "config3"),
     "band_fill/fill": ("band_fill.cu", f"{BANDED}:90", "config4"),
     "band_fill/ptr": ("band_fill.cu", f"{BANDED}:90", "config4"),
+    "band_fill/wide": ("band_fill.cu", f"{BANDED}:90", "config4_wide"),
+    "band_fill/wide_ptr": ("band_fill.cu", f"{BANDED}:90", "config4_wide"),
     "band_walk": ("band_walk.cu", f"{BANDED}:890", "config4"),
-    "sp_tile/global": ("sp_tile.cu", f"{SPTILE}:52", "sp_align"),
-    "sp_tile/ptr": ("sp_tile.cu", f"{SPTILE}:52", "sp_align"),
-    "sp_tile/local": ("sp_tile.cu", f"{SPTILE}:52", "sp_local"),
+    "sp_tile/global": ("sp_tile.cu", f"{SPTILE}:52", "sp_one_tile"),
+    "sp_tile/ptr": ("sp_tile.cu", f"{SPTILE}:52", "sp_one_tile"),
+    "sp_tile/local": ("sp_tile.cu", f"{SPTILE}:52", "sp_one_tile"),
+    "sp_tile/run_global": ("sp_tile.cu", f"{SPTILE}:52", "sp_align"),
+    "sp_tile/ptr_batch": ("sp_tile.cu", f"{SPTILE}:52", "sp_align"),
+    "sp_tile/run_local": ("sp_tile.cu", f"{SPTILE}:52", "sp_local"),
     "wavefront_fill/ptr": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide"),
     "wavefront_fill/score": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide_score"),
     "band_fill/relay": ("band_fill.cu", f"{BANDED}:90", "banded_sp_score"),
@@ -240,8 +263,8 @@ def bound(key, args, kw, out):
         q, t2, qlen, tlen = args[:4]
         cells = int((qlen.long() * tlen.long()).sum())
         nbytes = _nbytes(args[:4]) + _nbytes(args[4].table) + _nbytes(out)
-    elif name == "sp_tile":  # every cell of the R x C tile; ptr: a byte each
-        cells = args[0].shape[0] * kw["C"]
+    elif name == "sp_tile":  # every cell of R rows x the tiles' columns; ptr: a byte each
+        cells = args[0].shape[0] * args[3].numel()
         nbytes = _nbytes(args) + _nbytes(out)
     elif name == "wavefront_fill":  # the in-band cells of each pair's matrix
         qlen, tlen = (v.cpu().numpy().astype(np.int64) for v in args[2:4])
@@ -318,14 +341,22 @@ def check_kernel(key, kernel, plain):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, got
 
 
-def _key(name, kw):
+def _key(name, args, kw):
+    """The ``launches`` key a wrapper's call counts under."""
+    from seqalib_tpu_torch.ops.band_fill import launch_key
+
     if name == "wavefront_fill":
         return f"{name}/" + ("ptr" if kw["want_ptr"] else "score")
-    if name == "band_fill" and kw.get("bh") is not None:
-        return "band_fill/relay" + ("" if kw["mode"] == "fill" else "_ptr")
+    if name == "band_fill":
+        return launch_key(kw["mode"], kw.get("bh") is not None, args[6].shape[2])
     if name == "band_walk" and kw.get("i_floor", -1) >= 0:
         return "band_walk/floor"
-    return f"{name}/{kw['mode']}" if name in ("strip_fill", "band_fill", "sp_tile") else name
+    if name == "sp_tile_run":  # a run of T tiles: ftop holds T * C columns
+        one = args[3].shape[0] == kw["C"]
+        return f"sp_tile/{kw['mode']}" if one else f"sp_tile/run_{kw['mode']}"
+    if name == "sp_tile_ptr":  # K tiles: htop is (K, C + 1)
+        return "sp_tile/ptr" if args[2].shape[0] == 1 else "sp_tile/ptr_batch"
+    return f"{name}/{kw['mode']}" if name == "strip_fill" else name
 
 
 def record(run, targets, keep=lambda args, kw: True):
@@ -338,7 +369,7 @@ def record(run, targets, keep=lambda args, kw: True):
         def wrapped(*args, **kw):
             res = fn(*args, **kw)
             if keep(args, kw):
-                calls.setdefault(_key(name, kw), (fn, plain, args, kw, res))
+                calls.setdefault(_key(name, args, kw), (fn, plain, args, kw, res))
             return res
         return wrapped
 
@@ -439,32 +470,87 @@ def kernel_phase4(qs, ts, sp, dev):
     return per_kernel
 
 
-def kernel_phase_sp(q, t, sp, dev):
-    """The SP path's tile calls: ``align_sp`` (global fill and pointer
-    tiles) and the local score on (q, t); each mode held against the plain
-    version on the first SP_CUT_ROWS rows of the tile of the first 256
-    columns, where the alignment runs near the diagonal and pointer ties
-    occur (two kernel strips; the plain version takes one Python step per
-    substep), and the kernel timed on the whole tile as well."""
+def kernel_phase_sp(q, t, q16, t16, qo, to, sp, dev):
+    """The SP path's tile launches on a mesh of one card: the runs of
+    ``align_sp`` on (q, t) (global, the block's 32 tiles) and of the local
+    score on (q16, t16) (64 tiles), and the first pointer batch of the
+    walk, each held against the plain version on its first SP_CUT_ROWS
+    rows and SP_CUT_TILES tiles (SP_CUT_BATCH of the batch: the plain
+    version takes one Python step per substep of every tile) and timed
+    whole as well; and the one-tile launches of (qo, to) with tiles of
+    SP_ONE_C columns, held whole."""
     from seqalib_tpu_torch.ops import sp_tile as tile_mod
     from seqalib_tpu_torch.parallel import band_pipeline as bp_mod
 
-    targets = [(bp_mod, "sp_tile", tile_mod.sp_tile_ref)]
+    targets = [(bp_mod, "sp_tile_run", tile_mod.sp_tile_run_ref),
+               (bp_mod, "sp_tile_ptr", tile_mod.sp_tile_ptr_ref)]
     mesh = (dev,)
-    first = lambda args, kw: kw["j0"] == 0  # noqa: E731
-    calls, _ = record(lambda: bp_mod.nw_affine_align_sp(q, t, sp, mesh, C=SP_C), targets,
-                      first)
-    calls_l, _ = record(lambda: bp_mod.sw_affine_score_sp(q, t, sp, mesh, C=SP_C), targets,
-                        first)
-    calls.update(calls_l)
+    calls = {}
+    for run in (lambda: bp_mod.nw_affine_align_sp(q, t, sp, mesh, C=SP_C),
+                lambda: bp_mod.sw_affine_score_sp(q16, t16, sp, mesh, C=SP_C),
+                lambda: bp_mod.nw_affine_align_sp(qo, to, sp, mesh, C=SP_ONE_C),
+                lambda: bp_mod.sw_affine_score_sp(qo, to, sp, mesh, C=SP_ONE_C)):
+        more, _ = record(run, targets)
+        calls.update({k: v for k, v in more.items() if k not in calls})
     per_kernel = {}
-    for key in ("sp_tile/global", "sp_tile/local", "sp_tile/ptr"):
+    Rc = SP_CUT_ROWS
+    for key in ("sp_tile/run_global", "sp_tile/run_local", "sp_tile/ptr_batch"):
         fn, plain, args, kw, _ = calls[key]
         whole = time_ms(lambda: fn(*args, **kw), 3)
-        cut = tuple(a[:SP_CUT_ROWS] if i in (0, 4, 5) else a for i, a in enumerate(args))
+        qb, tk, htop, ftop, hcol, ecol, cap, tab = args
+        C = kw["C"]
+        if key == "sp_tile/ptr_batch":  # tiles 0 .. SP_CUT_BATCH - 1: the rightmost
+            K = htop.shape[0]
+            Kc = min(K, SP_CUT_BATCH)
+            cut = (qb[:Rc], tk[(K - Kc) * C:], htop[:Kc], ftop[:Kc], hcol[:Kc, :Rc],
+                   ecol[:Kc, :Rc], cap, tab)
+            shape = f"{K} tiles x {qb.shape[0]} rows x {C}"
+        else:
+            W = SP_CUT_TILES * C
+            cut = (qb[:Rc], tk[:W + 1], htop[:W + 1], ftop[:W], hcol[:Rc], ecol[:Rc], cap,
+                   tab)
+            shape = f"{qb.shape[0]} rows x {ftop.shape[0] // C} tiles of {C}"
         per_kernel[key] = kernel_entry(key, fn, plain, cut, kw)
-        say(f"[kernel] {key}: whole tile {args[0].shape[0]} x {kw['C']} "
-            f"(i0={kw['i0']}, j0={kw['j0']}): {whole:.3f} ms")
+        say(f"[kernel] {key}: whole call ({shape}, i0={kw['i0']}, j0={kw['j0']}): "
+            f"{whole:.3f} ms; held on {Rc} rows")
+    for key in ("sp_tile/global", "sp_tile/local", "sp_tile/ptr"):
+        fn, plain, args, kw, _ = calls[key]
+        per_kernel[key] = kernel_entry(key, fn, plain, args, kw)
+        say(f"[kernel] {key}: one tile of {args[0].shape[0]} rows x {kw['C']}")
+    return per_kernel
+
+
+def kernel_phase_wide4(q, t, sp, dev):
+    """The wide banded fill: config 4's path on one read against windows
+    WIDE_DELTA and WIDE_DELTAS_HELD letters longer, its fill and pointer
+    calls held against the plain version on CMP_DIAGONALS diagonals (the
+    fill from its middle checkpoint, the pointer recompute from its first
+    diagonal), the whole calls timed; the key takes the WIDE_DELTA pair."""
+    from seqalib_tpu_torch.models import banded as banded_mod
+    from seqalib_tpu_torch.ops import band_fill as bf_mod
+
+    targets = [(banded_mod, "band_fill", bf_mod.band_fill_ref)]
+    per_kernel = {}
+    for delta in (WIDE_DELTA, *WIDE_DELTAS_HELD):
+        tw = t[: len(q) + delta]
+        calls, _ = record(lambda: banded_mod.banded_align_batch(
+            q[None], tw[None], np.array([len(q)]), np.array([len(tw)]), sp, BAND4,
+            device=dev), targets)
+        for key in ("band_fill/wide", "band_fill/wide_ptr"):
+            fn, plain, args, kw, full = calls[key]
+            whole = time_ms(lambda: fn(*args, **kw), 1)
+            if key == "band_fill/wide":
+                cg = full["ckpt"].shape[0] // 2
+                k0 = cg * kw["CK"]
+                args = args[:6] + (full["ckpt"][cg],) + args[7:]
+                kw = dict(kw, k0=k0, k1=k0 + CMP_DIAGONALS)
+            else:
+                kw = dict(kw, k1=kw["k0"] + CMP_DIAGONALS)
+            entry = kernel_entry(key, fn, plain, args, kw)
+            if delta == WIDE_DELTA:
+                per_kernel[key] = entry
+            say(f"[kernel] {key}: delta {delta}, Wp {args[6].shape[2]}: whole call "
+                f"{whole:.3f} ms over {calls[key][3]['k1'] - calls[key][3]['k0']} diagonals")
     return per_kernel
 
 
@@ -670,6 +756,31 @@ def sp_pairs(rng):
     return q, t, q16, t16, qo, to.astype(np.int32)
 
 
+def wide_pair(rng):
+    """A read of L4 letters and a window L4 + 32 400 letters long that holds
+    it from letter 8 000 on (2% substitutions): its first L4 + delta letters
+    are config 4's long-window pairs."""
+    t = rng.integers(0, 4, L4 + WIDE_DELTAS_HELD[-1]).astype(np.uint8)
+    q = t[8_000: 8_000 + L4].copy()
+    idx = rng.choice(L4, L4 // 50, replace=False)
+    q[idx] = (q[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
+    return q, t
+
+
+def walked_tiles(cigar, R, C):
+    """The (block, tile) pairs a global walk enters: those of every cell
+    (i, j), i, j >= 1, on the CIGAR's path."""
+    i = j = 0
+    tiles = set()
+    for n, op in re.findall(r"(\d+)([MID])", cigar):
+        for _ in range(int(n)):
+            i += op != "D"
+            j += op != "I"
+            if i and j:
+                tiles.add(((i - 1) // R, (j - 1) // C))
+    return tiles
+
+
 def strip_score(q, t, sp, mode, dev):
     """The strip engine's score for one pair (an independent kernel)."""
     import seqalib_tpu_torch as st
@@ -694,6 +805,12 @@ def sp_runs(q, t, q16, t16, qo, to, sp, dev, counts):
     check_cigars("sp", [q], [t], [res], sp)
     if res.score != want:
         raise AssertionError(f"align_sp score {res.score} != strip engine {want}")
+    walked = len(walked_tiles(res.cigar, len(q), SP_C))
+    ptr_launches = counts["sp_align"]["sp_tile/ptr_batch"] / (REPS + 1)
+    say(f"[sp] align_sp: {ptr_launches} pointer launches per call for {walked} tiles walked; "
+        f"{counts['sp_align']['sp_tile/run_global'] / (REPS + 1)} fill launches per call")
+    if not ptr_launches < walked or counts["sp_align"]["sp_tile/ptr"]:
+        raise AssertionError("align_sp: the pointer recompute is not batched")
     four = st.align_sp(q, t, sp, st.make_band_mesh([dev] * 4), C=SP_C)
     if str(four) != str(res):
         raise AssertionError(f"align_sp on a mesh of 4: {four} != {res}")
@@ -705,11 +822,24 @@ def sp_runs(q, t, q16, t16, qo, to, sp, dev, counts):
         if str(got) != str(want):
             raise AssertionError(f"align_sp on a mesh of {D}: {got} != oracle {want}")
     say(f"[sp] align_sp {len(qo)} x {len(to)} equals the oracle on meshes of 1 and 4")
+    reset_launches()
+    got, _ = timed_runs(lambda: st.align_sp(qo, to, sp, mesh, C=SP_ONE_C))
+    local, _ = timed_runs(lambda: st.align_score_sp(qo, to, sp, mesh, mode="local",
+                                                    C=SP_ONE_C))
+    counts["sp_one_tile"] = dict(launches)
+    wantl = strip_score(qo, to, sp, "local", dev)
+    if str(got) != str(want) or local != wantl:
+        raise AssertionError(f"align_sp with one tile: {got} / local {local} != oracle "
+                             f"{want} / strip engine {wantl}")
+    say(f"[sp] one tile of {SP_ONE_C} columns: align_sp equals the oracle, the local "
+        f"score {local} the strip engine's")
     for mode, path in (("global", "sp_score"), ("local", "sp_local")):
         reset_launches()
         got, walls = timed_runs(lambda: st.align_score_sp(q16, t16, sp, mesh, mode=mode,
                                                           C=SP_C))
         counts[path] = dict(launches)
+        if sum(v for k, v in launches.items() if k.startswith("sp_tile/")) != REPS + 1:
+            raise AssertionError(f"align_score_sp {mode}: not one tile launch per call")
         wall = statistics.median(walls)
         say(f"[sp] align_score_sp {mode} {len(q16)} x {len(t16)} wall {wall:.4f} s "
             f"(reps {walls}); {len(q16) * len(t16) / wall / 1e9:.3f} GCUPS")
@@ -871,6 +1001,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    import seqalib_tpu_torch as st
     from seqalib_tpu_torch import BLOSUM62, ScoringParams, _build
     from seqalib_tpu_torch.ops import launches, reset_launches
 
@@ -903,13 +1034,23 @@ def main() -> int:
     sp7 = ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * BLOSUM62)
     qs7, ts7 = wide_pairs(rng)
     qsb, tsb, qob, tob, qpb, tpb = banded_sp_pairs()
+    qw, tw = wide_pair(rng)
 
     per_kernel, escalated = kernel_phase3(q3, t3, sp3, dev)
     say(f"[config3] escalated pairs: {escalated}/{B3}")
     per_kernel.update(kernel_phase4(qs4, ts4, sp4, dev))
-    per_kernel.update(kernel_phase_sp(qsp, tsp, sp4, dev))
+    per_kernel.update(kernel_phase_wide4(qw, tw, sp4, dev))
+    per_kernel.update(kernel_phase_sp(qsp, tsp, q16, t16, qo, to, sp4, dev))
     per_kernel.update(kernel_phase_wide(qs7, ts7, sp7, dev))
     per_kernel.update(kernel_phase_banded_sp(qsb, tsb, sp4, dev))
+    n_checks = 100_000
+    t0 = time.perf_counter()
+    for _ in range(n_checks):
+        torch.cuda.current_device()
+    rw = per_kernel["row_window"]
+    say(f"[guard] the launch guard's device check: "
+        f"{(time.perf_counter() - t0) / n_checks * 1e6:.3f} µs per launch; row_window "
+        f"{rw['ms']:.4f} ms per call against the library call's {rw['library_ms']:.4f} ms")
     say(f"[time] kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     counts = {}
@@ -937,6 +1078,14 @@ def main() -> int:
         banded_run(f"config4_band{band}", qs4, ts4, sp4, band, dev, 1)
     q100, t100 = long_reads(rng, 8, 100_000)
     banded_run("config4_100kb", q100, t100, sp4, 64, dev, 1)
+    reset_launches()
+    res = banded_run("config4_wide", [qw], [tw[: L4 + WIDE_DELTA]], sp4, BAND4, dev, REPS)
+    counts["config4_wide"] = dict(launches)
+    want = st.align_score_sp(qw.astype(np.int32), tw[: L4 + WIDE_DELTA].astype(np.int32),
+                             sp4, st.make_band_mesh([dev]), C=SP_C)
+    if res[0].score != want:
+        raise AssertionError(f"config4_wide score {res[0].score} != align_score_sp {want}")
+    say(f"[config4_wide] delta {WIDE_DELTA}: score {want} == align_score_sp")
     say(f"[time] configs done at {time.perf_counter() - t_start:.1f} s")
     sp_runs(qsp, tsp, q16, t16, qo, to, sp4, dev, counts)
     say(f"[time] SP phase done at {time.perf_counter() - t_start:.1f} s")

@@ -8,7 +8,9 @@ happens at first use (never on import) and again whenever a hash of the
 sources changes; the library lives in ``seqalib_tpu_torch/_build/``.
 
 Every C entry point launches on the stream it is given, allocates
-nothing and returns ``cudaGetLastError()`` after its launch.
+nothing and returns ``cudaGetLastError()`` after its launch; every
+wrapper calls it through ``launch``, which makes the tensors' device
+current for the call.
 """
 
 from __future__ import annotations
@@ -48,10 +50,10 @@ _SIGNATURES = {
     "seqalib_strip_walk": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "seqalib_band_fill": [
         _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P,
     ],
     "seqalib_band_walk": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "seqalib_sp_tile": [_P] * 8 + [_I] * 13 + [_P] * 7,
+    "seqalib_sp_run": [_P] * 7 + [_I] * 16 + [_P] * 4 + [_I] + [_P] * 6,
     "seqalib_wavefront_fill": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P] * 4,
 }
 
@@ -152,3 +154,19 @@ def check(name: str, rc: int) -> None:
     if rc != 0:
         msg = lib().seqalib_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def launch(name: str, device, entry: str, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current stream
+    of the CUDA ``device`` (a tensor's device, whose index is set), then
+    raise on its error code.  Every wrapper launches through here: the
+    call runs with ``device`` current, since a kernel launch goes to the
+    current device whatever stream it is given.  The device is switched
+    (and restored) only when another one is current."""
+    fn = getattr(lib(), entry)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, current_stream(device))
+    else:
+        with torch.cuda.device(device.index):
+            rc = fn(*args, current_stream(device))
+    check(name, rc)

@@ -31,7 +31,7 @@
 // Design: one CTA per pair, thread t owning the S adjacent slots
 // [t*S, t*S + S) (S by Wp: 1 up to Wp 512, then 2, 4, 8, 16, so that a CTA
 // has at most 512 threads; blockDim is rounded up to whole warps and the
-// slots past Wp - 1 are idle).  H(k-1), H(k-2), E(k-1), F(k-1) of a
+// slots past Wp - 1 are idle; above Wp 8192, band_fill_wide_kernel below).  H(k-1), H(k-2), E(k-1), F(k-1) of a
 // thread's slots, the kEmode BV/BK/EV and the pending kPtr nibble stay in
 // registers.  Since d1 = ihat(k) - ihat(k-1) and d2 = ihat(k) - ihat(k-2)
 // depend on k alone, a slot's neighbours p-1 and p+1 are the same shift
@@ -98,6 +98,7 @@ struct BandArgs {
   int32_t* bout;  // (2, B, Wbo) capture of row bout_row, or null
   int Wbo;
   int bout_row;
+  int32_t* scratch;  // (B, 7, Wp): the wide variant's slot rows, or null
 };
 
 // RELAY: a resumed row block (bh/bf and/or bout given), so that the
@@ -407,6 +408,179 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(const BandArgs a
   }
 }
 
+// The wide variant, for Wp > kMaxThreads * 16 (slots the registers cannot
+// hold): the same recurrence, in the same order, with the slot rows in
+// global memory (a.scratch, per pair H at k, k-1, k-2 and E, F at k, k-1,
+// rotated; ~450 KB a pair at Wp 16384, L2-resident), the emode BV/BK/EV in
+// `state`/`score` and the pending pointer nibble in the pointer byte itself.
+// One CTA of kWideThreads per pair, slot p on thread p % kWideThreads; a
+// diagonal reads only the two before it, so one __syncthreads closes it.
+// Slow (every neighbour is an L1/L2 load) but with no cap on Wp.
+constexpr int kWideThreads = 1024;
+constexpr int kSlotsMax = 16;  // the register variant's most slots per thread
+
+template <int MODE, bool RELAY>
+__global__ void __launch_bounds__(kWideThreads) band_fill_wide_kernel(const BandArgs a) {
+  extern __shared__ int32_t smem[];
+  const int Wp = a.Wp;
+  const int NT = a.NT;
+  int32_t* tab = smem;  // NT * NT
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  for (int x = tid; x < NT * NT; x += blockDim.x) tab[x] = a.table[x];
+  const size_t plane = (size_t)a.B * Wp;
+  const size_t row = (size_t)b * Wp;
+  int32_t* H = a.scratch + (size_t)b * 7 * Wp;  // 3 rows: H at r mod 3
+  int32_t* Ev = H + 3 * (size_t)Wp;             // 2 rows: E at r mod 2
+  int32_t* Fv = Ev + 2 * (size_t)Wp;            // 2 rows: F at r mod 2
+  // the rows of relative diagonal r = k - k0 (r >= -3)
+  auto hrow = [&](int r) { return H + (size_t)((r + 3) % 3) * Wp; };
+  auto erow = [&](int r) { return Ev + (size_t)((r + 2) & 1) * Wp; };
+  auto frow = [&](int r) { return Fv + (size_t)((r + 2) & 1) * Wp; };
+  for (int p = tid; p < Wp; p += blockDim.x) {
+    hrow(-1)[p] = a.state[row + p];
+    hrow(-2)[p] = a.state[plane + row + p];
+    erow(-1)[p] = a.state[2 * plane + row + p];
+    frow(-1)[p] = a.state[3 * plane + row + p];
+  }
+  __syncthreads();
+
+  const int qlen = a.qlen[b];
+  const int tlen = a.tlen[b];
+  const int dlov = a.dlo_p[b];
+  const int dhiv = a.dhi_p[b];
+  const int e = a.gap_extend;
+  const int oe = a.gap_open + a.gap_extend;
+  const unsigned last = (unsigned)(NT - 1);
+  const int32_t* qb = a.qk + (size_t)b * a.q_width;
+  const int32_t* tb = a.tk + (size_t)b * a.t_width;
+  const bool inject = RELAY && a.bh != nullptr;
+  const int32_t* bhp = inject ? a.bh + (size_t)b * a.Wb : nullptr;
+  const int32_t* bfp = inject ? a.bf + (size_t)b * a.Wb : nullptr;
+  int32_t* bo_h = RELAY && a.bout != nullptr ? a.bout + (size_t)b * a.Wbo : nullptr;
+  int32_t* bo_f = bo_h != nullptr ? bo_h + (size_t)a.B * a.Wbo : nullptr;
+  int32_t* score_row = a.score + row;
+  int32_t* bv_row = MODE == kEmode ? a.state + 4 * plane + row : nullptr;
+  int32_t* bk_row = MODE == kEmode ? a.state + 5 * plane + row : nullptr;
+  for (int k = a.k0; k < a.k1; ++k) {
+    const int r = k - a.k0;
+    const int32_t* h1 = hrow(r - 1);
+    const int32_t* h2 = hrow(r - 2);
+    const int32_t* e1 = erow(r - 1);
+    const int32_t* f1 = frow(r - 1);
+    int32_t* hk = hrow(r);
+    int32_t* ek = erow(r);
+    int32_t* fk = frow(r);
+    if (MODE == kFill && a.CK > 0 && r % a.CK == 0) {
+      int32_t* ck = a.ckpt + (size_t)(r / a.CK) * 4 * plane + row;
+      for (int p = tid; p < Wp; p += blockDim.x) {
+        ck[p] = h1[p];
+        ck[plane + p] = h2[p];
+        ck[2 * plane + p] = e1[p];
+        ck[3 * plane + p] = f1[p];
+      }
+    }
+    const int ih = ihat(k, a.dhi);
+    const int d1 = ih - ihat(k - 1, a.dhi);
+    const int d2 = ih - ihat(k - 2, a.dhi);
+    const int bx = k - 2 * a.bout_row;
+    const int pcap = a.bout_row - ih;
+    const bool cap = bo_h != nullptr && bx >= 0 && bx < a.Wbo;
+    const bool cap_in = cap && pcap >= 0 && pcap < Wp;
+    if (cap && !cap_in && tid == 0) {
+      bo_h[bx] = 0;
+      bo_f[bx] = 0;
+    }
+    const bool k_origin = k == 0;
+    const bool k_inject = inject && k <= a.dhi;
+    const int bhc = k_inject ? bhp[min(k, a.Wb - 1)] : 0;
+    const int bfc = k_inject ? bfp[min(k, a.Wb - 1)] : 0;
+    const bool k_final = MODE == kFill && k == qlen + tlen && k < a.K;
+    const bool k_edge = MODE == kEmode && a.tie_safe && k > a.dhi;
+    uint8_t* ptr_row = MODE == kPtr ? a.ptr + (size_t)(r >> 1) * plane + row : nullptr;
+#pragma unroll 4
+    for (int p = tid; p < Wp; p += blockDim.x) {
+      const int pr = p + 1 == Wp ? 0 : p + 1;  // the ring, as the TPU's lane rolls
+      const int pl = p == 0 ? Wp - 1 : p - 1;
+      const int xl = d1 ? pr : p;  // left (p + d1), up (p + d1 - 1)
+      const int xu = d1 ? p : pl;
+      const int xd = d2 == 1 ? p : (d2 == 0 ? pl : pr);  // diagonal (p + d2 - 1)
+      const int Hl = h1[xl], El = e1[xl];
+      const int Hu = h1[xu], Fu = f1[xu];
+      const int Hd = h2[xd];
+      const int i = ih + p;
+      const int j = k - i;
+      const unsigned qv = i < a.q_width ? (unsigned)__ldg(qb + i) : last;
+      const unsigned tv = (unsigned)j < (unsigned)a.t_width ? (unsigned)__ldg(tb + j)
+                                                            : (j < 0 ? 0u : last);
+      const int sc = tab[min(qv, last) * NT + min(tv, last)];
+      const int e_ext = El + e, e_opn = Hl + oe;
+      const int f_ext = Fu + e, f_opn = Hu + oe;
+      int E = max(e_ext, e_opn);
+      int F = max(f_ext, f_opn);
+      const int d = Hd + sc;
+      const int best = max(max(d, F), E);
+      const bool origin = k_origin && i == 0;
+      int Hn;
+      if (MODE == kEmode) {
+        Hn = origin ? 0 : best;
+        if (p == Wp - 1) Hn = E = F = kNegInf;
+        if (Hn > bv_row[p]) {  // strict: the first maximum of the slot
+          bv_row[p] = Hn;
+          bk_row[p] = k;
+        }
+        if (a.tie_safe) {
+          const int cand = (p == 0 && k_edge) ? E : (p == Wp - 2 ? F : kNegInf);
+          score_row[p] = max(score_row[p], cand - a.smax * i);
+        }
+      } else {
+        if (MODE == kPtr) {  // from the unmasked values, as the TPU kernel
+          int nib = origin ? kPtrStop
+                           : (d == best ? kPtrDiag : (F == best ? kPtrUp : kPtrLeft));
+          nib |= (e_ext >= e_opn ? 4 : 0) | (f_ext >= f_opn ? 8 : 0);
+          ptr_row[p] = (uint8_t)((r & 1) ? (ptr_row[p] | (nib << 4)) : nib);
+        }
+        const int dkj = j - i;
+        const bool ok = dkj >= dlov && dkj <= dhiv && i <= qlen && j >= 0 &&
+                        j <= tlen && !origin;
+        Hn = origin ? 0 : (ok ? best : kNegInf);
+        if (!ok) E = F = kNegInf;
+        if (k_inject && p == 0) {  // local row 0
+          Hn = bhc;
+          F = bfc;
+        }
+        if (cap_in && p == pcap) {
+          bo_h[bx] = Hn;
+          bo_f[bx] = F;
+        }
+        if (k_final && i == qlen) score_row[p] = max(score_row[p], Hn);
+      }
+      hk[p] = Hn;
+      ek[p] = E;
+      fk[p] = F;
+    }
+    __syncthreads();  // the diagonal is out before the next reads it
+  }
+  const int rl = a.k1 - a.k0 - 1;  // the last diagonal
+  for (int p = tid; p < Wp; p += blockDim.x) {
+    a.state[row + p] = hrow(rl)[p];
+    a.state[plane + row + p] = hrow(rl - 1)[p];
+    a.state[2 * plane + row + p] = erow(rl)[p];
+    a.state[3 * plane + row + p] = frow(rl)[p];
+  }
+}
+
+template <int MODE>
+int launch_wide(const BandArgs& a, cudaStream_t stream) {
+  if (a.scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)a.NT * a.NT * sizeof(int32_t);
+  if (MODE != kEmode && (a.bh != nullptr || a.bout != nullptr))
+    band_fill_wide_kernel<MODE, true><<<a.B, kWideThreads, smem, stream>>>(a);
+  else
+    band_fill_wide_kernel<MODE, false><<<a.B, kWideThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <int MODE, int S>
 int launch_s(const BandArgs& a, cudaStream_t stream) {
   const int threads = ((a.Wp + S - 1) / S + 31) / 32 * 32;
@@ -425,8 +599,8 @@ int launch(const BandArgs& a, cudaStream_t stream) {
   if (a.Wp <= 2 * kMaxThreads) return launch_s<MODE, 2>(a, stream);
   if (a.Wp <= 4 * kMaxThreads) return launch_s<MODE, 4>(a, stream);
   if (a.Wp <= 8 * kMaxThreads) return launch_s<MODE, 8>(a, stream);
-  if (a.Wp <= 16 * kMaxThreads) return launch_s<MODE, 16>(a, stream);
-  return (int)cudaErrorInvalidValue;
+  if (a.Wp <= kSlotsMax * kMaxThreads) return launch_s<MODE, kSlotsMax>(a, stream);
+  return launch_wide<MODE>(a, stream);
 }
 
 }  // namespace
@@ -438,14 +612,14 @@ extern "C" int seqalib_band_fill(
     int k1, int K, int dhi, int gap_open, int gap_extend, int mode, int CK,
     int tie_safe, int smax, int32_t* state, int32_t* score, int32_t* ckpt,
     uint8_t* ptr, const int32_t* bh, const int32_t* bf, int Wb, int32_t* bout,
-    int Wbo, int bout_row, void* stream) {
+    int Wbo, int bout_row, int32_t* scratch, void* stream) {
   if ((bh != nullptr && Wb < 1) || (bout != nullptr && (Wbo < 1 || bout_row < 0)))
     return (int)cudaErrorInvalidValue;
   const BandArgs a{qk,    q_width, tk,       t_width,    qlen,  tlen,     dlo_p,
                    dhi_p, table,   NT,       B,          Wp,    k0,       k1,
                    K,     dhi,     gap_open, gap_extend, CK,    tie_safe, smax,
                    state, score,   ckpt,     ptr,        bh,    bf,       Wb,
-                   bout,  Wbo,     bout_row};
+                   bout,  Wbo,     bout_row, scratch};
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case kFill:

@@ -3,7 +3,10 @@
 ``launches`` counts, per kernel, the launches each wrapper made on a CUDA
 tensor (a call on a CPU tensor runs the plain PyTorch version and counts
 nothing).  ``strip_fill``, ``band_fill``, ``sp_tile`` and ``wavefront_fill``
-count each mode under its own key, ``band_walk`` its ``i_floor`` handoff.
+count each mode under its own key, ``band_walk`` its ``i_floor`` handoff;
+``band_fill``'s wide variant (Wp > 8192) counts under ``band_fill/wide*``,
+and ``sp_tile`` counts a run of several tiles under ``sp_tile/run_*`` and a
+batch of several pointer tiles under ``sp_tile/ptr_batch``.
 """
 
 from __future__ import annotations
@@ -19,11 +22,17 @@ launches: dict[str, int] = {
     "band_fill/emode": 0,
     "band_fill/relay": 0,
     "band_fill/relay_ptr": 0,
+    "band_fill/wide": 0,
+    "band_fill/wide_ptr": 0,
+    "band_fill/wide_emode": 0,
     "band_walk": 0,
     "band_walk/floor": 0,
     "sp_tile/global": 0,
     "sp_tile/local": 0,
     "sp_tile/ptr": 0,
+    "sp_tile/run_global": 0,
+    "sp_tile/run_local": 0,
+    "sp_tile/ptr_batch": 0,
     "wavefront_fill/ptr": 0,
     "wavefront_fill/score": 0,
 }

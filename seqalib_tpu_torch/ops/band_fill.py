@@ -61,7 +61,8 @@ block from the block above it, in ``fill`` and ``ptr`` modes:
   diagonal of ``[k0, k1)`` reaches stay NEG_INF.
 
 Returns a dict with ``state`` and ``score`` after ``k1 - 1``, plus
-``ckpt``, ``ptr`` or ``bout``.  Kernel: ``csrc/band_fill.cu``.
+``ckpt``, ``ptr`` or ``bout``.  Kernel: ``csrc/band_fill.cu`` (slot rows
+in registers up to Wp ``MAX_WP_REGISTERS``, in a global scratch above).
 """
 
 from __future__ import annotations
@@ -79,8 +80,9 @@ REF_CHUNK = 64  # diagonals whose scores and mask the plain version gathers at o
 # letters strip_fill takes, plus the zero sentinel row and two sentinels
 MAX_TABLE = 66
 # the kernel runs one CTA of at most 512 threads per pair, each thread
-# holding at most 16 slots in registers
-MAX_WP_CUDA = 16 * 512
+# holding at most 16 slots in registers; wider slot rows go to its wide
+# variant, which keeps them in a global scratch of 7 rows per pair
+MAX_WP_REGISTERS = 16 * 512
 
 
 def n_state(mode: str) -> int:
@@ -284,7 +286,9 @@ def band_fill(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *, k0: int,
     """Fill diagonals [k0, k1) of every pair; see the module docstring.
     ``state`` and ``score`` are not modified.  A CPU tensor runs
     ``band_fill_ref``; a CUDA tensor the kernel.  A call with ``bh``
-    counts under ``band_fill/relay`` (fill) or ``band_fill/relay_ptr``."""
+    counts under ``band_fill/relay`` (fill) or ``band_fill/relay_ptr``; one
+    with Wp > ``MAX_WP_REGISTERS`` (the kernel's wide variant) under
+    ``band_fill/wide``, ``band_fill/wide_ptr`` or ``band_fill/wide_emode``."""
     qk, tk, state, score, tab = (x.contiguous() for x in (qk, tk, state, score, tab))
     vecs = [v.to(torch.int32).contiguous() for v in (qlen, tlen, dlo_p, dhi_p)]
     if bh is not None and bf is not None:
@@ -299,9 +303,7 @@ def band_fill(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *, k0: int,
     if qk.device.type != "cuda":
         raise ValueError(f"band_fill: unsupported device {qk.device}")
     B, Wp = score.shape
-    if Wp > MAX_WP_CUDA:
-        raise ValueError(f"band_fill: the CUDA kernel takes Wp <= {MAX_WP_CUDA}, got {Wp}")
-    from .._build import check, current_stream, lib
+    from .._build import launch
 
     dev = qk.device
     # the kernel updates state and score in place: work on copies
@@ -319,9 +321,10 @@ def band_fill(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *, k0: int,
                                         dtype=torch.int32, device=dev)
     if B == 0 or k1 == k0:
         return out
-    stream = current_stream(dev)
-    rc = lib().seqalib_band_fill(
-        qk.data_ptr(), qk.shape[1], tk.data_ptr(), tk.shape[1],
+    wide = Wp > MAX_WP_REGISTERS
+    scratch = torch.empty((B, 7, Wp), dtype=torch.int32, device=dev) if wide else None
+    launch(
+        "band_fill", dev, "seqalib_band_fill", qk.data_ptr(), qk.shape[1], tk.data_ptr(), tk.shape[1],
         *(v.data_ptr() for v in vecs), tab.data_ptr(), tab.shape[0], B, Wp,
         k0, k1, K, dhi, gap_open, gap_extend, MODES[mode], CK, int(tie_safe), smax,
         out["state"].data_ptr(), out["score"].data_ptr(),
@@ -331,11 +334,18 @@ def band_fill(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *, k0: int,
         bf.data_ptr() if bh is not None else None,
         bh.shape[1] if bh is not None else 0,
         bout.data_ptr() if bout is not None else None,
-        bout.shape[2] if bout is not None else 0, bout_row, stream,
+        bout.shape[2] if bout is not None else 0, bout_row,
+        scratch.data_ptr() if wide else None,
     )
-    check("band_fill", rc)
-    if bh is not None:
-        launches["band_fill/relay" if mode == "fill" else "band_fill/relay_ptr"] += 1
-    else:
-        launches[f"band_fill/{mode}"] += 1
+    launches[launch_key(mode, bh is not None, Wp)] += 1
     return out
+
+
+def launch_key(mode: str, relay: bool, Wp: int) -> str:
+    """The ``launches`` key of a CUDA ``band_fill`` call: the wide variant
+    (Wp > ``MAX_WP_REGISTERS``) by mode, resumed blocks under ``relay``."""
+    if Wp > MAX_WP_REGISTERS:
+        return "band_fill/wide" + ("" if mode == "fill" else f"_{mode}")
+    if relay:
+        return "band_fill/relay" if mode == "fill" else "band_fill/relay_ptr"
+    return f"band_fill/{mode}"

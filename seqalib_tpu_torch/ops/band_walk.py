@@ -16,7 +16,9 @@ next (lower) super-block resumes from.
 ``i_floor``: before the read on every diagonal of the block, a walker on a
 row ``<= i_floor`` is marked done (banded sequence parallelism: local row
 0 is the block above's last row, whose pointers are never read).  The
-default -1 never stops a walker.  Kernel: ``csrc/band_walk.cu``.
+default -1 never stops a walker.  Kernel: ``csrc/band_walk.cu`` (a CTA
+per pair: one thread walks, the others stage the band bytes it reads
+next in shared memory).
 """
 
 from __future__ import annotations
@@ -97,17 +99,16 @@ def band_walk(ptr, i, j, st, done, *, k0: int, dhi: int, i_floor: int = -1):
         return band_walk_ref(ptr, *state, k0=k0, dhi=dhi, i_floor=i_floor)
     if ptr.device.type != "cuda":
         raise ValueError(f"band_walk: unsupported device {ptr.device}")
-    from .._build import check, current_stream, lib
+    from .._build import launch
 
     KW2, B, Wp = ptr.shape
     ops = torch.empty((B, 2 * KW2), dtype=torch.uint8, device=ptr.device)
     if B == 0 or KW2 == 0:
         return (ops.fill_(OP_PAD), *state)
-    stream = current_stream(ptr.device)
-    rc = lib().seqalib_band_walk(
+    launch(
+        "band_walk", ptr.device, "seqalib_band_walk",
         ptr.data_ptr(), 2 * KW2, B, Wp, k0, dhi, i_floor,
-        *(v.data_ptr() for v in state), ops.data_ptr(), stream,
+        *(v.data_ptr() for v in state), ops.data_ptr(),
     )
-    check("band_walk", rc)
     launches["band_walk/floor" if i_floor >= 0 else "band_walk"] += 1
     return (ops, *state)

@@ -115,11 +115,10 @@ def _launch(src, starts, hi, L, lo, fill, reverse, err):
     out = torch.empty(N, L, dtype=torch.int32, device=src.device)
     if N == 0:
         return out
-    rc = _build.lib().seqalib_row_window(
+    _build.launch(
+        "row_window", src.device, "seqalib_row_window",
         src.data_ptr(), N, W, starts.data_ptr(), hi.data_ptr(), out.data_ptr(), L, lo,
         fill, reverse, None if err is None else err.data_ptr(),
-        _build.current_stream(src.device),
     )
-    _build.check("row_window", rc)
     launches["row_window"] += 1
     return out

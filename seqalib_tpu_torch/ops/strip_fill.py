@@ -177,7 +177,7 @@ def strip_fill(q, t2, qlen, tlen, tables: Tables, *, mq: int, mode: str,
                               want_ptr=want_ptr)
     if q.device.type != "cuda":
         raise ValueError(f"strip_fill: unsupported device {q.device}")
-    from .._build import check, current_stream, lib
+    from .._build import launch
 
     dev = q.device
     B, nw = q.shape
@@ -194,13 +194,11 @@ def strip_fill(q, t2, qlen, tlen, tables: Tables, *, mq: int, mode: str,
     hrow = torch.empty((B, W), dtype=torch.int32, device=dev)
     frow = torch.empty_like(hrow) if tables.affine else hrow
     table = tables.table.to(torch.int32).contiguous()
-    stream = current_stream(dev)
-    rc = lib().seqalib_strip_fill(
-        q.data_ptr(), nw, t2.data_ptr(), W, qlen.data_ptr(), tlen.data_ptr(),
+    launch(
+        "strip_fill", dev, "seqalib_strip_fill", q.data_ptr(), nw, t2.data_ptr(), W, qlen.data_ptr(), tlen.data_ptr(),
         table.data_ptr(), tables.A1, B, mq, tables.gap_open, tables.gap_extend,
         int(tables.affine), MODES[mode], hrow.data_ptr(), frow.data_ptr(),
-        P.data_ptr() if want_ptr else None, bv.data_ptr(), bk.data_ptr(), stream,
+        P.data_ptr() if want_ptr else None, bv.data_ptr(), bk.data_ptr(),
     )
-    check("strip_fill", rc)
     launches[f"strip_fill/{mode}"] += 1
     return out

@@ -85,17 +85,16 @@ def strip_walk(P, i, j, st, done, *, affine: bool):
         return strip_walk_ref(P, *state, affine=affine)
     if P.device.type != "cuda":
         raise ValueError(f"strip_walk: unsupported device {P.device}")
-    from .._build import check, current_stream, lib
+    from .._build import launch
 
     B, R, C = P.shape
     ops = torch.full((B, R + C), OP_PAD, dtype=torch.uint8, device=P.device)
     if B == 0:
         return (ops, *state)
-    stream = current_stream(P.device)
-    rc = lib().seqalib_strip_walk(
+    launch(
+        "strip_walk", P.device, "seqalib_strip_walk",
         P.data_ptr(), R, C, *(v.data_ptr() for v in state), ops.data_ptr(),
-        R + C, B, int(affine), stream,
+        R + C, B, int(affine),
     )
-    check("strip_walk", rc)
     launches["strip_walk"] += 1
     return (ops, *state)

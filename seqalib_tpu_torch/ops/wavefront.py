@@ -162,7 +162,7 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: in
         return wavefront_fill_ref(qpad, tk, qlen, tlen, tab, **kw)
     if qpad.device.type != "cuda":
         raise ValueError(f"wavefront_fill: unsupported device {qpad.device}")
-    from .._build import check, current_stream, lib
+    from .._build import launch
 
     dev = qpad.device
     B, Np = qpad.shape
@@ -175,14 +175,12 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: in
         rows = torch.empty((B, 6, Np), dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    stream = current_stream(dev)
-    rc = lib().seqalib_wavefront_fill(
-        qpad.data_ptr(), Np, tk.data_ptr(), tk.shape[1], qlen.data_ptr(),
+    launch(
+        "wavefront_fill", dev, "seqalib_wavefront_fill", qpad.data_ptr(), Np, tk.data_ptr(), tk.shape[1], qlen.data_ptr(),
         tlen.data_ptr(), tab.data_ptr(), NT, B, K, band, gap_open, gap_extend,
         out["score"].data_ptr(), ptr.data_ptr() if ptr is not None else None,
-        rows.data_ptr() if rows is not None else None, stream,
+        rows.data_ptr() if rows is not None else None,
     )
-    check("wavefront_fill", rc)
     launches["wavefront_fill/" + ("ptr" if want_ptr else "score")] += 1
     return out
 

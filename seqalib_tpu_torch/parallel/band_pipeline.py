@@ -8,11 +8,18 @@ dependency on another block is its top boundary (H and F of the row
 above, for its columns), produced by block ``d - 1`` one step earlier;
 its left boundary (H and E of one column) is the block's own, carried
 from its previous tile.  The mesh is an ordered tuple of ``torch.device``
-entries (``make_band_mesh``); one process walks the steps, launches every
-active block's tile (``ops.sp_tile``) on that block's device, then moves
-each block's outgoing packet ``[corner, bottom H, bottom F]`` to the next
-block's device.  This is the single-controller counterpart of the JAX
-``shard_map`` + ``ppermute``; a mesh may name one device several times.
+entries (``make_band_mesh``); a mesh may name one device several times.
+
+* Where every entry names one device, the fill runs block by block: one
+  ``ops.sp_tile_run`` launch computes a block's whole row of tiles (the
+  kernel pipelines its row strips across the card's SMs), and its bottom
+  row is the next block's top.  At a mesh of one entry a fill is one
+  launch.
+* Across distinct devices, one process walks the pipeline steps, launches
+  every active block's tile (a run of one) on that block's device, then
+  moves each block's outgoing packet ``[corner, bottom H, bottom F]`` to
+  the next block's device: the single-controller counterpart of the JAX
+  ``shard_map`` + ``ppermute``.
 
 Geometry: R = ceil(n / D) for every tile body (the JAX XLA body's rule;
 the JAX Pallas body rounds R up to its 128-row strips, which changes no
@@ -21,10 +28,12 @@ score or CIGAR).  The query is padded with letter 0, the target with
 rows and columns never feed cell (n, m).
 
 ``nw_affine_align_sp`` keeps, for every tile, the boundary it was computed
-from, and walks back from (n, m), recomputing each tile the path visits as
-a pointer tile on its block's device and holding one tile's pointers at a
-time (the walk never returns to a tile it has left): R x C bytes, of which
-only the rows the walk can reach are copied to the host.
+from, and walks back from (n, m).  Entering a tile it has no pointers for,
+it recomputes in one launch (``ops.sp_tile_ptr``) that tile and the tiles
+to its left in the same block, as many as ``PTR_BATCH_BYTES`` allows, on
+the rows above the entry cell only (the walk never goes down), and copies
+those rows to the host.  The walk never returns to a tile it has left;
+tiles it skips by going up a block are dropped.
 """
 
 from __future__ import annotations
@@ -34,11 +43,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops.sp_tile import NEG, ptr_index, sp_tile
+from ..ops.sp_tile import NEG, ptr_index, sp_tile_ptr, sp_tile_run
 from ..types import PTR_DIAG, PTR_LEFT, PTR_UP, AlignResult
 from ..utils.cigar import OP_D, OP_I, OP_M, ops_to_cigar
 
 Mesh = Tuple[torch.device, ...]
+# pointer bytes (tiles x rows x C) one recompute launch of the walk may make
+PTR_BATCH_BYTES = 64 * 1024**2
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -93,36 +104,59 @@ def _sp_fill(q, t, sp, mesh: Mesh, C, sp_sub, want_tb, local=False):
     ecols = [torch.full((R,), NEG, dtype=torch.int32, device=dev) for dev in mesh]
     caps = [torch.full((1,), NEG, dtype=torch.int32, device=dev) for dev in mesh]
 
-    def init_top(j0, dev):
-        # DP row 0: global H(0, j) = o + j*e (H(0, 0) = 0), local 0; F = -inf;
-        # built on the device, so that the host never waits for the queue
-        jc = torch.arange(j0, j0 + C + 1, dtype=torch.int32, device=dev)
+    def init_top(j0, W, dev):
+        # DP row 0 at columns j0 .. j0 + W: global H(0, j) = o + j*e (H(0, 0)
+        # = 0), local 0; F = -inf; built on the device, so that the host
+        # never waits for the queue
+        jc = torch.arange(j0, j0 + W + 1, dtype=torch.int32, device=dev)
         h = torch.zeros_like(jc) if local else torch.where(jc == 0, 0, o + jc * e)
-        return h, torch.full((C,), NEG, dtype=torch.int32, device=dev)
+        return h, torch.full((W,), NEG, dtype=torch.int32, device=dev)
 
     ckpt = {}
-    pkts = [None] * D  # the packet each block takes at this step
-    for s in range(n_tiles + D - 1):
-        nxt = [None] * D
-        for d, dev in enumerate(mesh):
-            tt = s - d
-            if not 0 <= tt < n_tiles:  # pipeline fill / drain: no tile
-                continue
-            j0 = tt * C
-            h_top, f_top = init_top(j0, dev) if d == 0 else pkts[d]
+    if _one_device(mesh):  # block by block, each block's tiles in one run
+        W = n_tiles * C
+        pkt = init_top(0, W, mesh[0])
+        for d in range(D):
+            h_top, f_top = pkt
+            out = sp_tile_run(qbs[d], tks[d], h_top, f_top, hcols[d], ecols[d], caps[d],
+                              tabs[d], i0=d * R, j0=0, want_cols=want_tb, **kw)
             if want_tb:
-                ckpt[(d, tt)] = (h_top, f_top, hcols[d], ecols[d])
-            out = sp_tile(qbs[d], tks[d][j0: j0 + C + 1], h_top, f_top, hcols[d],
-                          ecols[d], caps[d], tabs[d], i0=d * R, j0=j0, **kw)
-            if d + 1 < D:  # corner H(i0 + R, j0), then the bottom rows
-                nd = mesh[d + 1]
-                nxt[d + 1] = (torch.cat([hcols[d][R - 1:], out["hbot"]]).to(nd),
-                              out["fbot"].to(nd))
-            hcols[d], ecols[d], caps[d] = out["hcol"], out["ecol"], out["cap"]
-        pkts = nxt
+                for tt in range(n_tiles):
+                    x = tt * C
+                    left = ((hcols[d], ecols[d]) if tt == 0 else
+                            (out["hcols"][tt - 1], out["ecols"][tt - 1]))
+                    ckpt[(d, tt)] = (h_top[x: x + C + 1], f_top[x: x + C], *left)
+            # the next block's top: corner H(i0 + R, 0), then the bottom rows
+            pkt = (torch.cat([hcols[d][R - 1:], out["hbot"]]), out["fbot"])
+            caps[d] = out["cap"]
+    else:
+        pkts = [None] * D  # the packet each block takes at this step
+        for s in range(n_tiles + D - 1):
+            nxt = [None] * D
+            for d, dev in enumerate(mesh):
+                tt = s - d
+                if not 0 <= tt < n_tiles:  # pipeline fill / drain: no tile
+                    continue
+                j0 = tt * C
+                h_top, f_top = init_top(j0, C, dev) if d == 0 else pkts[d]
+                if want_tb:
+                    ckpt[(d, tt)] = (h_top, f_top, hcols[d], ecols[d])
+                out = sp_tile_run(qbs[d], tks[d][j0: j0 + C + 1], h_top, f_top, hcols[d],
+                                  ecols[d], caps[d], tabs[d], i0=d * R, j0=j0, **kw)
+                if d + 1 < D:  # corner H(i0 + R, j0), then the bottom rows
+                    nd = mesh[d + 1]
+                    nxt[d + 1] = (torch.cat([hcols[d][R - 1:], out["hbot"]]).to(nd),
+                                  out["fbot"].to(nd))
+                hcols[d], ecols[d], caps[d] = out["hcol"], out["ecol"], out["cap"]
+            pkts = nxt
     score = max(int(c) for c in caps)
     geom = dict(R=R, C=C, qb=qbs, tk=tks, tab=tabs, kw=kw)
     return (score, geom, ckpt) if want_tb else (score, geom)
+
+
+def _one_device(mesh: Mesh) -> bool:
+    """Whether every entry of the mesh names the same device."""
+    return len(set(mesh)) == 1
 
 
 def nw_affine_score_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None) -> int:
@@ -148,20 +182,26 @@ def sw_affine_score_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None) -
     return max(0, score)
 
 
-def _ptr_rows(geom, ckpt, d, tt, rows):
-    """Block d's tile tt recomputed from its boundaries as a pointer tile,
-    on the block's device, and the bytes of its first ``rows`` rows copied
-    to the host as a (C, rows) array, read through ``ptr_index``.  (The
-    JAX package caches a jitted function for the recompute; eager PyTorch
-    needs no cache.)"""
-    h_top, f_top, hcol, ecol = ckpt[(d, tt)]
-    C, j0 = geom["C"], tt * geom["C"]
+def _ptr_tiles(geom, ckpt, d, tt, rows):
+    """Block d's tiles tt, tt - 1, ... (as many as ``PTR_BATCH_BYTES`` takes)
+    recomputed from their boundaries as pointer tiles in one launch on the
+    block's device, on their first ``rows`` rows, and copied to the host:
+    {tile: (C, rows) array read through ``ptr_index``}.  (The JAX package
+    caches a jitted function for the recompute; eager PyTorch needs no
+    cache.)"""
+    C, R = geom["C"], geom["R"]
+    K = max(1, min(tt + 1, PTR_BATCH_BYTES // (rows * C)))
+    tiles = [ckpt[(d, tt - g)] for g in range(K)]
+    htop, ftop, hcol, ecol = (torch.stack([b[x] if x < 2 else b[x][:rows] for b in tiles])
+                              for x in range(4))
     dev = hcol.device
     cap = torch.full((1,), NEG, dtype=torch.int32, device=dev)
-    kw = dict(geom["kw"], mode="ptr", n=0, m=0)
-    P = sp_tile(geom["qb"][d], geom["tk"][d][j0: j0 + C + 1], h_top, f_top, hcol, ecol,
-                cap, geom["tab"][d], i0=d * geom["R"], j0=j0, **kw)["ptr"]
-    return P[:, :rows].cpu().numpy()
+    kw = {k: v for k, v in geom["kw"].items() if k != "mode"}
+    lo = (tt - K + 1) * C
+    P = sp_tile_ptr(geom["qb"][d][:rows], geom["tk"][d][lo: (tt + 1) * C + 1], htop, ftop,
+                    hcol, ecol, cap, geom["tab"][d], i0=d * R, j0=tt * C,
+                    **dict(kw, n=0, m=0))["ptr"].cpu().numpy()
+    return {tt - g: P[g] for g in range(K)}
 
 
 def _rescore_global_affine(q, t, ops, sp) -> int:
@@ -208,6 +248,7 @@ def nw_affine_align_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None):
     R = geom["R"]
     ops: list = []
     i, j, state = n, m, "H"
+    tiles = {}  # the pointer tiles of the last recompute, by (block, tile)
     while True:
         if i == 0:
             ops.extend([OP_D] * j)
@@ -217,8 +258,9 @@ def nw_affine_align_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None):
             break
         d, tt = (i - 1) // R, (j - 1) // C
         i0, j0 = d * R, tt * C
-        # only rows up to the entry cell can be visited
-        P = _ptr_rows(geom, ckpt, d, tt, i - i0)
+        if (d, tt) not in tiles:  # only rows up to the entry cell can be visited
+            tiles = {(d, x): P for x, P in _ptr_tiles(geom, ckpt, d, tt, i - i0).items()}
+        P = tiles[(d, tt)]
         while i > i0 and j > j0:
             byte = int(P[ptr_index(i - i0 - 1, j - j0, C)])
             if state == "H":

@@ -5,7 +5,12 @@ of ``seqalib_tpu_torch`` (plain tile on the CPU, meshes of 1, 2 and 8
 8-device CPU mesh, with both tile bodies (``xla``, and ``pallas`` in
 interpret mode where it applies), and against the oracle.  Exact equality
 of scores and of ``str(AlignResult)``.  The shapes are those of
-``tests/test_band_pipeline.py``.
+``tests/test_band_pipeline.py``.  A mesh of ``"cpu"`` entries names one
+device, so the fill runs block by block; the per-step pipeline that
+distinct devices take is forced on such meshes as well, and the walk's
+pointer recompute is run with its byte budget cut to one tile a launch and
+to a few.  The JAX results are computed once per case (``lru_cache``) and
+shared by every mesh and variant of it.
 """
 
 import functools
@@ -119,12 +124,18 @@ LOCAL_CASES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_local(name):
+    q, t, C = LOCAL_CASES[name]
+    return jbp.sw_affine_score_sp(q, t, JSP, _jax_mesh(), C=C), sw_affine(q, t, JSP).score
+
+
 @pytest.mark.parametrize("D", MESHES)
 @pytest.mark.parametrize("name", sorted(LOCAL_CASES))
 def test_local_score_sp_matches_jax_and_oracle(name, D):
     q, t, C = LOCAL_CASES[name]
-    want = sw_affine(q, t, JSP).score
-    assert jbp.sw_affine_score_sp(q, t, JSP, _jax_mesh(), C=C) == want
+    jax_score, want = _jax_local(name)
+    assert jax_score == want
     assert st.align_score_sp(q, t, _psp(JSP), _mesh(D), mode="local", C=C) == want
 
 
@@ -197,3 +208,65 @@ def test_make_band_mesh():
 def test_rescore_rejects_a_cigar_that_does_not_consume():
     with pytest.raises(RuntimeError, match="consume"):
         pbp._rescore_global_affine(np.zeros(3), np.zeros(3), [0, 0], _psp(JSP))
+
+
+@pytest.mark.parametrize("D", [2, 8])
+@pytest.mark.parametrize("name", ["300x280_C64", "blosum62_150x190"])
+def test_per_step_pipeline_matches_jax_and_oracle(name, D, monkeypatch):
+    """The pipeline of distinct devices (one tile a launch per block and
+    step, packets handed down) on meshes of one device."""
+    monkeypatch.setattr(pbp, "_one_device", lambda mesh: False)
+    q, t, jsp, C, _, sub = SCORE_CASES[name]
+    _, oracle = _jax_score(name)
+    assert st.align_score_sp(q, t, _psp(jsp), _mesh(D), C=C, sp_sub=sub) == oracle
+    if name in LOCAL_CASES:
+        q, t, C = LOCAL_CASES[name]
+        want = _jax_local(name)[1]
+    else:
+        want = sw_affine(q, t, JSP).score
+    assert st.align_score_sp(q, t, _psp(JSP), _mesh(D), mode="local", C=C) == want
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("name", ["400x520_C128", "gap_runs"])
+def test_per_step_pipeline_align_matches_jax_and_oracle(name, D, monkeypatch):
+    monkeypatch.setattr(pbp, "_one_device", lambda mesh: False)
+    q, t, jsp, C, _, sub = ALIGN_CASES[name]
+    jax_str, oracle = _jax_align(name)
+    assert str(st.align_sp(q, t, _psp(jsp), _mesh(D), C=C, sp_sub=sub)) == oracle == jax_str
+
+
+def _count_ptr_batches(monkeypatch):
+    """Record the tiles of every pointer recompute ``align_sp`` makes."""
+    calls = []
+    real = pbp.sp_tile_ptr
+
+    def counted(qb, tk, htop, *args, **kw):
+        calls.append(htop.shape[0])
+        return real(qb, tk, htop, *args, **kw)
+
+    monkeypatch.setattr(pbp, "sp_tile_ptr", counted)
+    return calls
+
+
+@pytest.mark.parametrize("D", [1, 2, 8])
+@pytest.mark.parametrize("name", ["400x520_C128", "blosum62_200x240"])
+def test_pointer_batches_give_the_same_alignment(name, D, monkeypatch):
+    """The walk's recompute with a budget of one tile a launch (K = 1) and
+    the default (K > 1): the same result, and batches make fewer launches
+    than tiles walked."""
+    q, t, jsp, C, _, sub = ALIGN_CASES[name]
+    jax_str, oracle = _jax_align(name)
+    calls = _count_ptr_batches(monkeypatch)
+    per_launch = {}
+    for budget in (1, pbp.PTR_BATCH_BYTES):
+        monkeypatch.setattr(pbp, "PTR_BATCH_BYTES", budget)
+        calls.clear()
+        assert str(st.align_sp(q, t, _psp(jsp), _mesh(D), C=C, sp_sub=sub)) == oracle
+        per_launch[budget] = list(calls)
+    walked = len(per_launch[1])  # one launch per tile the walk entered
+    assert set(per_launch[1]) == {1}
+    assert jax_str == oracle
+    if D < 8:  # a block the walk crosses several tiles of
+        assert max(per_launch[pbp.PTR_BATCH_BYTES]) >= 2
+        assert len(per_launch[pbp.PTR_BATCH_BYTES]) < walked

@@ -21,7 +21,8 @@ from seqalib_tpu_torch.ops import wavefront as wf_mod
 from seqalib_tpu_torch.ops.row_window import (NO_ERROR, error_words, raise_on_error,
                                               row_window, row_window_ref)
 from seqalib_tpu_torch.ops.sp_tile import NEG as SP_NEG
-from seqalib_tpu_torch.ops.sp_tile import sp_tile, sp_tile_ref
+from seqalib_tpu_torch.ops.sp_tile import (sp_tile, sp_tile_ptr, sp_tile_ptr_ref,
+                                           sp_tile_ref, sp_tile_run, sp_tile_run_ref)
 from seqalib_tpu_torch.ops.strip import prep_strip
 from seqalib_tpu_torch.ops.strip_fill import strip_fill, strip_fill_ref
 from seqalib_tpu_torch.ops.strip_walk import strip_walk, strip_walk_ref
@@ -177,19 +178,19 @@ def test_align_batch_on_cuda_matches_oracle(dev, mode, scoring):
 WPS = [128, 256, 384, 1152, 1001, 100]
 
 
-def _band_bucket(dev, scoring, B=21, band=9, CK=32, seed=2, Wp=None):
+def _band_bucket(dev, scoring, B=21, band=9, CK=32, seed=2, Wp=None, qmax=300):
     """A mixed-delta bucket laid out as ``banded_align_batch`` lays it out,
     filled by the plain version with checkpoints; ``Wp`` widens the slot
     rows past the geometry's (the extra slots are junk, held all the
     same)."""
     sp, alpha = SCORINGS[scoring]
     rng = np.random.default_rng(seed)
-    qlen = rng.integers(0, 300, size=B)
+    qlen = rng.integers(0, qmax, size=B)
     tlen = np.clip(qlen + rng.integers(-20, 21, size=B), 0, None)
     n, m = int(qlen.max()), int(tlen.max())
     qs = rng.integers(0, alpha, size=(B, n))
     ts = rng.integers(0, alpha, size=(B, m))
-    ts[:, 10:200] = qs[:, 14:204]
+    ts[:, 10:qmax * 2 // 3] = qs[:, 14:qmax * 2 // 3 + 4]
     deltas = tlen - qlen
     dlo_p, dhi_p = np.minimum(0, deltas) - band, np.maximum(0, deltas) + band
     dlo, dhi = int(dlo_p.min()), int(dhi_p.max())
@@ -454,3 +455,225 @@ def test_wide_table_align_batch_on_cuda_matches_oracle(dev):
     got = align_batch(qs, ts, scoring=psp, mode="global", band=24, device=dev)
     for q, t, r in zip(qs, ts, got):
         assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode="global", band=24))
+
+
+# the wide variant of band_fill (Wp > 8192): slot rows past the geometry's
+# (junk slots, held all the same), and a band that fills them
+WIDE_WPS = [8320, 16384]
+
+
+@pytest.mark.parametrize("Wp", WIDE_WPS + [None])
+@pytest.mark.parametrize("scoring", ["dna_affine", "blosum62_affine"])
+@pytest.mark.parametrize("mode", ["fill", "ptr", "emode", "relay", "relay_ptr"])
+def test_band_fill_wide_kernel_matches_plain_version(dev, scoring, mode, Wp):
+    """Every mode of the wide variant; Wp None: a band of 8 300 (Wp 8 448
+    from the geometry) over pairs of up to 600 letters."""
+    c = _band_bucket(dev, scoring, B=9, band=8300 if Wp is None else 64, Wp=Wp, qmax=600)
+    B, Wp = c["score"].shape
+    assert Wp > 8192
+    kw = dict(c["kw"])
+    state = c["state"]
+    if mode == "fill":
+        call = dict(k0=0, k1=c["Kp"], mode="fill", CK=c["CK"])
+    elif mode == "ptr":
+        cg = c["ckpt"].shape[0] // 2
+        call = dict(k0=cg * c["CK"], k1=c["Kp"], mode="ptr")
+        state = c["ckpt"][cg]
+    elif mode == "emode":
+        state = torch.cat([state, c["score"][None],
+                           torch.zeros((1, B, Wp), dtype=torch.int32, device=dev)])
+        call = dict(k0=0, k1=c["Kp"], mode="emode", tie_safe=True, smax=11)
+    else:
+        rng = np.random.default_rng(Wp)
+        bh = torch.as_tensor(-5 - 2 * np.arange(384) + rng.integers(-6, 7, size=(B, 384)),
+                             dtype=torch.int32, device=dev)
+        call = dict(k0=0, k1=c["Kp"], mode="fill" if mode == "relay" else "ptr", bh=bh,
+                    bf=bh - 3, want_bout=True, bout_row=60)
+    key = "band_fill/wide" + {"fill": "", "relay": "", "emode": "_emode"}.get(mode, "_ptr")
+    before = launches[key]
+    got = band_fill(*c["args"], state, c["score"], c["tab"], **call, **kw)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    _same(got, band_fill_ref(*c["args"], state, c["score"], c["tab"], **call, **kw))
+
+
+def test_config4_pair_with_a_delta_of_17000_aligns_on_cuda(dev):
+    """A 10 kb read against a 27 kb window at band 128: Wp 8 704, the wide
+    variant in fill and pointer modes; the CIGAR consumes the pair,
+    re-scores to the score, which the SP fill gives as well."""
+    from seqalib_tpu_torch import align_score_sp
+
+    sp = scoring_params(2, -3, -5, -2, None)
+    rng = np.random.default_rng(17)
+    t = rng.integers(0, 4, 27_000).astype(np.uint8)
+    q = t[8_000:18_000].copy()
+    idx = rng.choice(len(q), 200, replace=False)
+    q[idx] = (q[idx] + 1) % 4
+    before = launches["band_fill/wide"], launches["band_fill/wide_ptr"]
+    r = align_batch([q], [t], scoring=sp, mode="global", band=128, device=dev)[0]
+    assert launches["band_fill/wide"] > before[0]
+    assert launches["band_fill/wide_ptr"] > before[1]
+    i = j = score = 0
+    for n, op in _runs(r.cigar):
+        if op == "M":
+            score += int(np.where(q[i: i + n] == t[j: j + n], 2, -3).sum())
+            i, j = i + n, j + n
+        else:
+            score += -5 - 2 * n
+            i, j = (i + n, j) if op == "I" else (i, j + n)
+    assert (i, j) == (len(q), len(t)) and score == r.score
+    assert r.score == align_score_sp(q.astype(np.int32), t.astype(np.int32), sp, (dev,),
+                                     C=256)
+
+
+def _runs(cigar):
+    import re
+
+    return [(int(n), op) for n, op in re.findall(r"(\d+)([MID])", cigar)]
+
+
+def _run_args(dev, scoring, R, W, C, seed=6):
+    """A run's (or a pointer batch's) letters and random boundaries."""
+    sp, alpha = SCORINGS[scoring]
+    rng = np.random.default_rng(seed)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    qb = rng.integers(0, alpha, R)
+    tk = rng.integers(0, alpha, W + 1)
+    n = min(W, R) // 2
+    tk[1: n] = qb[3: n + 2]
+    htop = np.abs(rng.integers(-60, 40, W + 1))
+    hcol = np.abs(rng.integers(-60, 40, R))
+    tab = as_t(sp.substitution_matrix()) if sp.matrix is not None else None
+    kw = dict(match=sp.match, mismatch=sp.mismatch, gap_open=sp.gap_open,
+              gap_extend=sp.gap_extend)
+    return qb, tk, htop, hcol, tab, kw, as_t
+
+
+# (R, T, C, strip): ragged last strips, R under one strip, one tile
+RUN_SHAPES = [(400, 3, 96, 0), (400, 3, 53, 128), (1000, 5, 64, 256), (37, 2, 40, 0),
+              (300, 1, 96, 64), (2100, 4, 128, 32)]
+
+
+@pytest.mark.parametrize("shape", RUN_SHAPES)
+@pytest.mark.parametrize("scoring", ["dna_affine", "blosum62_affine"])
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_sp_tile_run_kernel_matches_plain_version(dev, mode, scoring, shape):
+    R, T, C, strip = shape
+    W = T * C
+    qb, tk, htop, hcol, tab, kw, as_t = _run_args(dev, scoring, R, W, C)
+    args = [as_t(qb), as_t(tk), as_t(htop), as_t(htop[1:] - 3), as_t(hcol),
+            as_t(hcol - 5), as_t([SP_NEG]), tab]
+    # (n, m) inside the last tile, short of its right column: a ragged tile
+    kw.update(i0=300, j0=64, n=300 + R - 7, m=64 + W - C // 3, C=C, mode=mode)
+    key = f"sp_tile/{mode}" if T == 1 else f"sp_tile/run_{mode}"
+    for want_cols in (True, False):
+        before = launches[key]
+        got = sp_tile_run(*args, strip=strip, want_cols=want_cols, **kw)
+        torch.cuda.synchronize()
+        assert launches[key] == before + 1
+        _same(got, sp_tile_run_ref(*args, want_cols=want_cols, **kw))
+
+
+# (rows, K, C, strip)
+PTR_SHAPES = [(400, 3, 96, 0), (250, 4, 53, 64), (1000, 2, 128, 256), (33, 1, 40, 0),
+              (700, 6, 64, 32)]
+
+
+@pytest.mark.parametrize("shape", PTR_SHAPES)
+@pytest.mark.parametrize("scoring", ["dna_affine", "blosum62_affine"])
+def test_sp_tile_ptr_kernel_matches_plain_version(dev, scoring, shape):
+    rows, K, C, strip = shape
+    qb, tk, _, _, tab, kw, as_t = _run_args(dev, scoring, rows, K * C, C, seed=8)
+    rng = np.random.default_rng(K)
+    htop = np.abs(rng.integers(-60, 40, (K, C + 1)))
+    hcol = np.abs(rng.integers(-60, 40, (K, rows)))
+    args = [as_t(qb), as_t(tk), as_t(htop), as_t(htop[:, 1:] - 3), as_t(hcol),
+            as_t(hcol - 5), as_t([SP_NEG]), tab]
+    kw.update(i0=300, j0=64 + (K - 1) * C, n=0, m=0, C=C)
+    key = "sp_tile/ptr" if K == 1 else "sp_tile/ptr_batch"
+    before = launches[key]
+    got = sp_tile_ptr(*args, strip=strip, **kw)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    want = sp_tile_ptr_ref(*args, **kw)
+    _same(got, want)
+    assert len(np.unique(want["ptr"].cpu().numpy() & 3)) == 3  # diag, up and left
+
+
+@pytest.mark.parametrize("band", [9, 600])  # Wp 128 and 640: the walk's staged window moves
+@pytest.mark.parametrize("scoring", sorted(SCORINGS))
+def test_band_walk_kernel_matches_plain_version_across_windows(dev, scoring, band):
+    c = _band_bucket(dev, scoring, seed=5, band=band, qmax=900, CK=64)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    state = [as_t(c["qlen"]), as_t(c["tlen"]), as_t(np.zeros(len(c["qlen"]))),
+             as_t(np.zeros(len(c["qlen"])))]
+    NC = c["ckpt"].shape[0]
+    for cg in range((NC - 1) // 3 * 3, -1, -3):  # super-blocks of three chunks
+        ptr = band_fill_ref(*c["args"], c["ckpt"][cg], c["score"], c["tab"],
+                            k0=cg * c["CK"], k1=min(cg + 3, NC) * c["CK"], mode="ptr",
+                            **c["kw"])["ptr"]
+        got = band_walk(ptr, *state, k0=cg * c["CK"], dhi=c["dhi"])
+        want = band_walk_ref(ptr, *state, k0=cg * c["CK"], dhi=c["dhi"])
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+        state = list(got[1:])
+    assert bool((state[0] == 0).all() and (state[1] == 0).all())  # every walk ends at (0, 0)
+
+
+@pytest.mark.parametrize("i_floor", [-1, 0, 150])
+def test_band_walk_with_one_live_pair_of_eight(dev, i_floor):
+    """Banded SP's relay group: one pair walks, seven are done; the done
+    ones keep their state and get no op."""
+    c = _band_bucket(dev, "dna_affine", B=8, seed=9, band=40, qmax=600, CK=64)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    live = int(np.argmax(c["qlen"]))
+    done = np.ones(8)
+    done[live] = 0
+    state = [as_t(c["qlen"]), as_t(c["tlen"]), as_t(np.zeros(8)), as_t(done)]
+    NC = c["ckpt"].shape[0]
+    for cg in range((NC - 1) // 2 * 2, -1, -2):
+        ptr = band_fill_ref(*c["args"], c["ckpt"][cg], c["score"], c["tab"],
+                            k0=cg * c["CK"], k1=min(cg + 2, NC) * c["CK"], mode="ptr",
+                            **c["kw"])["ptr"]
+        before = launches["band_walk/floor" if i_floor >= 0 else "band_walk"]
+        got = band_walk(ptr, *state, k0=cg * c["CK"], dhi=c["dhi"], i_floor=i_floor)
+        torch.cuda.synchronize()
+        assert launches["band_walk/floor" if i_floor >= 0 else "band_walk"] == before + 1
+        want = band_walk_ref(ptr, *state, k0=cg * c["CK"], dhi=c["dhi"], i_floor=i_floor)
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+        assert bool((got[0][torch.arange(8, device=dev) != live] == 255).all())
+        state = list(got[1:])
+    assert int(state[0][live]) == max(i_floor, 0)
+
+
+def test_kernels_launch_on_their_tensors_device():
+    """With cuda:0 current, every path on cuda:1 launches there (each
+    wrapper makes its tensors' device current for the launch) and leaves
+    cuda:0 current."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a launch for cuda:1 while cuda:0 is current")
+    from seqalib_tpu.oracle import nw_affine
+    from seqalib_tpu_torch import align_score_banded_sp, align_score_sp, align_sp
+
+    one = torch.device("cuda:1")
+    torch.cuda.set_device(0)
+    sp, alpha = SCORINGS["blosum62_affine"]
+    rng = np.random.default_rng(21)
+    qs = [rng.integers(0, alpha, size=rng.integers(1, 300)).astype(np.uint8)
+          for _ in range(12)]
+    ts = [np.concatenate([q[3:], rng.integers(0, alpha, size=7)]).astype(np.uint8)
+          for q in qs]
+    for mode, band in (("local", None), ("global", None), ("global", 16)):
+        got = align_batch(qs, ts, scoring=sp, mode=mode, band=band, device=one)
+        for q, t, r in zip(qs, ts, got):
+            assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode=mode, band=band))
+    dna, _ = SCORINGS["dna_affine"]
+    psp = scoring_params(dna.match, dna.mismatch, dna.gap_open, dna.gap_extend, None)
+    q = rng.integers(0, 4, 600).astype(np.int32)
+    t = np.delete(q, np.arange(50, 70))
+    assert str(align_sp(q, t, psp, (one, one), C=128)) == str(nw_affine(q, t, dna))
+    assert align_score_sp(q, t, psp, (one,)) == nw_affine(q, t, dna).score
+    assert align_score_banded_sp([q], [t], psp, 40, (one,) * 2) == [
+        nw_affine(q, t, dna, band=40).score]
+    assert torch.cuda.current_device() == 0

@@ -11,8 +11,10 @@ pairs of 10 kb (the target is the query with 2% substitutions) aligned
 globally in a band of 128, match 2, mismatch -3, o=-5, e=-2, with full
 CIGARs.  ``sp`` is ``align_sp`` on one 10 240 x 8 192 DNA pair (the
 target is the query's first 8 192 letters with 150 substitutions; the
-config-4 scoring; tiles of 256 columns) over a mesh of one device
-(``--batch`` is ignored); ``wide`` is B=64 protein pairs of 1 000 letters
+config-4 scoring; tiles of 256 columns) over a mesh of one device, then
+``align_score_sp`` global and local on a 16 384 x 16 381 pair (2%
+substitutions, a 7-letter deletion, a 5-letter insertion, a 1-letter
+deletion; ``--batch`` is ignored); ``wide`` is B=64 protein pairs of 1 000 letters
 (5% substitutions, one deletion, one insertion) aligned globally in a
 band of 64 under 2 x BLOSUM62, o=-20, e=-2, with full CIGARs: the
 full-matrix wavefront route.  ``banded_sp`` is banded sequence
@@ -78,7 +80,15 @@ def inputs(config: str, batch: int):
         t = q[:8192].copy()
         idx = rng.choice(8192, 150, replace=False)
         t[idx] = (t[idx] + 1 + rng.integers(0, 3, 150)) % 4
-        return q, t, sp, "global"
+        L = 16_384
+        q16 = rng.integers(0, 4, L).astype(np.int32)
+        t16 = q16.copy()
+        idx = rng.choice(L, L // 50, replace=False)
+        t16[idx] = (t16[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
+        t16 = np.insert(np.delete(t16, np.arange(L // 4, L // 4 + 7)), L * 9 // 16,
+                        rng.integers(0, 4, 5))
+        t16 = np.delete(t16, [L * 13 // 16]).astype(np.int32)
+        return (q, q16), (t, t16), sp, "global"
     if config == "wide":
         sp = st.ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * st.BLOSUM62)
         qs, ts = [], []
@@ -202,7 +212,11 @@ def main() -> int:
     band = {"4": 128, "wide": 64, "banded_sp": 256}.get(args.config)
     if args.config == "sp":
         mesh = st.make_band_mesh([dev])
-        runs = [("sp", lambda: st.align_sp(qs, ts, sp, mesh, C=256))]
+        (q, q16), (t, t16) = qs, ts
+        runs = [("sp", lambda: st.align_sp(q, t, sp, mesh, C=256))]
+        runs += [(f"sp_score_{m}", lambda m=m: st.align_score_sp(q16, t16, sp, mesh, mode=m,
+                                                               C=256))
+                 for m in ("global", "local")]
     elif args.config == "banded_sp":
         mesh = st.make_band_mesh([dev] * 4)
         runs = [("banded_sp_score", lambda: st.align_score_banded_sp(qs, ts, sp, band, mesh)),
