@@ -71,7 +71,15 @@ Phases (any failure raises and exits non-zero):
    just before each path's runs (1 warm-up + 3 timed calls) and read just
    after.
 
-The kernel phase also holds the sequence-parallel tile kernel (``sp_tile``:
+The kernel phase prints the warps per pair of each ``strip_fill`` key, the
+window's ring of each ``wavefront_fill`` key and, under ``torch.profiler``,
+the device time of the two kernels a ``wavefront_fill/ptr`` call launches
+(the far pass, then the window), and holds, on shapes no
+path reaches, ``strip_fill/local`` on a ragged batch of 7 pairs (query
+lengths 1 to 1 029, a target of 17 letters) and ``wavefront_fill/ptr``
+with a band wider than the slots and with deltas of +-41 past a band of 8
+against their plain versions, every output exactly.  It also holds the
+sequence-parallel tile kernel (``sp_tile``:
 the runs of a block's tiles in global and local mode and the pointer
 batch, on their first 2048 rows and first 4 tiles (3 of a batch), with the
 whole call's time printed beside, and the one-tile launches of the
@@ -143,6 +151,13 @@ B7, L7, BAND7 = 64, 1000, 64
 BSP, LSP, BANDSP, DSP = 16, 100_000, 256, 4
 RELAY_CUT, WALK_CUT = 2048, 4096
 BSP_ORACLE_N, BSP_ORACLE_BAND, BSP_PROTEIN_N = 10, 32, 800
+# the edge checks of the redesigned fills: a ragged strip batch, and
+# wavefront fills of 300-letter pairs with a band over the slots (Np 384)
+# and with deltas past the band
+STRIP_EDGE_QLENS = (1, 31, 33, 257, 1000, 1029, 700)
+STRIP_EDGE_TLENS = (900, 1029, 1000, 17, 1029, 640, 20)
+WAVEFRONT_EDGES = (("band over the slots", 400, 7), ("delta past the band", 8, 41),
+                   ("delta past the band, negative", 8, -41))
 STRIP = "seqalib_tpu/ops/strip_pallas.py"
 BANDED = "seqalib_tpu/ops/banded_pallas.py"
 SPTILE = "seqalib_tpu/ops/sp_tile_pallas.py"
@@ -271,8 +286,8 @@ def bound(key, args, kw, out):
         d = tlen - qlen
         cells, _, _ = _band_cells(qlen, tlen, np.minimum(0, d) - kw["band"],
                                   np.maximum(0, d) + kw["band"], 0, kw["K"])
-        # the walk reads the in-band cells' bytes of the (K, B, Np) stream
-        nbytes = _nbytes(args) + _nbytes(out["score"]) + cells * ("ptr" in out)
+        # every byte of the (K, B, Np) pointer stream is the function's output
+        nbytes = _nbytes(args) + _nbytes(out)
     elif kw["mode"] == "emode":  # band_fill, pass 2: every slot of every diagonal
         score = args[7]
         cells = score.shape[0] * score.shape[1] * (kw["k1"] - kw["k0"])
@@ -401,7 +416,111 @@ def kernel_entry(key, fn, plain, args, kw):
         say(f"[kernel] {key}: Wp {args[6].shape[2]}, B {args[6].shape[1]}, "
             f"{kw['k1'] - kw['k0']} diagonals: {per_diagonal(kw, stats['ms']):.4f} µs "
             f"per anti-diagonal")
+    if key.startswith(("strip_fill/", "wavefront_fill/")):
+        say(f"[kernel] {key}: {layout(key, args, kw)}")
+    if key == "wavefront_fill/ptr":
+        split = kernel_split(lambda: fn(*args, **kw), ("wf_far_kernel", "wf_window_kernel"))
+        say(f"[kernel] {key}: 2 kernels per call, the far pass then the window: "
+            + ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f} ms'}"
+                        for k, v in split.items()))
     return dict(stats, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def kernel_split(fn, names, calls=5):
+    """Device ms per call of each kernel in ``names`` that one call of
+    ``fn`` launches, under ``torch.profiler`` (None where the trace shows
+    no device time for it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.name:
+                us[n] += e.time_range.end - e.time_range.start
+    return {n: (v / calls / 1e3 if v else None) for n, v in us.items()}
+
+
+def layout(key, args, kw):
+    """The launch shape the wrapper picks for a ``strip_fill`` or
+    ``wavefront_fill`` call: warps per pair, or the window's ring."""
+    if key.startswith("strip_fill/"):
+        from seqalib_tpu_torch.ops.strip_fill import strip_smem, strip_warps
+
+        q, t2, tables = args[0], args[1], args[4]
+        W = strip_warps(q.shape[1])
+        nbytes, letters, row = strip_smem(tables.A1, t2.shape[1], W)
+        return (f"B {q.shape[0]}, Nq {q.shape[1]}, {W} warps per pair, {nbytes} B shared "
+                f"(letters {'shared' if letters else 'global'}, wrap row "
+                f"{'shared' if row else 'global'})")
+    from seqalib_tpu_torch.ops.wavefront import window_ring, window_width
+
+    qpad, tk, qlen, tlen, tab = args
+    span = int((tlen.long() - qlen.long()).abs().max())
+    width = window_width(span, kw["band"], qpad.shape[1])
+    R, rows_in_smem = window_ring(width, tab.shape[0])
+    threads = min(1024, -(-min(R, qpad.shape[1]) // 32) * 32)
+    return (f"B {qpad.shape[0]}, Np {qpad.shape[1]}, K {kw['K']}, band {kw['band']}, "
+            f"max |delta| {span}: window {width} slots, {threads} threads per pair, "
+            f"ring R={R} ({'shared' if rows_in_smem else 'global'})")
+
+
+def edge_checks(sp3, sp7, dev):
+    """The redesigned fills on shapes the paths do not reach, held exactly
+    against their plain versions: ``strip_fill/local`` on a ragged batch
+    (query lengths around the strips and the warps' rounds, a target shorter
+    than a strip), ``wavefront_fill/ptr`` with a band wider than the slots
+    and with deltas past the band."""
+    import torch
+    from seqalib_tpu_torch.ops.strip import prep_strip
+    from seqalib_tpu_torch.ops.strip_fill import strip_fill, strip_fill_ref
+    from seqalib_tpu_torch.ops.wavefront import (wavefront_fill, wavefront_fill_ref,
+                                                 wavefront_inputs)
+    from seqalib_tpu_torch.scoring import tables_from_params
+
+    rng = np.random.default_rng(SEED + 7)
+    qlen = np.array(STRIP_EDGE_QLENS)
+    tlen = np.array(STRIP_EDGE_TLENS)
+    n, m = int(qlen.max()), int(tlen.max())
+    q = rng.integers(0, 20, size=(len(qlen), n))
+    t = rng.integers(0, 20, size=(len(qlen), m))
+    t[:, 100:600] = q[:, 90:590]
+    qpad, t2 = prep_strip(q, t, qlen, tlen, 21, dev)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)  # noqa: E731
+    tables = tables_from_params(sp3, dev)
+    args = (qpad, t2, as_t(qlen), as_t(tlen), tables)
+    kw = dict(mq=m, mode="local", want_ptr=False)
+    got = strip_fill(*args, **kw)
+    err = max_abs_err(got, strip_fill_ref(*args, **kw))
+    if err:
+        raise AssertionError(f"strip_fill/local, ragged batch: differs by {err}")
+    say(f"[edge] strip_fill/local on query lengths {qlen.tolist()}, target lengths "
+        f"{tlen.tolist()}: equal to the plain version; {layout('strip_fill/local', args, kw)}")
+    for name, band, delta in WAVEFRONT_EDGES:
+        qlen = rng.integers(200, 301, size=4)
+        qlen[0] = 300 - max(delta, 0)
+        tlen = np.clip(qlen + delta, 0, 300)
+        q = rng.integers(0, 20, size=(4, 300))
+        t = rng.integers(0, 20, size=(4, 300))
+        t[:, 10:150] = q[:, 12:152]
+        qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp7)
+        args = (as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab))
+        kw = dict(K=tk.shape[1], band=band, gap_open=sp7.gap_open,
+                  gap_extend=sp7.gap_extend, want_ptr=True)
+        got = wavefront_fill(*args, **kw)
+        err = max_abs_err(got, wavefront_fill_ref(*args, **kw))
+        if err:
+            raise AssertionError(f"wavefront_fill/ptr, {name}: differs by {err}")
+        say(f"[edge] wavefront_fill/ptr, {name}: every byte equal to the plain version; "
+            f"{layout('wavefront_fill/ptr', args, kw)}")
 
 
 def kernel_phase3(q, t, sp, dev):
@@ -1043,6 +1162,7 @@ def main() -> int:
     per_kernel.update(kernel_phase_sp(qsp, tsp, q16, t16, qo, to, sp4, dev))
     per_kernel.update(kernel_phase_wide(qs7, ts7, sp7, dev))
     per_kernel.update(kernel_phase_banded_sp(qsb, tsb, sp4, dev))
+    edge_checks(sp3, sp7, dev)
     n_checks = 100_000
     t0 = time.perf_counter()
     for _ in range(n_checks):

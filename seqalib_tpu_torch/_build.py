@@ -44,8 +44,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "seqalib_row_window": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "seqalib_strip_fill": [
-        _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _P, _P, _P, _P, _P, _P,
+        _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P,
     ],
     "seqalib_strip_walk": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "seqalib_band_fill": [
@@ -54,7 +54,8 @@ _SIGNATURES = {
     ],
     "seqalib_band_walk": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "seqalib_sp_run": [_P] * 7 + [_I] * 16 + [_P] * 4 + [_I] + [_P] * 6,
-    "seqalib_wavefront_fill": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P] * 4,
+    "seqalib_wavefront_fill": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P] * 2 + [_I]
+    + [_P] * 2,
 }
 
 _lib: ctypes.CDLL | None = None

@@ -19,7 +19,9 @@ H(qlen, tlen).  Outputs, over the valid box 1 <= i <= qlen, 1 <= j <= tlen:
   ``[:, i-1, j-1]``, bits 0-1 ``PTR_*`` (STOP where a local cell's best is
   <= 0), bit 2 E-extend, bit 3 F-extend; 0 outside the valid box.
 
-Kernel: ``csrc/strip_fill.cu``.
+Kernel: ``csrc/strip_fill.cu``: one CTA of ``strip_warps(Nq)`` warps per
+pair, warp w running strips w, w + W, ... of 32 rows, each strip's bottom
+row handed to the next through shared memory (``strip_smem`` sizes it).
 """
 
 from __future__ import annotations
@@ -35,6 +37,31 @@ MODES = {"local": 0, "emode": 1, "gmode": 2}
 # the kernel keeps the (letters + 2)^2 table (sentinel row and column
 # included) in shared memory
 MAX_LETTERS = 63
+MAX_WARPS = 8   # csrc/strip_fill.cu: kMaxWarps
+RING = 256      # csrc/strip_fill.cu: kRing, columns of a ring between warps
+# shared memory a CTA may take before the letters, then the wrap row, go to
+# global memory: four CTAs of this size fit on an H100 SM (227 KB)
+SMEM_BUDGET = 56 * 1024
+
+
+def strip_warps(nq: int) -> int:
+    """Warps per pair for a query width ``nq``: one per 32-row strip, at
+    most 8 (enough to hide a step's latencies at B >= 128 pairs)."""
+    return max(1, min(MAX_WARPS, -(-nq // 32)))
+
+
+def strip_smem(A1: int, t_width: int, warps: int) -> tuple[int, bool, bool]:
+    """(bytes, letters staged, wrap row in shared memory) of the kernel's
+    dynamic shared memory: the (warps - 1) rings of RING (H, F) columns,
+    the table, the counters and the reduction always; the target letters
+    (4 bytes a column) and the wrap row (8 bytes a column) while they fit
+    in SMEM_BUDGET, else they are read from and kept in global memory."""
+    base = 8 * (warps - 1) * RING + 4 * ((A1 + 1) ** 2 + 3 * MAX_WARPS)
+    letters = base + 4 * t_width <= SMEM_BUDGET
+    if letters:
+        base += 4 * t_width
+    row = base + 8 * t_width <= SMEM_BUDGET
+    return base + 8 * t_width * row, letters, row
 
 
 def _check(q, t2, qlen, tlen, tables: Tables, mode: str, want_ptr: bool):
@@ -166,7 +193,8 @@ def strip_fill_ref(q, t2, qlen, tlen, tables: Tables, *, mq: int, mode: str,
 def strip_fill(q, t2, qlen, tlen, tables: Tables, *, mq: int, mode: str,
                want_ptr: bool = False):
     """Fill every pair of the batch; see the module docstring.  A CPU
-    tensor runs ``strip_fill_ref``; a CUDA tensor the kernel."""
+    tensor runs ``strip_fill_ref``; a CUDA tensor the kernel, with
+    ``strip_warps(Nq)`` warps per pair."""
     q = q.contiguous()
     t2 = t2.contiguous()
     qlen = qlen.to(torch.int32).contiguous()
@@ -191,13 +219,15 @@ def strip_fill(q, t2, qlen, tlen, tables: Tables, *, mq: int, mode: str,
         out["P"] = P
     if B == 0:
         return out
-    hrow = torch.empty((B, W), dtype=torch.int32, device=dev)
-    frow = torch.empty_like(hrow) if tables.affine else hrow
+    nwarp = strip_warps(nw)
+    smem, letters, row_in_smem = strip_smem(tables.A1, W, nwarp)
+    rows = None if row_in_smem else torch.empty((B, W, 2), dtype=torch.int32, device=dev)
     table = tables.table.to(torch.int32).contiguous()
     launch(
-        "strip_fill", dev, "seqalib_strip_fill", q.data_ptr(), nw, t2.data_ptr(), W, qlen.data_ptr(), tlen.data_ptr(),
-        table.data_ptr(), tables.A1, B, mq, tables.gap_open, tables.gap_extend,
-        int(tables.affine), MODES[mode], hrow.data_ptr(), frow.data_ptr(),
+        "strip_fill", dev, "seqalib_strip_fill", q.data_ptr(), nw, t2.data_ptr(), W,
+        qlen.data_ptr(), tlen.data_ptr(), table.data_ptr(), tables.A1, B, mq,
+        tables.gap_open, tables.gap_extend, int(tables.affine), MODES[mode], nwarp,
+        int(letters), smem, rows.data_ptr() if rows is not None else None,
         P.data_ptr() if want_ptr else None, bv.data_ptr(), bk.data_ptr(),
     )
     launches[f"strip_fill/{mode}"] += 1

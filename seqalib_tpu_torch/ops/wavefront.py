@@ -13,11 +13,15 @@ local is out of contract): local with start propagation, linear gaps, no
 band.
 
 ``wavefront_fill`` layout: lanes are query positions.  On anti-diagonal
-``k`` slot ``i`` (0 <= i < Np) holds cell (i, j = k - i); every slot is
-computed on every diagonal ``k < K``, the ones with j < 0 included, exactly
-as the TPU kernel computes them (a slot with j < 0 reads target letter 0),
-so every pointer byte the walk can read, the extend bits of row 0 and
-column 0 included, is the TPU kernel's.  Inputs, for a batch of B pairs:
+``k`` slot ``i`` (0 <= i < Np) holds cell (i, j = k - i); every slot of
+every diagonal ``k < K`` has the TPU kernel's byte, the ones with j < 0
+included (a slot with j < 0 reads target letter 0), so every pointer byte
+the walk can read, the extend bits of row 0 and column 0 included, is the
+TPU kernel's.  The kernel keeps state only for the window of slots with
+k - 2i in [dlo - 1, dhi + 1] (``window_width``); every other slot's inputs
+are -inf, and its byte (``wavefront_far_bytes_ref``) depends on its
+letters alone: with pointers a stateless pass writes every byte by that
+rule, then the window kernel its own.  Inputs, for a batch of B pairs:
 
 * ``qpad`` (B, Np) int32: ``qpad[:, i] = q[i - 1]`` for 1 <= i <= qlen,
   else the query sentinel;
@@ -47,12 +51,13 @@ from . import launches
 
 LANES = 128
 MAX_TABLE = 66  # the kernel keeps the score table in shared memory
-# slot rows (2 H, 2 F, E, shifted H) stay in shared memory while they fit
-# beside the table in this many bytes; wider buckets keep them in a global
-# scratch buffer
+# the window kernel's slot rows (2 H, 2 F, E, shifted H over a ring of R
+# slots) stay in shared memory beside the table while they fit in this
+# many bytes, else in a global scratch buffer
 SMEM_BYTES = 200 * 1024
 _EXT_E_BIT = 2
 _EXT_F_BIT = 3
+_EXT_BITS = (1 << _EXT_E_BIT) | (1 << _EXT_F_BIT)  # both extend bits
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -73,6 +78,20 @@ def wide_table(sp: ScoringParams) -> np.ndarray:
     out = np.full((A + 3, A + 3), sent, np.int32)
     out[:A, :A] = table
     return out
+
+
+def window_width(span: int, band: int, Np: int) -> int:
+    """Slots of one diagonal whose state the kernel keeps: those with
+    k - 2i in [dlo - 1, dhi + 1] for a band of ``band`` around deltas up to
+    ``span`` (dhi - dlo = span + 2 band), at most every slot."""
+    return min(Np, (span + 2 * band) // 2 + 2)
+
+
+def window_ring(width: int, NT: int) -> tuple[int, bool]:
+    """(R, rows in shared memory) of the window kernel for windows of
+    ``width`` slots: a ring of R >= width + 2 slots, a power of 2."""
+    R = 1 << (width + 1).bit_length()
+    return R, 4 * (NT * NT + 6 * R) <= SMEM_BYTES
 
 
 def _check(qpad, tk, qlen, tlen, tab, K):
@@ -149,6 +168,28 @@ def wavefront_fill_ref(qpad, tk, qlen, tlen, tab, *, K: int, band: int,
     return out
 
 
+def wavefront_far_bytes_ref(qpad, tk, tab, *, K: int, gap_open: int, gap_extend: int):
+    """Plain PyTorch version of the pointer bytes of the slots whose
+    inputs are all -inf (k - 2i outside [dlo - 1, dhi + 1]): (K, B, Np)
+    uint8, ``(s >= max(e, o + e) ? DIAG : UP) | ext << 2 | ext << 3`` with
+    s the cell's letter score and ext = (e >= o + e); the origin's byte is
+    STOP with the same extend bits.  ``wavefront_fill``'s kernel writes
+    these for every slot, then the band's window over them."""
+    dev = qpad.device
+    B, Np = qpad.shape
+    NT = tab.shape[0]
+    e, oe = gap_extend, gap_open + gap_extend
+    qrow = qpad.clamp(0, NT - 1).long() * NT
+    tkc = tk.clamp(0, NT - 1).long()
+    j = torch.arange(K, device=dev)[:, None] - torch.arange(Np, device=dev)[None, :]
+    W = torch.where(j[None] < 0, 0, tkc[:, j.clamp(min=0)])  # (B, K, Np)
+    s = tab.flatten().long()[qrow[:, None, :] + W]
+    ext = _EXT_BITS if e >= oe else 0
+    byte = torch.where(s >= max(e, oe), PTR_DIAG, PTR_UP) | ext
+    byte[:, 0, 0] = PTR_STOP | ext
+    return byte.permute(1, 0, 2).to(torch.uint8).contiguous()
+
+
 def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: int,
                    gap_extend: int, want_ptr: bool):
     """Fill diagonals [0, K) of every pair; see the module docstring.  A
@@ -171,16 +212,22 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: in
     ptr = rows = None
     if want_ptr:
         ptr = out["ptr"] = torch.empty((K, B, Np), dtype=torch.uint8, device=dev)
-    if (NT * NT + 6 * Np) * 4 > SMEM_BYTES:
-        rows = torch.empty((B, 6, Np), dtype=torch.int32, device=dev)
     if B == 0:
         return out
+    # the ring follows the widest window: one host read of the deltas
+    span = int((tlen.long() - qlen.long()).abs().max())
+    R, rows_in_smem = window_ring(window_width(span, band, Np), NT)
+    if not rows_in_smem:
+        rows = torch.empty((B, 6, R), dtype=torch.int32, device=dev)
     launch(
-        "wavefront_fill", dev, "seqalib_wavefront_fill", qpad.data_ptr(), Np, tk.data_ptr(), tk.shape[1], qlen.data_ptr(),
-        tlen.data_ptr(), tab.data_ptr(), NT, B, K, band, gap_open, gap_extend,
-        out["score"].data_ptr(), ptr.data_ptr() if ptr is not None else None,
+        "wavefront_fill", dev, "seqalib_wavefront_fill", qpad.data_ptr(), Np,
+        tk.data_ptr(), tk.shape[1], qlen.data_ptr(), tlen.data_ptr(), tab.data_ptr(),
+        NT, B, K, band, gap_open, gap_extend, out["score"].data_ptr(),
+        ptr.data_ptr() if ptr is not None else None, R,
         rows.data_ptr() if rows is not None else None,
     )
+    # one count per call: with pointers the call launches the far pass,
+    # then the window kernel
     launches["wavefront_fill/" + ("ptr" if want_ptr else "score")] += 1
     return out
 

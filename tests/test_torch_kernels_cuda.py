@@ -17,6 +17,7 @@ from seqalib_tpu_torch.models.banded import _geometry, _pad_letters
 from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops.band_fill import band_fill, band_fill_ref, band_table
 from seqalib_tpu_torch.ops.band_walk import band_walk, band_walk_ref
+from seqalib_tpu_torch.ops import strip_fill as sf_mod
 from seqalib_tpu_torch.ops import wavefront as wf_mod
 from seqalib_tpu_torch.ops.row_window import (NO_ERROR, error_words, raise_on_error,
                                               row_window, row_window_ref)
@@ -415,7 +416,7 @@ def _wavefront_args(dev, scoring, B=9, seed=5):
 @pytest.mark.parametrize("want_ptr", [True, False])
 def test_wavefront_fill_kernel_matches_plain_version(dev, want_ptr, scoring, rows_in,
                                                      monkeypatch):
-    if rows_in == "global":  # slot rows in the global scratch buffer
+    if rows_in == "global":  # the window's ring in the global scratch buffer
         monkeypatch.setattr(wf_mod, "SMEM_BYTES", 0)
     args, kw = _wavefront_args(dev, scoring)
     key = "wavefront_fill/" + ("ptr" if want_ptr else "score")
@@ -424,6 +425,100 @@ def test_wavefront_fill_kernel_matches_plain_version(dev, want_ptr, scoring, row
     torch.cuda.synchronize()
     assert launches[key] == before + 1
     _same(got, wavefront_fill_ref(*args, want_ptr=want_ptr, **kw))
+
+
+WF_EDGES = {  # name -> (B, n, band, delta): pairs of n letters, tlen = qlen + delta
+    "delta_above_band": (5, 200, 4, 37),
+    "delta_below_band": (5, 200, 4, -37),
+    "band_0": (6, 150, 0, 3),
+    "band_over_slots": (3, 120, 500, 9),
+    "slots_over_1024": (2, 1100, 40, 60),
+    "one_pair": (1, 300, 12, -5),
+}
+
+
+@pytest.mark.parametrize("rows_in", ["shared", "global"])
+@pytest.mark.parametrize("want_ptr", [True, False])
+@pytest.mark.parametrize("case", sorted(WF_EDGES))
+def test_wavefront_fill_kernel_matches_plain_version_at_the_edges(dev, case, want_ptr,
+                                                                   rows_in, monkeypatch):
+    B, n, band, delta = WF_EDGES[case]
+    if rows_in == "global":
+        monkeypatch.setattr(wf_mod, "SMEM_BYTES", 0)
+    sp = scoring_params(0, 0, -20, -2, 2 * BLOSUM62)
+    rng = np.random.default_rng(len(case))
+    qlen = rng.integers(n // 2, n + 1, size=B)
+    qlen[0] = n if delta < 0 else n - delta
+    tlen = np.clip(qlen + delta + rng.integers(-2, 3, size=B), 0, n)
+    q = rng.integers(0, 20, size=(B, n))
+    t = rng.integers(0, 20, size=(B, n))
+    t[:, 10: n // 2] = q[:, 12: n // 2 + 2]
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    args = [as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab)]
+    kw = dict(K=tk.shape[1], band=band, gap_open=sp.gap_open, gap_extend=sp.gap_extend,
+              want_ptr=want_ptr)
+    if case == "band_over_slots":
+        assert band >= qpad.shape[1]
+    if case == "slots_over_1024":
+        assert qpad.shape[1] > 1024
+    got = wavefront_fill(*args, **kw)
+    torch.cuda.synchronize()
+    _same(got, wavefront_fill_ref(*args, **kw))
+
+
+STRIP_QLENS = (1, 31, 32, 33, 255, 257, 1029)
+STRIP_TLENS = (0, 5, 31, 300)
+
+
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("scoring", ["dna_linear", "blosum62_affine"])
+@pytest.mark.parametrize("mode,want_ptr", [("local", False), ("local", True),
+                                           ("emode", False), ("gmode", False),
+                                           ("gmode", True)])
+def test_strip_fill_kernel_matches_plain_version_at_ragged_lengths(dev, scoring, mode,
+                                                                   want_ptr, B, monkeypatch):
+    """Query lengths around the 32-row strips and the warps' rounds, short
+    and empty targets, every warp count the kernel takes (``strip_warps``
+    patched: the wrapper picks 8 at these widths)."""
+    sp, alpha = SCORINGS[scoring]
+    tables = tables_from_params(sp, dev)
+    rng = np.random.default_rng(B)
+    n, m = max(STRIP_QLENS), max(STRIP_TLENS)
+    q = rng.integers(0, alpha, size=(B, n))
+    t = rng.integers(0, alpha, size=(B, m))
+    t[:, 20:200] = q[:, 30:210]
+    qlen = np.array([STRIP_QLENS[b % 7] for b in range(B)])
+    tlen = np.array([STRIP_TLENS[b % 4] for b in range(B)])
+    if B == 1:
+        qlen[0], tlen[0] = n, m
+    qpad, t2 = prep_strip(q, t, qlen, tlen, alpha + 1, dev)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)
+    ql, tl = as_t(qlen), as_t(tlen)
+    want = strip_fill_ref(qpad, t2, ql, tl, tables, mq=m, mode=mode, want_ptr=want_ptr)
+    for warps in range(1, sf_mod.MAX_WARPS + 1):
+        monkeypatch.setattr(sf_mod, "strip_warps", lambda nq, w=warps: w)
+        got = strip_fill(qpad, t2, ql, tl, tables, mq=m, mode=mode, want_ptr=want_ptr)
+        torch.cuda.synchronize()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (warps, k)
+
+
+def test_strip_fill_kernel_with_global_letters_and_row(dev, monkeypatch):
+    """Targets too wide for the shared-memory budget: the letters and the
+    wrap row in global memory."""
+    monkeypatch.setattr(sf_mod, "SMEM_BUDGET", 0)
+    sp, alpha = SCORINGS["blosum62_affine"]
+    tables = tables_from_params(sp, dev)
+    qpad, t2, ql, tl, m = _batch(alpha, dev, B=9, n=300, m=600, seed=4)
+    for mode, want_ptr in (("local", True), ("emode", False), ("gmode", True)):
+        want = strip_fill_ref(qpad, t2, ql, tl, tables, mq=m, mode=mode, want_ptr=want_ptr)
+        for warps in (1, 3, 8):
+            monkeypatch.setattr(sf_mod, "strip_warps", lambda nq, w=warps: w)
+            got = strip_fill(qpad, t2, ql, tl, tables, mq=m, mode=mode,
+                             want_ptr=want_ptr)
+            torch.cuda.synchronize()
+            _same(got, want)
 
 
 @pytest.mark.parametrize("D", [1, 3])

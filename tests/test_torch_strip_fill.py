@@ -20,7 +20,8 @@ from seqalib_tpu.parallel.dispatch import sentinel_table
 from seqalib_tpu.types import ScoringParams
 from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops.strip import prep_strip, reduce_best
-from seqalib_tpu_torch.ops.strip_fill import strip_fill
+from seqalib_tpu_torch.ops.strip_fill import (MAX_WARPS, RING, SMEM_BUDGET, strip_fill,
+                                             strip_smem, strip_warps)
 from seqalib_tpu_torch.scoring import tables_from_params
 
 B, N, M = 8, 150, 140  # two 128-row JAX strips
@@ -166,3 +167,23 @@ def test_lengths_past_the_letter_arrays_are_refused():
             strip_fill(q, t2, torch.tensor([ql], dtype=torch.int32),
                        torch.tensor([tl], dtype=torch.int32), tables, mq=5,
                        mode="local")
+
+
+@pytest.mark.parametrize("nq,warps", [(0, 1), (1, 1), (31, 1), (32, 1), (33, 2), (64, 2),
+                                      (65, 3), (255, 8), (256, 8), (257, 8), (1024, 8),
+                                      (1029, 8)])
+def test_strip_warps_is_one_per_strip_up_to_eight(nq, warps):
+    assert strip_warps(nq) == warps
+    assert 1 <= warps <= MAX_WARPS
+
+
+@pytest.mark.parametrize("A1,W,warps", [(21, 1025, 8), (5, 257, 1), (21, 6000, 8),
+                                        (21, 20_000, 8), (64, 1025, 8)])
+def test_strip_smem_keeps_the_letters_then_the_row_while_they_fit(A1, W, warps):
+    base = 8 * (warps - 1) * RING + 4 * ((A1 + 1) ** 2 + 3 * MAX_WARPS)
+    nbytes, letters, row = strip_smem(A1, W, warps)
+    assert letters == (base + 4 * W <= SMEM_BUDGET)
+    assert row == (base + 4 * W * letters + 8 * W <= SMEM_BUDGET)
+    assert nbytes == base + 4 * W * letters + 8 * W * row <= max(SMEM_BUDGET, base)
+    if (A1, W) == (21, 1025):  # config 3: both in shared memory, 4 CTAs per SM
+        assert letters and row and 4 * nbytes <= 227 * 1024

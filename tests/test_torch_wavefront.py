@@ -14,7 +14,10 @@ backend="pallas")`` and the oracle.
   by ``table[0, 0]`` / ``table[0, 1]``.  The port follows the oracle;
 * the identity the card run checks: 2 x BLOSUM62 with o = -20, e = -2 on
   this route gives the results of BLOSUM62 with o = -10, e = -1 on the
-  banded route (``band_fill``), with the score doubled.
+  banded route (``band_fill``), with the score doubled;
+* the split the kernel makes: outside the window k - 2i in [dlo - 1,
+  dhi + 1] every pointer byte is ``wavefront_far_bytes_ref``'s rule of the
+  letters alone, and ``window_width`` slots hold every window.
 
 Exact equality: the work is integer DP.
 """
@@ -31,7 +34,9 @@ from seqalib_tpu.parallel.dispatch import sentinel_table
 from seqalib_tpu.types import BLOSUM62
 from seqalib_tpu.types import ScoringParams as JaxScoringParams
 from seqalib_tpu_torch.ops import launches
-from seqalib_tpu_torch.ops.wavefront import wavefront_fill, wavefront_inputs
+from seqalib_tpu_torch.ops.wavefront import (wavefront_far_bytes_ref, wavefront_fill,
+                                             wavefront_fill_ref, wavefront_inputs,
+                                             window_ring, window_width)
 from seqalib_tpu_torch.scoring import scoring_params
 
 BAND = 6
@@ -222,3 +227,94 @@ def test_wavefront_fill_refuses_bad_arguments():
         dispatch_batch([np.zeros(3, np.uint8)], [np.zeros(3, np.uint8)],
                        _psp(SCORINGS["scalar_wide4"][0]), mode="local", band=3,
                        device=torch.device("cpu"))
+
+
+def _window_split(q, t, qlen, tlen, psp, band):
+    """The fill's pointer bytes, the far rule's, and the mask of the slots
+    outside each pair's window (K, B, Np); also the widest window."""
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, psp)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32)  # noqa: E731
+    K = tk.shape[1]
+    kw = dict(K=K, gap_open=psp.gap_open, gap_extend=psp.gap_extend)
+    full = wavefront_fill_ref(as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab),
+                              band=band, want_ptr=True, **kw)["ptr"].numpy()
+    far = wavefront_far_bytes_ref(as_t(qpad), as_t(tk), as_t(tab), **kw).numpy()
+    d = np.asarray(tlen) - np.asarray(qlen)
+    dlo = (np.minimum(0, d) - band)[None, :, None]
+    dhi = (np.maximum(0, d) + band)[None, :, None]
+    dkj = np.arange(K)[:, None, None] - 2 * np.arange(qpad.shape[1])[None, None, :]
+    outside = (dkj < dlo - 1) | (dkj > dhi + 1)
+    widest = int((~outside).sum(2).max())
+    return full, far, outside, widest, int(np.abs(d).max()), qpad.shape[1]
+
+
+def _check_split(case, band):
+    full, far, outside, widest, span, Np = _window_split(*case, band)
+    assert far.shape == full.shape and far.dtype == np.uint8
+    # a band as wide as the slots leaves no slot outside the window
+    assert outside.any() == (band < Np)
+    np.testing.assert_array_equal(far[outside], full[outside])
+    # the origin (in every window) is STOP with the far rule's extend bits
+    assert (far[0, :, 0] & 3 == 0).all() and (far[0, :, 0] == full[0, :, 0]).all()
+    assert window_width(span, band, Np) == widest
+
+
+def test_far_bytes_equal_the_fill_outside_the_window(fill_case):
+    q, t, qlen, tlen = fill_case["args"]
+    _check_split((q, t, qlen, tlen, _psp(fill_case["jsp"])), BAND)
+
+
+def _edge_case(name):
+    """(q, t, qlen, tlen, scoring, band): pairs whose deltas pass the band,
+    band 0, a band wider than the slots, a zero gap open."""
+    rng = np.random.default_rng(len(name))
+    two = scoring_params(0, 0, -20, -2, 2 * BLOSUM62)
+    psp, band, spread = {
+        "delta_beyond_band": (two, 3, 40),
+        "band_0": (two, 0, 6),
+        "band_over_slots": (two, 300, 20),
+        "open_0": (scoring_params(0, 0, 0, -3, 2 * BLOSUM62), 9, 25),
+        "scalar_wide4": (_psp(SCORINGS["scalar_wide4"][0]), 5, 30),
+    }[name]
+    alpha = 4 if name == "scalar_wide4" else 20
+    B, n = 5, 70
+    qlen = rng.integers(1, n + 1, B)
+    tlen = np.clip(qlen + rng.integers(-spread, spread + 1, B), 0, n)
+    qlen[0] = n
+    q = rng.integers(0, alpha, (B, n)).astype(np.int32)
+    t = rng.integers(0, alpha, (B, n)).astype(np.int32)
+    t[:, 2:40] = q[:, 1:39]
+    return (q, t, qlen, tlen, psp), band
+
+
+@pytest.mark.parametrize("name", ["delta_beyond_band", "band_0", "band_over_slots",
+                                  "open_0", "scalar_wide4"])
+def test_far_bytes_equal_the_fill_outside_the_window_at_the_edges(name):
+    case, band = _edge_case(name)
+    if name == "delta_beyond_band":
+        assert np.abs(case[3] - case[2]).max() > band
+    if name == "band_over_slots":
+        assert band >= wavefront_inputs(*case)[0].shape[1]
+    _check_split(case, band)
+
+
+@pytest.mark.parametrize("width,NT,want", [
+    (1, 23, (4, True)),
+    (66, 23, (128, True)),         # the wide-table cell: band 64
+    (126, 23, (128, True)),
+    (127, 66, (256, True)),
+    (384, 23, (512, True)),        # a band over 384 slots
+    (1024, 23, (2048, True)),
+    (20_000, 23, (32_768, False)),  # rows in global memory
+])
+def test_window_ring_holds_the_window_and_picks_its_memory(width, NT, want):
+    R, rows_in_smem = window_ring(width, NT)
+    assert (R, rows_in_smem) == want
+    # the ring holds the window and the two slots around it
+    assert R >= width + 2 and R & (R - 1) == 0
+
+
+def test_window_width_never_passes_the_slots():
+    assert window_width(0, 64, 1024) == 66
+    assert window_width(10, 64, 1024) == 71
+    assert window_width(0, 10_000, 1024) == 1024

@@ -28,10 +28,7 @@ anti-diagonal), and a JSON summary as the last line.
 """
 
 import argparse
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -41,6 +38,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from kernel_variants import build_variants, card_line, time_ms  # noqa: E402
 from seqalib_tpu_torch import BLOSUM62, _build  # noqa: E402
 from seqalib_tpu_torch.ops import band_fill as bf_mod  # noqa: E402
 from seqalib_tpu_torch.types import NEG_INF  # noqa: E402
@@ -71,32 +69,9 @@ def variants(baselines):
 
 
 def build_all(srcs):
-    """One nvcc per variant (with row_window.cu for the error strings)."""
-    nvcc = _build._nvcc()
-    procs = {}
-    for name, (text, _) in srcs.items():
-        d = OUT / name
-        if d.exists():
-            shutil.rmtree(d)
-        d.mkdir(parents=True)
-        for f in ("common.cuh", "row_window.cu"):
-            shutil.copy(_build.CSRC / f, d / f)
-        (d / "band_fill.cu").write_text(text)
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-               str(d / "band_fill.cu"), str(d / "row_window.cu")]
-        procs[name] = (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.PIPE, text=True))
-    _build._run(list(procs.values()))
-    libs = {}
-    for name in srcs:
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        for fn in ("seqalib_band_fill", "seqalib_row_window"):
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.seqalib_error_string.argtypes = [ctypes.c_int]
-        lib.seqalib_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
-    return libs
+    """One nvcc per variant, all started together."""
+    return build_variants({name: {"band_fill.cu": text} for name, (text, _) in srcs.items()},
+                          OUT)
 
 
 def case(rng, dev, *, B, L, band, Wp, alpha, table, k0, k1, mode, **extra):
@@ -144,18 +119,6 @@ def cases(dev):
     return out
 
 
-def time_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", nargs="*", default=[], metavar="NAME=PATH",
@@ -165,8 +128,7 @@ def main() -> int:
         print("band_fill_ablation: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     srcs = variants(args.baseline)
     libs = build_all(srcs)
     shapes = cases(dev)

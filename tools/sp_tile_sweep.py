@@ -19,10 +19,7 @@ JSON summary.  Needs a CUDA card.
 """
 
 import argparse
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -31,6 +28,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from kernel_variants import build_variants as build_variants_of  # noqa: E402
+from kernel_variants import card_line, time_ms  # noqa: E402
 from seqalib_tpu_torch import _build  # noqa: E402
 from seqalib_tpu_torch.ops.sp_tile import NEG, sp_tile_run  # noqa: E402
 
@@ -51,31 +50,13 @@ ABLATIONS = {
 
 
 def build_variants():
-    """One nvcc per variant (with row_window.cu for the error strings)."""
+    """One nvcc per variant, all started together."""
     src = (_build.CSRC / "sp_tile.cu").read_text()
-    procs, libs = [], {}
     for name, rep in ABLATIONS.items():
         if rep is not None:
             assert rep[0] in src, name
-        d = OUT / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for f in ("common.cuh", "row_window.cu"):
-            shutil.copy(_build.CSRC / f, d / f)
-        (d / "sp_tile.cu").write_text(src if rep is None else src.replace(*rep))
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-               str(d / "sp_tile.cu"), str(d / "row_window.cu")]
-        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.PIPE, text=True)))
-    _build._run(procs)
-    for name in ABLATIONS:
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        lib.seqalib_sp_run.argtypes = _build._SIGNATURES["seqalib_sp_run"]
-        lib.seqalib_sp_run.restype = ctypes.c_int
-        lib.seqalib_error_string.argtypes = [ctypes.c_int]
-        lib.seqalib_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
-    return libs
+    return build_variants_of({name: {"sp_tile.cu": src if rep is None else src.replace(*rep)}
+                              for name, rep in ABLATIONS.items()}, OUT)
 
 
 def run_ms(R, W, strip, calls, dev, C=256):
@@ -89,15 +70,7 @@ def run_ms(R, W, strip, calls, dev, C=256):
     args = (qb, tk, htop, htop[1:] - 3, hcol, hcol - 5, cap, None)
     kw = dict(i0=0, j0=0, n=R, m=W, C=C, match=2, mismatch=-3, gap_open=-5, gap_extend=-2,
               mode="global", strip=strip)
-    sp_tile_run(*args, **kw)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        sp_tile_run(*args, **kw)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls
+    return time_ms(lambda: sp_tile_run(*args, **kw), calls)
 
 
 def main() -> int:
@@ -110,9 +83,7 @@ def main() -> int:
         print("sp_tile_sweep: needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True, capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     W = args.cols
     rows = []
     if args.ablate:
