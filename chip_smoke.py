@@ -17,6 +17,10 @@ Phases (any failure raises and exits non-zero):
    - config 3 (B=512 BLOSUM62 pairs of 1024 x 1024): the strip fill in
      its three modes, the row window, the strip walk, and the banded fill
      in ``emode`` (pass 2, all of its diagonals);
+   - config 1 (B=512 DNA pairs of 256 x 256): the strip walk again.  Each
+     walk is held on its CIGAR text, lengths and final states, with its
+     kernel's own time under ``torch.profiler`` and the ns per op of its
+     longest walk;
    - config 4 (B=64 DNA pairs of 10 kb, band 128): the banded fill and
      its pointer mode on 2048 diagonals resumed from the fill's own
      checkpoints (each whole call timed as well), and the walk over one
@@ -268,9 +272,10 @@ def bound(key, args, kw, out):
         src, starts, hi = args
         N, L = out.shape
         nbytes = 2 * _nbytes(out) + _nbytes((starts, hi))  # the window read, then written
-    elif name == "strip_walk":
-        steps = int((out[0] != 255).sum())  # one pointer byte read per op
-        nbytes = _nbytes(out) + _nbytes(args[1:]) + steps
+    elif name == "strip_walk":  # a pointer byte read per op walked; the text written
+        _, nchar, state = out
+        steps = int(walked_ops(out).sum())
+        nbytes = steps + _nbytes(args[1:]) + _nbytes((nchar, state)) + int(nchar.sum())
     elif name == "band_walk":
         steps = int((out[0] != 255).sum())
         nbytes = _nbytes(out) + _nbytes(args[1:]) + steps
@@ -326,13 +331,57 @@ def row_window_library_ms(args, kw):
     return time_ms(lambda: torch.where(keep, torch.gather(src, 1, idx), fill), SHORT_REPS)
 
 
+def strip_walk_mod():
+    from seqalib_tpu_torch.ops import strip_walk
+
+    return strip_walk
+
+
+def walked_ops(out):
+    """Ops each pair's ``strip_walk`` walked: the ops of its CIGAR less its
+    boundary run (i' ops, or j' when i' = 0)."""
+    text, nchar, state = out
+    cig = strip_walk_mod().cigars_from_text(text, nchar)
+    i, j = state[0].cpu().numpy(), state[1].cpu().numpy()
+    head = np.where(i > 0, i, np.maximum(j, 0))
+    total = np.array([sum(int(n) for n in re.findall(r"(\d+)[MID]", c)) for c in cig],
+                     np.int64)
+    return total - head
+
+
+def walk_report(call, out):
+    """The shape of a ``strip_walk`` call, its ops walked, and the kernel's
+    own time under ``torch.profiler`` per call and per op of the longest
+    walk."""
+    steps = walked_ops(out)
+    alone = kernel_split(call, ("strip_walk_kernel",))["strip_walk_kernel"]
+    text = (f"B {len(steps)}, text {tuple(out[0].shape)}; ops walked: longest "
+            f"{steps.max()}, mean {steps.mean():.1f}; kernel alone ")
+    if alone is None:
+        return text + "not measured"
+    per_op = alone * 1e6 / max(1, steps.max())
+    return text + f"{alone:.4f} ms, {per_op:.1f} ns per op of the longest walk"
+
+
+def walk_view(out):
+    """``strip_walk``'s outputs with each text row's undefined bytes (those
+    before its last nchar) set to 0."""
+    import torch
+
+    text, nchar, state = out
+    W = text.shape[1]
+    keep = torch.arange(W, device=text.device)[None, :] >= W - nchar.long()[:, None]
+    return torch.where(keep, text, 0), nchar, state
+
+
 # ---- kernel phase -------------------------------------------------------
 
 
-def check_kernel(key, kernel, plain):
-    """Kernel and plain version on the same inputs: exact equality, then
-    both timed per call (wrapper included; the plain version on the one
-    call compared, or on a second call when that one was short)."""
+def check_kernel(key, kernel, plain, view=lambda out: out):
+    """Kernel and plain version on the same inputs: exact equality of
+    ``view`` of their outputs, then both timed per call (wrapper included;
+    the plain version on the one call compared, or on a second call when
+    that one was short)."""
     import torch
 
     got = kernel()
@@ -344,7 +393,7 @@ def check_kernel(key, kernel, plain):
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    err = max_abs_err(got, want)
+    err = max_abs_err(view(got), view(want))
     if err != 0:
         raise AssertionError(f"{key}: kernel differs from its plain version by {err}")
     if plain_ms < 100:  # first-use loading of PyTorch's kernels dominates a short call
@@ -404,13 +453,15 @@ def per_diagonal(kw, ms):
     return ms * 1e3 / max(1, kw["k1"] - kw["k0"])
 
 
-def kernel_entry(key, fn, plain, args, kw):
+def kernel_entry(key, fn, plain, args, kw, label=""):
     # the plain version has no deferred range check: it checks at once
     pkw = {k: v for k, v in kw.items() if k != "err"}
-    stats, out = check_kernel(key, lambda: fn(*args, **kw), lambda: plain(*args, **pkw))
+    view = walk_view if key == "strip_walk" else (lambda out: out)
+    stats, out = check_kernel(key + label, lambda: fn(*args, **kw),
+                              lambda: plain(*args, **pkw), view)
     b_ms, b_by = bound(key, args, kw, out)
     lib_ms = row_window_library_ms(args, kw) if key == "row_window" else None
-    say(f"[bound] {key}: {b_ms:.4f} ms by {b_by}"
+    say(f"[bound] {key}{label}: {b_ms:.4f} ms by {b_by}"
         + (f"; library call {lib_ms:.4f} ms" if lib_ms is not None else ""))
     if key.startswith("band_fill/"):
         say(f"[kernel] {key}: Wp {args[6].shape[2]}, B {args[6].shape[1]}, "
@@ -418,6 +469,9 @@ def kernel_entry(key, fn, plain, args, kw):
             f"per anti-diagonal")
     if key.startswith(("strip_fill/", "wavefront_fill/")):
         say(f"[kernel] {key}: {layout(key, args, kw)}")
+    if key == "strip_walk":
+        say(f"[kernel] {key}{label}: {walk_report(lambda: fn(*args, **kw), out)}; wrapper "
+            f"{stats['ms']:.4f} ms")
     if key == "wavefront_fill/ptr":
         split = kernel_split(lambda: fn(*args, **kw), ("wf_far_kernel", "wf_window_kernel"))
         say(f"[kernel] {key}: 2 kernels per call, the far pass then the window: "
@@ -545,9 +599,25 @@ def kernel_phase3(q, t, sp, dev):
                                                        want_tb=False, pass2="strip"),
                         targets)
     calls["strip_fill/emode"] = calls_s["strip_fill/emode"]
-    per_kernel = {key: kernel_entry(key, fn, plain, args, kw)
+    per_kernel = {key: kernel_entry(key, fn, plain, args, kw, label=" (config 3)"
+                                    if key == "strip_walk" else "")
                   for key, (fn, plain, args, kw, _) in calls.items()}
     return per_kernel, int(out["escalated"].sum())
+
+
+def kernel_phase1(q, t, sp, dev):
+    """Config 1's ``strip_walk`` call, held against its plain version."""
+    from seqalib_tpu_torch.ops import strip as strip_mod
+    from seqalib_tpu_torch.scoring import tables_from_params
+
+    n = np.full(len(q), q.shape[1])
+    m = np.full(len(t), t.shape[1])
+    tables = tables_from_params(sp, dev)
+    calls, _ = record(lambda: strip_mod.strip_bucket(q, t, n, m, tables, mode="global",
+                                                     want_tb=True),
+                      [(strip_mod, "strip_walk", strip_walk_mod().strip_walk_ref)])
+    fn, plain, args, kw, _ = calls["strip_walk"]
+    kernel_entry("strip_walk", fn, plain, args, kw, label=" (config 1)")
 
 
 def kernel_phase4(qs, ts, sp, dev):
@@ -1157,6 +1227,7 @@ def main() -> int:
 
     per_kernel, escalated = kernel_phase3(q3, t3, sp3, dev)
     say(f"[config3] escalated pairs: {escalated}/{B3}")
+    kernel_phase1(q1, t1, sp1, dev)
     per_kernel.update(kernel_phase4(qs4, ts4, sp4, dev))
     per_kernel.update(kernel_phase_wide4(qw, tw, sp4, dev))
     per_kernel.update(kernel_phase_sp(qsp, tsp, q16, t16, qo, to, sp4, dev))

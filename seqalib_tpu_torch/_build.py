@@ -47,7 +47,7 @@ _SIGNATURES = {
         _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _P, _P, _P, _P, _P,
     ],
-    "seqalib_strip_walk": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "seqalib_strip_walk": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P],
     "seqalib_band_fill": [
         _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P,

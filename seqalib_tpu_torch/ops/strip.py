@@ -14,8 +14,8 @@ coordinates contract of ``seqalib_tpu/oracle.py``:
    widens its window x4 until the score is found;
 3. with ``want_tb``: a global fill with pointers over each pair's
    [qs:qe] x [ts:te] window, cut by ``row_window``, walked by
-   ``strip_walk`` (escalated pairs are rebuilt by
-   ``window_global_cigars``).
+   ``strip_walk``, which writes each pair's CIGAR text on the device
+   (escalated pairs are rebuilt by ``window_global_cigars``).
 
 Pass 2 runs on one of the JAX package's two engines, chosen by
 ``pass2`` (``SEQALIB_FUSED_PASS2``, read at the host boundary as the JAX
@@ -44,14 +44,12 @@ import os
 import numpy as np
 import torch
 
-from ..utils.cigar import OP_D, OP_I, op_rows_to_cigars
-
 from ..scoring import NIBBLE_BIAS, Tables, fits_nibbles
 from ..types import NEG_INF
 from .band_fill import band_fill, band_table
 from .row_window import error_words, raise_on_error, row_window
 from .strip_fill import strip_fill
-from .strip_walk import strip_walk
+from .strip_walk import cigars_from_text, strip_walk
 
 log = logging.getLogger("seqalib_tpu_torch.strip")
 
@@ -132,25 +130,23 @@ def reduce_best(bv, bk, stride: int):
     return bv, torch.where(empty, zero, bk // stride), torch.where(empty, zero, bk % stride)
 
 
-def cigars_from_ops(ops, i_fin, j_fin):
-    """CIGARs from a walk's op matrix: drop the 255 slots (ascending order
-    is start -> end) and prepend the implicit boundary run the walk
-    stopped at (i' > 0: I run down column 0; j' > 0: D run along row 0)
-    (counterpart of ``_cigars_from_ops``)."""
-    i_fin, j_fin = np.asarray(i_fin), np.asarray(j_fin)
-    return op_rows_to_cigars(ops, np.where(i_fin > 0, OP_I, OP_D),
-                             np.where(i_fin > 0, i_fin, j_fin))
-
-
 def global_post(bv, P, qlen, tlen, tables: Tables, want_tb: bool):
     """Global (NW) assembly: the H(qlen, tlen) capture, all-gap results
     for qlen == 0 or tlen == 0, and with ``want_tb`` the walk to CIGARs
     (counterpart of ``_global_post``)."""
-    score = bv.cpu().numpy().astype(np.int64)
-    go = tables.gap_open if tables.affine else 0
-    e = tables.gap_extend
     degq = qlen == 0
     degt = tlen == 0
+    if want_tb:  # launched before the first host copy
+        start = _dev(np.stack([qlen, tlen, np.zeros_like(qlen), degq | degt]), bv.device)
+        text, nchar, _ = strip_walk(P, *start, affine=tables.affine)
+        # nchar rides in the score's host copy
+        host = torch.stack([bv, nchar]).cpu().numpy()
+        bv, nchar = host[0], host[1]
+    else:
+        bv = bv.cpu().numpy()
+    score = bv.astype(np.int64)
+    go = tables.gap_open if tables.affine else 0
+    e = tables.gap_extend
     score = np.where(degq, go + tlen * e, score)
     score = np.where(degt, go + qlen * e, score)
     score = np.where(degq & degt, 0, score)
@@ -163,15 +159,8 @@ def global_post(bv, P, qlen, tlen, tables: Tables, want_tb: bool):
         "te": tlen.astype(np.int32),
     }
     if want_tb:
-        deg = degq | degt
-        dev = bv.device
-        ops, ifin, jfin, _, _ = strip_walk(
-            P, _dev(qlen, dev), _dev(tlen, dev), _dev(np.zeros_like(deg), dev),
-            _dev(deg, dev), affine=tables.affine,
-        )
-        cigars = cigars_from_ops(ops.cpu().numpy(), ifin.cpu().numpy(),
-                                 jfin.cpu().numpy())
-        for b in np.nonzero(deg)[0]:
+        cigars = cigars_from_text(text, nchar)
+        for b in np.nonzero(degq | degt)[0]:
             c = f"{tlen[b]}D" if tlen[b] else ""
             cigars[b] = c + (f"{qlen[b]}I" if qlen[b] else "")
         out["cigars"] = cigars
@@ -284,7 +273,7 @@ def local_fused_tb(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
     """``local_fused`` plus pass 3 on device: each pair's [qs:qe] x
     [ts:te] window, cut at the pass-1 shapes, filled globally with
     pointers and walked.  Adds the window-global score ``score_w`` and
-    the walk's ``ops``/``ifin``/``jfin``.  Counterpart of
+    the walk's CIGAR ``text`` and its lengths ``nchar``.  Counterpart of
     ``_strip_local_fused_tb`` (without its link-era packing)."""
     res = local_fused(qpad, t2, qlen, tlen, tables, mq=mq, WR=WR, pass2=pass2,
                       tie_safe=tie_safe, err=err)
@@ -301,11 +290,11 @@ def local_fused_tb(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
     tw = row_window(t2, torch.where(live, res["ts"], zero), wt + 1, L=W2, lo=1,
                     fill=SENT_T, err=err[3:4])
     r3 = strip_fill(qw, tw, wq, wt, tables, mq=mq, mode="gmode", want_ptr=True)
-    ops, ifin, jfin, _, _ = strip_walk(
+    text, nchar, _ = strip_walk(
         r3["P"], wq, wt, zero, ((wq == 0) | (wt == 0)).to(torch.int32),
         affine=tables.affine,
     )
-    res.update(score_w=r3["bv"], ops=ops, ifin=ifin, jfin=jfin)
+    res.update(score_w=r3["bv"], text=text, nchar=nchar)
     return res
 
 
@@ -445,7 +434,8 @@ def strip_bucket(q, t, qlen, tlen, tables: Tables, *, mode: str,
     fused = local_fused_tb if fused_tb else local_fused
     res = fused(qpad, t2, qlen_d, tlen_d, tables, mq=m, WR=WR, pass2=pass2,
                 tie_safe=tie_safe, err=error_words(4, device))
-    host = {k: v.cpu().numpy() for k, v in res.items()}
+    text = res.pop("text") if fused_tb else None
+    host = {k: v.cpu().numpy() for k, v in res.items()}  # nchar among them
     # the four row windows' deferred range checks, read in the same copy
     raise_on_error(host["row_err"], (n_pad, W2, n_pad, W2))
     score = host["score"].astype(np.int32)
@@ -477,7 +467,8 @@ def strip_bucket(q, t, qlen, tlen, tables: Tables, *, mode: str,
         ok = ~fail & (score > 0)
         if not np.array_equal(host["score_w"][ok], score[ok]):
             raise RuntimeError("window-global score must equal the local score")
-        cigars = cigars_from_ops(host["ops"], host["ifin"], host["jfin"])
+        # the walk's deferred range check raises here
+        cigars = cigars_from_text(text, host["nchar"])
         for b in np.nonzero(score <= 0)[0]:
             cigars[b] = ""
         # escalated pairs were windowed from their pass-2 starts: rebuild

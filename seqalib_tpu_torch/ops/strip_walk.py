@@ -1,45 +1,89 @@
-"""Traceback walk (counterpart of ``strip_pallas.strip_walk_range``).
+"""Traceback walk that writes CIGARs (counterpart of
+``strip_pallas.strip_walk_range`` followed by ``_cigars_from_ops``).
 
 ``strip_walk(P, i, j, st, done, affine=)`` walks every pair's pointer
 matrix ``P`` (B, R, C) uint8 (the layout of ``strip_fill``) from cell
 (i, j) in state ``st`` (0 = H, 1 = E, 2 = F) until i < 1 or j < 1, or a
-STOP pointer in state H.  Returns ``(ops, i, j, st, done)``: ``ops``
-(B, R + C) uint8 holds the emitted ops (``utils.cigar.OP_M/I/D``) in
-start -> end order at the end of each row, 255 before them; the rest are
-the walkers' final (B,) int32 states.  Kernel: ``csrc/strip_walk.cu``.
+STOP pointer in state H.  Returns ``(text, nchar, state)``:
+
+- ``text`` (B, text_width(R, C)) uint8: pair b's CIGAR in ASCII in the
+  last ``nchar[b]`` bytes of row b (the bytes before them are undefined);
+- ``nchar`` (B,) int32: the CIGAR's length, or ``BAD_START`` for a pair
+  whose start cell lies outside P (i > R or j > C), which walks nothing;
+- ``state`` (4, B) int32: the walkers' final i, j, st, done.
+
+The CIGAR is the implicit boundary run the walk stopped at (i' > 0: i'
+I ops down column 0, else j' D ops along row 0), then the ops walked in
+start -> end order, run-length encoded: the boundary run merges with the
+first run walked when their ops agree.  It equals ``_cigars_from_ops`` of
+the JAX walk's op matrix and final (i', j').
+
+A CPU tensor runs ``strip_walk_ref`` and refuses a start cell outside P at
+once.  A CUDA tensor launches the kernel (``csrc/strip_walk.cu``) and
+nothing else: no device-to-host sync and no copy, so the range check is
+deferred to ``cigars_from_text``: the caller copies ``nchar`` to the host
+in the copy it makes anyway, and ``cigars_from_text`` copies the used tail
+of ``text``, decodes it and raises the same ``ValueError``.  The kernel
+copies 16-byte segments of P: a CUDA P must start 16-byte aligned.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..types import PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP
-from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD
+from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD, op_rows_to_cigars
 
 from . import launches
 
 ST_H, ST_E, ST_F = 0, 1, 2
+BAD_START = -1  # nchar of a pair whose start cell lies outside P
+
+
+def text_width(R: int, C: int) -> int:
+    """Bytes of a text row: a walk takes at most R + C ops, a run of n ops
+    at most 2n bytes, and the boundary run adds a letter and 10 digits."""
+    return 2 * (R + C) + 12
 
 
 def _check(P, state):
     if P.dtype != torch.uint8 or P.dim() != 3:
         raise ValueError("strip_walk: P must be a (B, R, C) uint8 tensor")
-    B, R, C = P.shape
+    B = P.shape[0]
     for v in state:
         if v.dtype != torch.int32 or v.shape != (B,) or v.device != P.device:
             raise ValueError(f"strip_walk: walker state must be ({B},) int32")
-    i, j = state[0], state[1]
-    if bool(((i > R) | (j > C)).any()):
-        raise ValueError("strip_walk: a start cell lies outside P")
+
+
+def _bad_start(b: int):
+    return ValueError(f"strip_walk: pair {b}'s start cell lies outside P")
+
+
+def cigars_from_text(text, nchar) -> list[str]:
+    """The CIGARs of a walk from its ``text`` tensor and its ``nchar``,
+    best already on the host (a device tensor costs one more copy): copies
+    only the last max(nchar) bytes of the text rows, and decodes one slice
+    per pair.  Raises ``ValueError`` when a pair's start cell lay outside
+    P."""
+    n = torch.as_tensor(nchar).tolist()
+    if min(n, default=0) < 0:
+        raise _bad_start(n.index(BAD_START))
+    W = max(n, default=0)
+    raw = text[:, text.shape[1] - W:].contiguous().cpu().numpy().tobytes()
+    return [raw[(b + 1) * W - x: (b + 1) * W].decode("ascii") for b, x in enumerate(n)]
 
 
 def strip_walk_ref(P, i, j, st, done, *, affine: bool):
-    """Plain PyTorch version: a lockstep walk vectorized over pairs."""
+    """Plain PyTorch version: a lockstep walk vectorized over pairs, its op
+    rows encoded with ``op_rows_to_cigars`` and packed at the rows' ends."""
     B, R, C = P.shape
-    L = R + C
     dev = P.device
+    i0, j0, st0, done0 = i, j, st, done
+    bad = (i > R) | (j > C)
     i, j, st = i.long(), j.long(), st.long()
-    done = done != 0
+    done = (done != 0) | bad
+    L = R + C
     ops = torch.full((B, L), OP_PAD, dtype=torch.uint8, device=dev)
     pos = torch.full((B,), L, dtype=torch.int64, device=dev)
     rows = torch.arange(B, device=dev)
@@ -70,31 +114,51 @@ def strip_walk_ref(P, i, j, st, done, *, affine: bool):
             )
         i = i - (act_m | act_i).long()
         j = j - (act_m | act_d).long()
-    return (ops, i.to(torch.int32), j.to(torch.int32), st.to(torch.int32),
-            done.to(torch.int32))
+    ih, jh = i.cpu().numpy(), j.cpu().numpy()
+    strings = op_rows_to_cigars(ops.cpu().numpy(), np.where(ih > 0, OP_I, OP_D),
+                                np.where(ih > 0, ih, np.maximum(jh, 0)))
+    W = text_width(R, C)
+    text = np.zeros((B, W), np.uint8)
+    nchar = np.empty(B, np.int32)
+    for b, s in enumerate(strings):
+        nchar[b] = len(s)
+        text[b, W - len(s):] = np.frombuffer(s.encode("ascii"), np.uint8)
+    nchar[bad.cpu().numpy()] = BAD_START
+    state = torch.stack([torch.where(bad, i0, i.to(torch.int32)),
+                         torch.where(bad, j0, j.to(torch.int32)),
+                         torch.where(bad, st0, st.to(torch.int32)),
+                         torch.where(bad, done0, done.to(torch.int32))])
+    return (torch.from_numpy(text).to(dev), torch.from_numpy(nchar).to(dev), state)
 
 
 def strip_walk(P, i, j, st, done, *, affine: bool):
     """Walk every pair; see the module docstring.  A CPU tensor runs
     ``strip_walk_ref``; a CUDA tensor the kernel."""
     P = P.contiguous()
-    # the kernel updates the walker state in place: work on copies
-    state = [v.to(torch.int32).clone().contiguous() for v in (i, j, st, done)]
+    state = [v.to(torch.int32).contiguous() for v in (i, j, st, done)]
     _check(P, state)
+    B, R, C = P.shape
     if P.device.type == "cpu":
+        bad = ((state[0] > R) | (state[1] > C)).nonzero()
+        if len(bad):
+            raise _bad_start(int(bad[0, 0]))
         return strip_walk_ref(P, *state, affine=affine)
     if P.device.type != "cuda":
         raise ValueError(f"strip_walk: unsupported device {P.device}")
+    if P.data_ptr() % 16:
+        raise ValueError("strip_walk: P must start 16-byte aligned on the card")
     from .._build import launch
 
-    B, R, C = P.shape
-    ops = torch.full((B, R + C), OP_PAD, dtype=torch.uint8, device=P.device)
+    W = text_width(R, C)
+    text = torch.empty((B, W), dtype=torch.uint8, device=P.device)
+    nchar = torch.empty((B,), dtype=torch.int32, device=P.device)
+    out = torch.empty((4, B), dtype=torch.int32, device=P.device)
     if B == 0:
-        return (ops, *state)
+        return text, nchar, out
     launch(
         "strip_walk", P.device, "seqalib_strip_walk",
-        P.data_ptr(), R, C, *(v.data_ptr() for v in state), ops.data_ptr(),
-        R + C, B, int(affine),
+        P.data_ptr(), R, C, *(v.data_ptr() for v in state), text.data_ptr(), W,
+        nchar.data_ptr(), out.data_ptr(), B, int(affine),
     )
     launches["strip_walk"] += 1
-    return (ops, *state)
+    return text, nchar, out

@@ -6,13 +6,16 @@ kernels on the card at the main path's shapes).  On a machine with a card:
 
 Exact equality: the kernels do integer DP."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from seqalib_tpu import oracle_fast
-from seqalib_tpu.types import BLOSUM62, ScoringParams
+from seqalib_tpu.types import BLOSUM62, PTR_DIAG, PTR_LEFT, PTR_UP, ScoringParams
 from seqalib_tpu_torch import align_batch
+from seqalib_tpu_torch._build import CSRC
 from seqalib_tpu_torch.models.banded import _geometry, _pad_letters
 from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops.band_fill import band_fill, band_fill_ref, band_table
@@ -26,6 +29,7 @@ from seqalib_tpu_torch.ops.sp_tile import (sp_tile, sp_tile_ptr, sp_tile_ptr_ref
                                            sp_tile_ref, sp_tile_run, sp_tile_run_ref)
 from seqalib_tpu_torch.ops.strip import prep_strip
 from seqalib_tpu_torch.ops.strip_fill import strip_fill, strip_fill_ref
+from seqalib_tpu_torch.ops import strip_walk as sw_mod
 from seqalib_tpu_torch.ops.strip_walk import strip_walk, strip_walk_ref
 from seqalib_tpu_torch.ops.wavefront import (wavefront_fill, wavefront_fill_ref,
                                              wavefront_inputs)
@@ -78,6 +82,16 @@ def test_strip_fill_kernel_matches_plain_version(dev, scoring, mode, want_ptr):
         assert torch.equal(got[k], want[k]), k
 
 
+def _same_walk(got, want):
+    """Two ``strip_walk`` results agree: nchar, the final states, and each
+    row's last nchar text bytes (the bytes before them are undefined)."""
+    (gt, gn, gs), (wt, wn, ws) = got, want
+    assert torch.equal(gn, wn) and torch.equal(gs, ws)
+    W = gt.shape[1]
+    keep = torch.arange(W, device=gt.device)[None, :] >= W - gn.long()[:, None]
+    assert torch.equal(torch.where(keep, gt, 0), torch.where(keep, wt, 0))
+
+
 @pytest.mark.parametrize("scoring", sorted(SCORINGS))
 def test_strip_walk_kernel_matches_plain_version(dev, scoring):
     sp, alpha = SCORINGS[scoring]
@@ -89,9 +103,129 @@ def test_strip_walk_kernel_matches_plain_version(dev, scoring):
     got = strip_walk(*args, affine=tables.affine)
     torch.cuda.synchronize()
     assert launches["strip_walk"] == before + 1
-    want = strip_walk_ref(*args, affine=tables.affine)
-    for g, w in zip(got, want, strict=True):
-        assert torch.equal(g, w)
+    _same_walk(got, strip_walk_ref(*args, affine=tables.affine))
+
+
+WALK_FILLS = {"up": PTR_UP, "left": PTR_LEFT, "diagonal": PTR_DIAG}
+# the kernel's staged block: the steps between two copies
+WALK_TILE = int(re.search(r"constexpr int kTile = (\d+);",
+                          (CSRC / "strip_walk.cu").read_text()).group(1))
+
+
+@pytest.mark.parametrize("C", [197, 198])
+@pytest.mark.parametrize("direction", sorted(WALK_FILLS))
+def test_strip_walk_kernel_on_straight_walks_across_the_staged_blocks(dev, direction, C):
+    """Walks straight up, left or down the diagonal of T - 1 .. 3T + 1
+    steps (T the kernel's tile), so that they end on either side of a
+    staged block's edge, from start columns near 0 and near the row's end,
+    on odd and even strides."""
+    tile = WALK_TILE
+    R = 197
+    steps = [tile - 1, tile, tile + 1, 2 * tile - 1, 2 * tile, 2 * tile + 1, 3 * tile + 1]
+    starts = []
+    for n in steps:
+        for far in (n, C):  # the walk ends at column 0, or far from it
+            if direction == "up":
+                starts.append((min(n, R), max(1, far - n // 2)))
+            elif direction == "left":
+                starts.append((max(1, min(R, far) - 3), min(n, C)))
+            else:
+                starts.append((min(n, R), min(far, C)))
+    P = torch.full((len(starts), R, C), WALK_FILLS[direction], dtype=torch.uint8,
+                   device=dev)
+    i = torch.tensor([s[0] for s in starts], dtype=torch.int32, device=dev)
+    j = torch.tensor([s[1] for s in starts], dtype=torch.int32, device=dev)
+    z = torch.zeros_like(i)
+    got = strip_walk(P, i, j, z, z, affine=False)
+    _same_walk(got, strip_walk_ref(P, i, j, z, z, affine=False))
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("B,R,C", [(1, 700, 901), (512, 300, 255), (37, 64, 64)])
+def test_strip_walk_kernel_on_random_pointer_bytes(dev, B, R, C, affine):
+    """Random pointer bytes (STOP pointers, E and F states) and start
+    states; a tenth of the pairs done at the start, one pair starting at
+    (R, C).  A run of one op each way; long runs come from a band of
+    diagonal bytes around the main diagonal."""
+    rng = np.random.default_rng(B + R + C + affine)
+    Pn = rng.integers(1, 16, size=(B, R, C)).astype(np.uint8)
+    Pn[rng.random(Pn.shape) < 0.002] &= 12  # a few STOP pointers
+    diag = np.abs(np.arange(R)[:, None] - np.arange(C)[None, :]) < 3
+    Pn[: B // 2, diag] = (Pn[: B // 2, diag] & 12) | PTR_DIAG
+    P = torch.as_tensor(Pn, device=dev)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)  # noqa: E731
+    i = rng.integers(0, R + 1, size=B)
+    j = rng.integers(0, C + 1, size=B)
+    i[0], j[0] = R, C
+    st = rng.integers(0, 3 if affine else 1, size=B)
+    done = rng.random(B) < 0.1
+    done[0] = False
+    args = (P, as_t(i), as_t(j), as_t(st), as_t(done))
+    got = strip_walk(*args, affine=affine)
+    _same_walk(got, strip_walk_ref(*args, affine=affine))
+
+
+def test_strip_walk_makes_one_launch_and_no_sync(dev):
+    """Under the sync debug mode a device-to-host transfer raises; the
+    profiler sees one kernel per call and nothing else on the device."""
+    P = torch.full((64, 300, 301), PTR_DIAG, dtype=torch.uint8, device=dev)
+    i = torch.full((64,), 300, dtype=torch.int32, device=dev)
+    z = torch.zeros_like(i)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = strip_walk(P, i, i, z, z, affine=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _same_walk(got, strip_walk_ref(P, i, i, z, z, affine=True))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        strip_walk(P, i, i, z, z, affine=True)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "strip_walk_kernel" in kernels[0], kernels
+
+
+def test_strip_walk_refuses_an_unaligned_pointer_array(dev):
+    """The kernel copies 16-byte segments of P: a P that does not start on
+    one raises at once (the wrapper makes no copy of P)."""
+    flat = torch.full((1 + 2 * 40 * 41,), PTR_DIAG, dtype=torch.uint8, device=dev)
+    P = flat[1:].view(2, 40, 41)
+    i = torch.full((2,), 40, dtype=torch.int32, device=dev)
+    z = torch.zeros_like(i)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        strip_walk(P, i, i, z, z, affine=False)
+
+
+def test_strip_walk_defers_its_range_check_to_the_host_copy(dev, monkeypatch):
+    """A start cell outside P walks nothing on the card (nchar -1, its state
+    kept); ``strip_bucket`` raises the ValueError when it decodes its copy."""
+    P = torch.full((3, 40, 41), PTR_DIAG, dtype=torch.uint8, device=dev)
+    i = torch.tensor([40, 41, 7], dtype=torch.int32, device=dev)
+    j = torch.tensor([41, 5, 42], dtype=torch.int32, device=dev)
+    z = torch.zeros_like(i)
+    text, nchar, state = strip_walk(P, i, j, z, z, affine=False)
+    assert nchar.tolist() == [len("1D40M"), sw_mod.BAD_START, sw_mod.BAD_START]
+    assert state[:2, 1:].tolist() == [[41, 7], [5, 42]]
+    with pytest.raises(ValueError, match="pair 1's start cell lies outside P"):
+        sw_mod.cigars_from_text(text, nchar)
+    from seqalib_tpu_torch.ops import strip as strip_mod
+
+    real = strip_mod.strip_walk
+
+    def shifted(P, i, j, st, done, **kw):
+        return real(P, i + P.shape[1] * (torch.arange(len(i), device=i.device) == 1), j,
+                    st, done, **kw)
+
+    monkeypatch.setattr(strip_mod, "strip_walk", shifted)
+    rng = np.random.default_rng(3)
+    q = rng.integers(0, 4, size=(2, 40))
+    tables = tables_from_params(scoring_params(2, -3, -5, -2, None), dev)
+    for mode in ("local", "global"):
+        with pytest.raises(ValueError, match="start cell lies outside P"):
+            strip_mod.strip_bucket(q, q.copy(), np.array([40, 31]), np.array([40, 35]),
+                                   tables, mode=mode, want_tb=True)
 
 
 def _window_args(dev, seed, N=40):
