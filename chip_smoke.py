@@ -71,9 +71,26 @@ Phases (any failure raises and exits non-zero):
    ``align_batch(band=256)``'s; 10 DNA pairs of 600-1000 letters (one
    empty) at band 32 and one BLOSUM62 protein pair of 800 letters equal to
    the banded oracle on meshes of 1 and 4;
-9. every kernel was launched by its path: the launch counts are set to 0
-   just before each path's runs (1 warm-up + 3 timed calls) and read just
-   after.
+9. the CLI and all-vs-all, in process: ``python -m seqalib_tpu_torch bench
+   all --pairs 512 --reads 10000 --refs 100 --parity-check`` (configs 1-5,
+   one JSON line each, every one through its oracle parity gate; config 5
+   is the all-vs-all product of 10 000 reads of 128-256 letters against 100
+   references of 512-1 024, a tenth of the contract's 1 000 references);
+   256 sampled pairs of that product equal ``align_batch(mode="local",
+   traceback=False)``; a 500 x 20 product in chunks of 1 024 resumed from its
+   shards with ``run_bucket`` made to raise equals the first run; the launch
+   half of one 8 192-pair config-5 chunk (reads of the 256 bucket against
+   references of the 1 024 bucket, gathered as the product gathers a chunk)
+   makes no device-to-host sync (``torch.cuda.set_sync_debug_mode("error")``)
+   and its finalize equals the product; every kernel call of that chunk and
+   of config 2's fullest bucket (the linear-gap ``strip_fill/local``, both
+   ``row_window`` calls, ``band_fill/emode``, and ``strip_fill/emode`` where a
+   pair escalates) is held exactly against its plain version on the same
+   device inputs, and timed, with its bound; the launch counts of configs 2
+   and 5 include every kernel of the slice's path;
+10. every kernel was launched by its path: the launch counts are set to 0
+   just before each path's runs (1 warm-up + 3 timed calls; for the CLI's
+   configs, each config's run) and read just after.
 
 The kernel phase prints the warps per pair of each ``strip_fill`` key, the
 window's ring of each ``wavefront_fill`` key and, under ``torch.profiler``,
@@ -107,12 +124,17 @@ port, NumPy and PyTorch, never JAX or the JAX package: the oracle it
 checks against is the port's ``backend="oracle"``.
 """
 
+import argparse
+import contextlib
+import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -155,6 +177,14 @@ B7, L7, BAND7 = 64, 1000, 64
 BSP, LSP, BANDSP, DSP = 16, 100_000, 256, 4
 RELAY_CUT, WALK_CUT = 2048, 4096
 BSP_ORACLE_N, BSP_ORACLE_BAND, BSP_PROTEIN_N = 10, 32, 800
+# the CLI phase (9): bench all at the geometry of BASELINE.json:7-11, config 5
+# with a tenth of its references; the all-vs-all checks
+BENCH_PAIRS = 512
+BENCH_ARGS = ["bench", "all", "--pairs", str(BENCH_PAIRS), "--reads", "10000", "--refs", "100",
+              "--parity-check"]
+AVALL_SAMPLE, AVALL_CHUNK = 256, 8192
+RESUME_READS, RESUME_REFS, RESUME_CHUNK = 500, 20, 1024
+SLICE_KERNELS = ("strip_fill/local", "row_window", "band_fill/emode")
 # the edge checks of the redesigned fills: a ragged strip batch, and
 # wavefront fills of 300-letter pairs with a band over the slots (Np 384)
 # and with deltas past the band
@@ -423,17 +453,21 @@ def _key(name, args, kw):
     return f"{name}/{kw['mode']}" if name == "strip_fill" else name
 
 
-def record(run, targets, keep=lambda args, kw: True):
+def record(run, targets, keep=lambda args, kw: True, every=False):
     """Run ``run()`` with each wrapper ``(module, name, plain)`` of
     ``targets`` patched to keep its first call per key whose arguments
-    ``keep`` accepts: (kernel, plain, args, kwargs, result)."""
+    ``keep`` accepts: (kernel, plain, args, kwargs, result).  With
+    ``every``, each call is kept, the n-th of a key under ``"key #n"``."""
     calls = {}
 
     def recording(name, fn, plain):
         def wrapped(*args, **kw):
             res = fn(*args, **kw)
             if keep(args, kw):
-                calls.setdefault(_key(name, args, kw), (fn, plain, args, kw, res))
+                key = _key(name, args, kw)
+                if every:
+                    key += f" #{sum(k.split(' #')[0] == key for k in calls) + 1}"
+                calls.setdefault(key, (fn, plain, args, kw, res))
             return res
         return wrapped
 
@@ -603,6 +637,67 @@ def kernel_phase3(q, t, sp, dev):
                                     if key == "strip_walk" else "")
                   for key, (fn, plain, args, kw, _) in calls.items()}
     return per_kernel, int(out["escalated"].sum())
+
+
+def kernel_phase_bucket(q, t, qlen, tlen, sp, dev, label):
+    """Every kernel call of one local score-only bucket, made as the CLI's
+    configs 2 and 5 make it (``run_bucket``), held against its plain
+    version on the same device inputs."""
+    from seqalib_tpu_torch.ops import band_fill as bf_mod
+    from seqalib_tpu_torch.ops import row_window as rw_mod
+    from seqalib_tpu_torch.ops import strip as strip_mod
+    from seqalib_tpu_torch.ops import strip_fill as sf_mod
+    from seqalib_tpu_torch.parallel import dispatch
+
+    targets = [(strip_mod, "row_window", rw_mod.row_window_ref),
+               (strip_mod, "strip_fill", sf_mod.strip_fill_ref),
+               (strip_mod, "band_fill", bf_mod.band_fill_ref)]
+    calls, _ = record(lambda: dispatch.run_bucket(q, t, qlen, tlen, sp, "local", None, False,
+                                                  dev), targets, every=True)
+    keys = [k.split(" #") for k in calls]
+    missing = [k for k in SLICE_KERNELS if [k, "1"] not in keys]
+    if missing:
+        raise AssertionError(f"{label}: no call of {missing}")
+    for (key, n), (fn, plain, args, kw, _) in zip(keys, calls.values()):
+        kernel_entry(key, fn, plain, args, kw, label=f" ({label}, call {n})")
+    say(f"[kernel] {label}: B {len(q)}, {q.shape[1]} x {t.shape[1]}: all {len(calls)} kernel "
+        f"calls equal to their plain versions")
+
+
+def product_chunk(reads, refs, n):
+    """The first ``n`` pairs of the product's block of the longest read
+    bucket against the longest reference bucket, gathered and padded as
+    ``align_all_vs_all`` gathers a chunk: (q, t, qlen, tlen, ii, jj)."""
+    from seqalib_tpu_torch.parallel.dispatch import _pad_stack, bucket_len
+
+    Lq = max(bucket_len(len(x)) for x in reads)
+    Lt = max(bucket_len(len(x)) for x in refs)
+    qi = np.array([i for i, x in enumerate(reads) if bucket_len(len(x)) == Lq])
+    rj = np.array([j for j, x in enumerate(refs) if bucket_len(len(x)) == Lt])
+    flat = np.arange(min(n, len(qi) * len(rj)))
+    ii, jj = qi[flat // len(rj)], rj[flat % len(rj)]
+    q = _pad_stack([reads[i] for i in ii], Lq)
+    t = _pad_stack([refs[j] for j in jj], Lt)
+    qlen = np.array([len(reads[i]) for i in ii], np.int32)
+    tlen = np.array([len(refs[j]) for j in jj], np.int32)
+    return q, t, qlen, tlen, ii, jj
+
+
+def config2_bucket(dev):
+    """The CLI's config-2 pairs (``bench 2 --pairs BENCH_PAIRS``, seed 0) of
+    its fullest length bucket, padded as ``dispatch_batch`` pads them."""
+    from seqalib_tpu_torch import cli
+    from seqalib_tpu_torch.parallel.dispatch import _pad_stack, bucket_len
+
+    args = argparse.Namespace(pairs=BENCH_PAIRS, backend="strip", device=dev)
+    sp, qs, ts = cli._bench_setup(args, 2, np.random.default_rng(0))[:3]
+    buckets = {}
+    for i, (q, t) in enumerate(zip(qs, ts)):
+        buckets.setdefault((bucket_len(len(q)), bucket_len(len(t))), []).append(i)
+    (Lq, Lt), idx = max(buckets.items(), key=lambda kv: (len(kv[1]), kv[0]))
+    return (_pad_stack([qs[i] for i in idx], Lq), _pad_stack([ts[i] for i in idx], Lt),
+            np.array([len(qs[i]) for i in idx], np.int32),
+            np.array([len(ts[i]) for i in idx], np.int32), sp)
 
 
 def kernel_phase1(q, t, sp, dev):
@@ -1184,6 +1279,114 @@ def banded_sp_runs(qs, ts, qo, to, qp, tp, sp, spp, dev, counts):
         f"and {DSP}")
 
 
+def cli_runs(dev, card, counts):
+    """Phase 9: ``bench all`` through the CLI, then the all-vs-all checks."""
+    import torch
+
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch import api, cli
+    from seqalib_tpu_torch.ops import launches, reset_launches
+    from seqalib_tpu_torch.parallel import dispatch
+
+    say("[cli] config 5 cut: 10 000 reads x 100 references (BASELINE.json:11 has 10 000 x "
+        "1 000: the references cut to a tenth)")
+    products = []
+    real_ava, real_one = api.align_all_vs_all, cli._bench_one
+
+    def keep(queries, references, **kw):  # the product's result, for the checks below
+        out = real_ava(queries, references, **kw)
+        products.append((queries, references, kw, out))
+        return out
+
+    def counted(args, cfg):
+        reset_launches()
+        out = real_one(args, cfg)
+        counts[f"bench{cfg}"] = dict(launches)
+        return out
+
+    api.align_all_vs_all, cli._bench_one = keep, counted
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(BENCH_ARGS)
+    finally:
+        api.align_all_vs_all, cli._bench_one = real_ava, real_one
+    lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    for line in lines:
+        say(json.dumps(line))
+        say(f"[cli] config {line['config']}: {line['pairs']} pairs, wall {line['wall_s']} s, "
+            f"{line['pairs_per_sec']} pairs/s, {line['gcups_end_to_end']} GCUPS end to end "
+            f"({card})")
+    if rc != 0 or [x["config"] for x in lines] != [1, 2, 3, 4, 5] or not all(
+            x.get("parity_ok") is True for x in lines):
+        raise AssertionError(f"bench all: rc {rc}, lines {lines}")
+    say("[cli] bench all: rc 0, every config's parity gate passed")
+    for cfg in (2, 5):
+        c = counts[f"bench{cfg}"]
+        say(f"[launches] bench config {cfg} (warm-up, timed run, parity): "
+            f"{ {k: v for k, v in c.items() if v} }")
+        missing = [k for k in SLICE_KERNELS if c.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"bench config {cfg} never launched {missing}")
+
+    reads, refs, kw, out = products[-1]
+    sp = kw["scoring"]
+    rng = np.random.default_rng(SEED + 2)
+    ii = rng.integers(len(reads), size=AVALL_SAMPLE)
+    jj = rng.integers(len(refs), size=AVALL_SAMPLE)
+    want = st.api.align_batch([reads[i] for i in ii], [refs[j] for j in jj], scoring=sp,
+                              mode="local", traceback=False, device=dev)
+    for i, j, w in zip(ii, jj, want):
+        got = tuple(int(out[f][i, j]) for f in ("score", "qs", "qe", "ts", "te"))
+        if got != (w.score, w.query_start, w.query_end, w.target_start, w.target_end):
+            raise AssertionError(f"config 5 pair ({i}, {j}): {got} != align_batch {w}")
+    say(f"[avall] {AVALL_SAMPLE} sampled pairs of the {len(reads)} x {len(refs)} product "
+        f"equal align_batch(mode='local', traceback=False)")
+
+    sub_r, sub_f = reads[:RESUME_READS], refs[:RESUME_REFS]
+    rkw = dict(scoring=sp, chunk_pairs=RESUME_CHUNK, device=dev)
+    base = st.align_all_vs_all(sub_r, sub_f, **rkw)
+    tmp = tempfile.mkdtemp(prefix="avall_resume_")
+    real_run = dispatch.run_bucket
+    try:
+        first = st.align_all_vs_all(sub_r, sub_f, resume_dir=tmp, **rkw)
+        shards = len(os.listdir(tmp))
+
+        def refuse(*a, **k):
+            raise AssertionError("a resumed product realigned a finished chunk")
+
+        dispatch.run_bucket = refuse
+        try:
+            second = st.align_all_vs_all(sub_r, sub_f, resume_dir=tmp, **rkw)
+        finally:
+            dispatch.run_bucket = real_run
+    finally:
+        shutil.rmtree(tmp)
+    for f in base:
+        if not (np.array_equal(base[f], first[f]) and np.array_equal(base[f], second[f])):
+            raise AssertionError(f"resume changed {f}")
+    say(f"[avall] resume: a {RESUME_READS} x {RESUME_REFS} product in {shards} shards of "
+        f"<= {RESUME_CHUNK} pairs reloaded with run_bucket refusing; equal to the first run")
+
+    q, t, qlen, tlen, ci, cj = product_chunk(reads, refs, AVALL_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = dispatch.run_bucket(q, t, qlen, tlen, sp, "local", None, False, dev,
+                                     launch_only=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res = finish()
+    for f in ("score", "qs", "qe", "ts", "te"):
+        if not np.array_equal(res[f], out[f][ci, cj]):
+            raise AssertionError(f"the sync-free chunk's {f} differs from the product's")
+    say(f"[avall] the launch half of a {len(q)}-pair chunk ({q.shape[1]} x "
+        f"{t.shape[1]}) made no device-to-host sync; its result equals the product's")
+    kernel_phase_bucket(q, t, qlen, tlen, sp, dev, "config 5 chunk")
+    q2, t2, qlen2, tlen2, sp2 = config2_bucket(dev)
+    kernel_phase_bucket(q2, t2, qlen2, tlen2, sp2, dev, "config 2 bucket")
+
+
 def main() -> int:
     import torch
 
@@ -1283,10 +1486,12 @@ def main() -> int:
     wide_runs(qs7, ts7, sp7, sp3, dev, counts)
     say(f"[time] wide-table phase done at {time.perf_counter() - t_start:.1f} s")
     banded_sp_runs(qsb, tsb, qob, tob, qpb, tpb, sp4, sp3, dev, counts)
+    say(f"[time] banded-SP phase done at {time.perf_counter() - t_start:.1f} s")
+    cli_runs(dev, card, counts)
     say(f"[time] paths done at {time.perf_counter() - t_start:.1f} s")
 
     for path, c in counts.items():
-        say(f"[launches] {path} (1 warm-up + {REPS} timed calls): "
+        say(f"[launches] {path} (1 warm-up + {REPS} timed calls, or the CLI's run): "
             f"{ {k: v for k, v in c.items() if v} }")
     missing = [k for k, (_, _, path) in KERNELS.items() if counts[path].get(k, 0) <= 0]
     if missing:

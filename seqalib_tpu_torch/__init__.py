@@ -1,7 +1,8 @@
 """seqalib_tpu_torch — the PyTorch + CUDA port of seqalib_tpu.
 
 Runs local and global alignment (scores, canonical coordinates, full
-CIGARs), banded global alignment of long reads (``band=``), the
+CIGARs), all-vs-all products with resume (``align_all_vs_all``), banded
+global alignment of long reads (``band=``), the
 full-matrix alignment of one long pair split over a list of devices
 (``align_score_sp``, ``align_sp``) and banded long pairs split into row
 blocks over a list of devices (``align_score_banded_sp``,
@@ -21,8 +22,19 @@ from .types import (  # noqa: F401
     encode_protein,
 )
 
-from .api import align, align_batch  # noqa: F401
+from .api import align, align_all_vs_all  # noqa: F401
 from .parallel.band_pipeline import make_band_mesh  # noqa: F401
+
+
+def align_batch(queries, targets, scoring=None, mode="global", backend="strip", **kw):
+    """Align many pairs (length-bucketed, device-batched).  Global by
+    default, as ``seqalib_tpu.align_batch``; ``api.align_batch`` defaults to
+    local, as ``seqalib_tpu.api.align_batch`` does.  See
+    ``seqalib_tpu_torch.api``."""
+    from .api import align_batch as _align_batch
+
+    return _align_batch(queries, targets, scoring=scoring, mode=mode, backend=backend,
+                        **kw)
 
 
 def align_score_sp(query, target, scoring, mesh, mode="global", **kw):

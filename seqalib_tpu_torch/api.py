@@ -1,7 +1,8 @@
 """Public alignment API of the port (counterpart of ``seqalib_tpu/api.py``).
 
 ``align``: one pair.  ``align_batch``: many pairs through the bucketed
-dispatcher.  Same parameters as the JAX package, plus ``device``
+dispatcher.  ``align_all_vs_all``: every query against every reference,
+in chunks, with resume shards.  Same parameters as the JAX package, plus ``device``
 (default ``"cuda"``).  Backends: ``"strip"`` (the default: the CUDA
 kernels on a CUDA device, their plain PyTorch versions on the CPU; with
 ``band=`` and ``mode="global"`` the banded long-read path) and
@@ -11,7 +12,10 @@ kernels on a CUDA device, their plain PyTorch versions on the CPU; with
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import hashlib
+import logging
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,6 +29,9 @@ from .types import (
 )
 
 BACKENDS = ("strip", "oracle")
+AVALL_FIELDS = ("score", "qs", "qe", "ts", "te")
+
+log = logging.getLogger("seqalib_tpu_torch.api")
 
 
 def _coerce(seq, sp: ScoringParams) -> np.ndarray:
@@ -100,3 +107,167 @@ def align_batch(
 
     return dispatch_batch(qs, ts, sp, mode=mode, band=band, traceback=traceback,
                           device=_device(device))
+
+
+def _avall_key(qs, rs, chunk_pairs: int, sp: ScoringParams, mode: str) -> str:
+    """Content key for resume shards: inputs, chunking, scoring, and mode
+    must all match (backend is deliberately excluded — all backends are
+    bit-exact by contract, so shards are interchangeable across them, and
+    across this package and the JAX one).  A copy of
+    ``seqalib_tpu/api.py::_avall_key``."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(
+        str(
+            (
+                "avall-v2-grouped",  # chunk layout version: bucket-grouped
+                len(qs),
+                len(rs),
+                chunk_pairs,
+                mode,
+                sp.match,
+                sp.mismatch,
+                sp.gap_open,
+                sp.gap_extend,
+            )
+        ).encode()
+    )
+    if sp.matrix is not None:
+        h.update(np.asarray(sp.matrix).tobytes())
+    h.update(b"#")
+    for s in qs:
+        h.update(s.tobytes())
+        h.update(b"|")
+    h.update(b"#")
+    for s in rs:
+        h.update(s.tobytes())
+        h.update(b"|")
+    return h.hexdigest()
+
+
+def align_all_vs_all(
+    queries: Sequence,
+    references: Sequence,
+    scoring: Optional[ScoringParams] = None,
+    mode: str = "local",
+    backend: str = "strip",
+    mesh=None,
+    chunk_pairs: int = 4096,
+    resume_dir: Optional[str] = None,
+    device="cuda",
+) -> Dict[str, np.ndarray]:
+    """All-vs-all alignment (BASELINE.json config 5): every query against
+    every reference on ``device``, streamed through the strip engine in
+    chunks of at most ``chunk_pairs`` pairs.
+
+    Returns a dict of (n_queries, n_references) int32 arrays: score, qs,
+    qe, ts, te.  Tracebacks are excluded at this scale; realign the hits
+    you care about with ``align``.
+
+    Both sides are padded into per-bucket matrices once (``bucket_len``);
+    a chunk is a row gather of one (query bucket, reference bucket) block
+    of the product.  Each chunk is launched (``run_bucket(launch_only=True)``)
+    before the previous one is finalized, so that the host's work on one
+    overlaps the device's on the other.
+
+    ``resume_dir``: each chunk writes ``chunk_NNNNNN.npz`` atomically (tmp
+    + rename) with its pair indices and a content key (``_avall_key``); a
+    rerun with the same inputs and chunking loads finished shards instead
+    of realigning them.  The shards are those of
+    ``seqalib_tpu.align_all_vs_all``: either package resumes the other's.
+    ``backend`` takes ``"strip"`` only: the oracle aligns no product (the
+    JAX package refuses it too)."""
+    if backend != "strip":
+        raise ValueError(f"align_all_vs_all runs backend 'strip', got {backend!r}")
+    if mode not in ("local", "global"):
+        raise ValueError(f"mode must be global|local, got {mode!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh dispatch is not ported yet (ROADMAP.md Queue 1 item 8)"
+        )
+    from .parallel.dispatch import _pad_stack, bucket_len, run_bucket
+
+    dev = _device(device)
+    sp = scoring if scoring is not None else ScoringParams.linear()
+    qs = [_coerce(q, sp) for q in queries]
+    rs = [_coerce(r, sp) for r in references]
+    nq, nr = len(qs), len(rs)
+    out = {f: np.zeros((nq, nr), np.int32) for f in AVALL_FIELDS}
+    key = ""
+    if resume_dir is not None:
+        os.makedirs(resume_dir, exist_ok=True)
+        key = _avall_key(qs, rs, chunk_pairs, sp, mode)
+
+    def _groups(seqs):
+        g: Dict[int, List[int]] = {}
+        for i, s in enumerate(seqs):
+            g.setdefault(bucket_len(len(s)), []).append(i)
+        return {
+            bl: (
+                np.asarray(idx, np.int64),
+                _pad_stack([seqs[i] for i in idx], bl),
+                np.asarray([len(seqs[i]) for i in idx], np.int32),
+            )
+            for bl, idx in sorted(g.items())
+        }
+
+    def _collect(chunk):
+        finish, ii, jj, shard = chunk
+        res = finish()
+        vals = {f: np.asarray(res[f], np.int32) for f in AVALL_FIELDS}
+        for f in AVALL_FIELDS:
+            out[f][ii, jj] = vals[f]
+        if shard is not None:
+            tmp = shard + ".tmp.npz"
+            np.savez(tmp, n=np.int64(len(ii)), key=key, ii=ii, jj=jj, **vals)
+            os.replace(tmp, shard)
+
+    ci = 0
+    resumed = 0
+    pending = None  # the chunk in flight: (finalize, ii, jj, shard)
+    qg, rg = _groups(qs), _groups(rs)
+    for qidx, Qmat, qleng in qg.values():
+        for ridx, Rmat, rleng in rg.values():
+            NRg = len(ridx)
+            total = len(qidx) * NRg
+            for lo in range(0, total, chunk_pairs):
+                hi = min(lo + chunk_pairs, total)
+                shard = (os.path.join(resume_dir, f"chunk_{ci:06d}.npz")
+                         if resume_dir is not None else None)
+                ci += 1
+                flat = np.arange(lo, hi, dtype=np.int64)
+                ai = flat // NRg
+                bj = flat % NRg
+                ii = qidx[ai]
+                jj = ridx[bj]
+                if shard is not None and os.path.exists(shard):
+                    with np.load(shard) as vals:
+                        kv = str(vals["key"]) if "key" in vals.files else ""
+                        # a shard passing the key check is this layout version
+                        # and always stores its own index vectors: loading one
+                        # without them under the bucket-grouped chunk order
+                        # would scatter results to the wrong pairs
+                        fresh = (int(vals["n"]) == len(flat) and kv == key
+                                 and "ii" in vals.files and "jj" in vals.files)
+                        if fresh:
+                            for f in AVALL_FIELDS:
+                                out[f][vals["ii"], vals["jj"]] = vals[f]
+                    if fresh:
+                        resumed += 1
+                        continue
+                    log.warning("resume shard %s is stale (inputs or chunking "
+                                "changed); recomputing", shard)
+                # no tail padding to a pinned shape, unlike the JAX package:
+                # the kernels take any batch size, and the padding costs wall
+                # on the card (``tools/profile_port.py --config 5`` measures it)
+                finish = run_bucket(Qmat[ai], Rmat[bj], qleng[ai], rleng[bj], sp, mode,
+                                    None, False, dev, launch_only=True)
+                # one-chunk lookahead: this chunk's device work is in flight
+                # while the previous chunk is finalized on the host
+                if pending is not None:
+                    _collect(pending)
+                pending = (finish, ii, jj, shard)
+    if pending is not None:
+        _collect(pending)
+    if resumed:
+        log.info("align_all_vs_all resumed %d finished chunk shards", resumed)
+    return out

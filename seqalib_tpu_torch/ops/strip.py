@@ -45,10 +45,11 @@ import numpy as np
 import torch
 
 from ..scoring import NIBBLE_BIAS, Tables, fits_nibbles
+from ..transfer import host_buffer, to_device, to_host, upload
 from ..types import NEG_INF
 from .band_fill import band_fill, band_table
 from .row_window import error_words, raise_on_error, row_window
-from .strip_fill import strip_fill
+from .strip_fill import raise_on_bad_length, strip_fill
 from .strip_walk import cigars_from_text, strip_walk
 
 log = logging.getLogger("seqalib_tpu_torch.strip")
@@ -99,26 +100,31 @@ def prep_strip(q, t, qlen, tlen, A1: int, device):
     """Sentinel-padded query rows (B, n_pad) and shifted target columns
     (B, W2), ``t2[:, j] = t[:, j - 1]``, as int32 tensors on ``device``
     (counterpart of ``_prep_strip``)."""
+    return stage_strip(q, t, qlen, tlen, A1, device)[:2]
+
+
+def stage_strip(q, t, qlen, tlen, A1: int, device):
+    """``prep_strip``'s letters and the lengths ``qlen``, ``tlen`` (B,), built
+    in one host buffer and copied to ``device`` in one copy."""
     B, n = q.shape
     m = t.shape[1]
     SENT_Q, SENT_T = A1, A1 + 1
     n_pad = _ceil_to(max(n, 1), TI)
     W2 = (_ceil_to(max(m, 1), LANES) // LANES + 2) * LANES
-    qpad = np.full((B, n_pad), SENT_Q, np.int32)
-    qpad[:, :n] = q
-    qpad = np.where(np.arange(n_pad)[None, :] < qlen[:, None], qpad, SENT_Q)
-    xarr = np.arange(W2)[None, :]
-    t2 = np.full((B, W2), SENT_T, np.int32)
-    t2[:, 1 : 1 + m] = t
-    t2 = np.where((xarr >= 1) & (xarr <= tlen[:, None]), t2, SENT_T)
-    return (
-        torch.from_numpy(qpad.astype(np.int32)).to(device),
-        torch.from_numpy(t2.astype(np.int32)).to(device),
-    )
-
-
-def _dev(x, device):
-    return torch.as_tensor(np.asarray(x), dtype=torch.int32).to(device)
+    sizes = [B * n_pad, B * W2, B, B]
+    buf = host_buffer(sum(sizes), device)
+    qpad, t2, ql, tl = np.split(buf.numpy(), np.cumsum(sizes)[:-1])
+    qpad, t2 = qpad.reshape(B, n_pad), t2.reshape(B, W2)
+    qpad[:, n:] = SENT_Q
+    qpad[:, :n] = np.where(np.arange(n)[None, :] < qlen[:, None], q, SENT_Q)
+    t2[:, 0] = SENT_T
+    t2[:, 1 + m:] = SENT_T
+    t2[:, 1 : 1 + m] = np.where(np.arange(m)[None, :] < tlen[:, None], t, SENT_T)
+    ql[:] = qlen
+    tl[:] = tlen
+    dev = upload(buf, device)
+    qpad_d, t2_d, ql_d, tl_d = torch.split(dev, sizes)
+    return qpad_d.view(B, n_pad), t2_d.view(B, W2), ql_d, tl_d
 
 
 def reduce_best(bv, bk, stride: int):
@@ -130,21 +136,28 @@ def reduce_best(bv, bk, stride: int):
     return bv, torch.where(empty, zero, bk // stride), torch.where(empty, zero, bk % stride)
 
 
-def global_post(bv, P, qlen, tlen, tables: Tables, want_tb: bool):
+def global_post(bv, P, qlen, tlen, tables: Tables, want_tb: bool, err):
     """Global (NW) assembly: the H(qlen, tlen) capture, all-gap results
     for qlen == 0 or tlen == 0, and with ``want_tb`` the walk to CIGARs
-    (counterpart of ``_global_post``)."""
+    (counterpart of ``_global_post``).  Launches the walk and the host copy
+    of the score (with ``nchar`` and the fill's deferred check ``err``) and
+    returns the callable that finishes on the host."""
     degq = qlen == 0
     degt = tlen == 0
-    if want_tb:  # launched before the first host copy
-        start = _dev(np.stack([qlen, tlen, np.zeros_like(qlen), degq | degt]), bv.device)
-        text, nchar, _ = strip_walk(P, *start, affine=tables.affine)
-        # nchar rides in the score's host copy
-        host = torch.stack([bv, nchar]).cpu().numpy()
-        bv, nchar = host[0], host[1]
-    else:
-        bv = bv.cpu().numpy()
-    score = bv.astype(np.int64)
+    copy = {"bv": bv, "err": err}
+    text = None
+    if want_tb:
+        start = to_device(np.stack([qlen, tlen, np.zeros_like(qlen), degq | degt]), bv.device)
+        text, copy["nchar"], _ = strip_walk(P, *start, affine=tables.affine)
+    wait = to_host(copy)
+    return lambda: _global_finish(wait(), text, qlen, tlen, tables, want_tb)
+
+
+def _global_finish(host, text, qlen, tlen, tables: Tables, want_tb: bool):
+    raise_on_bad_length(host["err"][0])
+    degq = qlen == 0
+    degt = tlen == 0
+    score = host["bv"].astype(np.int64)
     go = tables.gap_open if tables.affine else 0
     e = tables.gap_extend
     score = np.where(degq, go + tlen * e, score)
@@ -159,7 +172,7 @@ def global_post(bv, P, qlen, tlen, tables: Tables, want_tb: bool):
         "te": tlen.astype(np.int32),
     }
     if want_tb:
-        cigars = cigars_from_text(text, nchar)
+        cigars = cigars_from_text(text, host["nchar"])
         for b in np.nonzero(degq | degt)[0]:
             c = f"{tlen[b]}D" if tlen[b] else ""
             cigars[b] = c + (f"{qlen[b]}I" if qlen[b] else "")
@@ -192,7 +205,7 @@ def banded_pass2(qr, tr, qe, te2, score, tables: Tables, *, mq: int, WR: int,
     # 1-based letters: qk[:, x] = qr[:, x - 1]; tr already is
     qk = torch.cat([torch.full((B, 1), A1, dtype=torch.int32, device=dev),
                     qr.to(torch.int32)], 1)
-    tab = torch.from_numpy(band_table(host, sent)).to(dev)
+    tab = to_device(band_table(host, sent), dev)
     state = torch.full((6, B, Wpb), NEG_INF, dtype=torch.int32, device=dev)
     state[5] = 0  # BK
     ev = torch.full((B, Wpb), NEG_INF, dtype=torch.int32, device=dev)
@@ -223,12 +236,13 @@ def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
                 pass2: str, tie_safe: bool, err):
     """Passes 1 and 2 on device tensors: score, canonical end (qe, te),
     start (qs, ts) and the pass-2 score ``score2`` (a pair with
-    ``score2 != score`` must escalate).  ``err`` holds the deferred range
-    checks of the ``row_window`` calls (``error_words(4)``: the two pass-2
-    windows here, the two pass-3 windows of ``local_fused_tb``) and comes
-    back as ``row_err``.  Counterpart of ``_strip_local_fused``."""
+    ``score2 != score`` must escalate).  ``err`` holds the deferred checks
+    (``error_words(5)``: the range checks of the two pass-2 windows here and
+    of the two pass-3 windows of ``local_fused_tb``, then the length check
+    of every ``strip_fill`` call) and comes back as ``row_err``.
+    Counterpart of ``_strip_local_fused``."""
     SENT_Q, SENT_T = tables.A1, tables.A1 + 1
-    r1 = strip_fill(qpad, t2, qlen, tlen, tables, mq=mq, mode="local")
+    r1 = strip_fill(qpad, t2, qlen, tlen, tables, mq=mq, mode="local", err=err[4:5])
     score, qe, te = reduce_best(r1["bv"], r1["bk"], mq + 1)
     n_pad = qpad.shape[1]
     W2 = t2.shape[1]
@@ -249,7 +263,7 @@ def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
                                       TWD=TWD, tie_safe=tie_safe)
     else:
         r2 = strip_fill(qr, tr, torch.clamp(qe, max=WR), te2, tables, mq=mq,
-                        mode="emode")
+                        mode="emode", err=err[4:5])
         score2, ri, rj = reduce_best(r2["bv"], r2["bk"], mq + 1)
         if tie_safe:
             # a tie beyond the column clamp exists only where the target
@@ -289,7 +303,8 @@ def local_fused_tb(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
     # window column x <-> t[ts + x - 1] = t2[ts + x]; x = 0 stays sentinel
     tw = row_window(t2, torch.where(live, res["ts"], zero), wt + 1, L=W2, lo=1,
                     fill=SENT_T, err=err[3:4])
-    r3 = strip_fill(qw, tw, wq, wt, tables, mq=mq, mode="gmode", want_ptr=True)
+    r3 = strip_fill(qw, tw, wq, wt, tables, mq=mq, mode="gmode", want_ptr=True,
+                    err=err[4:5])
     text, nchar, _ = strip_walk(
         r3["P"], wq, wt, zero, ((wq == 0) | (wt == 0)).to(torch.int32),
         affine=tables.affine,
@@ -327,8 +342,8 @@ def reverse_starts(q, t, score, qe, te, tables: Tables, *, Wq0: int):
             t[pend[:, None], np.clip(tidx, 0, t.shape[1] - 1)],
             SENT_T,
         )
-        res = strip_fill(_dev(qr, device), _dev(tr, device), _dev(wq, device),
-                         _dev(te_s, device), tables, mq=m_sub, mode="emode")
+        res = strip_fill(to_device(qr, device), to_device(tr, device), to_device(wq, device),
+                         to_device(te_s, device), tables, mq=m_sub, mode="emode")
         score2, ri, rj = (
             x.cpu().numpy() for x in reduce_best(res["bv"], res["bk"], m_sub + 1)
         )
@@ -384,7 +399,23 @@ def strip_bucket(q, t, qlen, tlen, tables: Tables, *, mode: str,
     ``cigars`` with ``want_tb``, plus ``escalated`` (B,) bool in local
     mode (pairs whose start came from ``reverse_starts``).  ``WR`` is the
     pass-2 row window (rounded up to a multiple of 128); ``pass2`` and
-    ``tie_safe`` default to ``pass2_knobs()``."""
+    ``tie_safe`` default to ``pass2_knobs()``.  ``strip_launch(...)()``."""
+    return strip_launch(q, t, qlen, tlen, tables, mode=mode, want_tb=want_tb, WR=WR,
+                        pass2=pass2, tie_safe=tie_safe)()
+
+
+def strip_launch(q, t, qlen, tlen, tables: Tables, *, mode: str,
+                 want_tb: bool = False, WR: int = WR_DEFAULT,
+                 pass2: str | None = None, tie_safe: bool | None = None):
+    """The launch half of ``strip_bucket`` (same arguments): the letters'
+    copies, passes 1-2 (and 3 with ``want_tb``) or the global fill and
+    walk, and the copy of their small results to the host, all enqueued
+    with no device-to-host sync on a CUDA device.  Returns the finalize
+    callable, which waits for that copy only, raises the deferred checks,
+    escalates (``reverse_starts``) and builds the CIGARs, and returns
+    ``strip_bucket``'s dict.  On the CPU everything runs here and the
+    callable only returns the result.  A global batch with pointers over
+    the budget (``ptr_cap_bytes``) is aligned in parts at once."""
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be 'local' or 'global', got {mode!r}")
     knobs = pass2_knobs()
@@ -415,29 +446,46 @@ def strip_bucket(q, t, qlen, tlen, tables: Tables, *, mode: str,
                              tie_safe=tie_safe)
                 for lo in range(0, B, cap_pairs)
             ]
-            return {
+            merged = {
                 k: (sum((p[k] for p in parts), []) if k == "cigars"
                     else np.concatenate([p[k] for p in parts]))
                 for k in parts[0]
             }
+            return lambda: merged
     device = tables.table.device
-    qpad, t2 = prep_strip(q, t, qlen, tlen, tables.A1, device)
-    qlen_d = _dev(qlen, device)
-    tlen_d = _dev(tlen, device)
+    qpad, t2, qlen_d, tlen_d = stage_strip(q, t, qlen, tlen, tables.A1, device)
     if gmode:
+        err = error_words(1, device)
         r = strip_fill(qpad, t2, qlen_d, tlen_d, tables, mq=m, mode="gmode",
-                       want_ptr=want_tb)
-        return global_post(r["bv"], r.get("P"), qlen, tlen, tables, want_tb)
+                       want_ptr=want_tb, err=err)
+        finish = global_post(r["bv"], r.get("P"), qlen, tlen, tables, want_tb, err)
+    else:
+        WR = _ceil_to(WR, TI)
+        fused_tb = want_tb and B * per_pair <= ptr_cap_bytes()
+        fused = local_fused_tb if fused_tb else local_fused
+        res = fused(qpad, t2, qlen_d, tlen_d, tables, mq=m, WR=WR, pass2=pass2,
+                    tie_safe=tie_safe, err=error_words(5, device))
+        text = res.pop("text") if fused_tb else None
+        wait = to_host(res)  # nchar among them
 
-    WR = _ceil_to(WR, TI)
-    fused_tb = want_tb and B * per_pair <= ptr_cap_bytes()
-    fused = local_fused_tb if fused_tb else local_fused
-    res = fused(qpad, t2, qlen_d, tlen_d, tables, mq=m, WR=WR, pass2=pass2,
-                tie_safe=tie_safe, err=error_words(4, device))
-    text = res.pop("text") if fused_tb else None
-    host = {k: v.cpu().numpy() for k, v in res.items()}  # nchar among them
-    # the four row windows' deferred range checks, read in the same copy
-    raise_on_error(host["row_err"], (n_pad, W2, n_pad, W2))
+        def finish():
+            return _local_finish(wait(), text, q, t, tables, n_pad=n_pad, W2=W2, WR=WR,
+                                 want_tb=want_tb, fused_tb=fused_tb)
+    if device.type == "cpu":
+        out = finish()
+        return lambda: out
+    return finish
+
+
+def _local_finish(host, text, q, t, tables: Tables, *, n_pad: int, W2: int, WR: int,
+                  want_tb: bool, fused_tb: bool):
+    """The host half of a local ``strip_bucket``: ``host`` is the copy of
+    ``local_fused``'s results, ``text`` the walk's CIGAR text (on the
+    device, with ``fused_tb``)."""
+    # the four row windows' and the fills' deferred checks, read in the same copy
+    raise_on_error(host["row_err"][:4], (n_pad, W2, n_pad, W2))
+    raise_on_bad_length(host["row_err"][4])
+    B = q.shape[0]
     score = host["score"].astype(np.int32)
     qe = host["qe"].astype(np.int64)
     te = host["te"].astype(np.int64)

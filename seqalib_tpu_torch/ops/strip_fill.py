@@ -22,6 +22,14 @@ H(qlen, tlen).  Outputs, over the valid box 1 <= i <= qlen, 1 <= j <= tlen:
 Kernel: ``csrc/strip_fill.cu``: one CTA of ``strip_warps(Nq)`` warps per
 pair, warp w running strips w, w + W, ... of 32 rows, each strip's bottom
 row handed to the next through shared memory (``strip_smem`` sizes it).
+
+A length outside its letter array is refused with a ``ValueError``.  A
+call without ``err`` checks at once (on a CUDA tensor that is a
+device-to-host sync).  A call on a CUDA tensor with ``err`` (a one-word
+int32 tensor from ``row_window.error_words``) records the first bad pair
+in the word instead and launches with every length clamped into its
+array; the caller reads the word later and raises with
+``raise_on_bad_length``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from ..types import NEG_INF, PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP
 
 from ..scoring import SENT_SCORE, Tables
 from . import launches
+from .row_window import NO_ERROR
 
 MODES = {"local": 0, "emode": 1, "gmode": 2}
 # the kernel keeps the (letters + 2)^2 table (sentinel row and column
@@ -64,7 +73,15 @@ def strip_smem(A1: int, t_width: int, warps: int) -> tuple[int, bool, bool]:
     return base + 8 * t_width * row, letters, row
 
 
-def _check(q, t2, qlen, tlen, tables: Tables, mode: str, want_ptr: bool):
+def raise_on_bad_length(word) -> None:
+    """Raise when a deferred check recorded a bad pair in ``word`` (a host
+    value)."""
+    if int(word) != NO_ERROR:
+        raise ValueError(f"strip_fill: a length exceeds its letter array (pair {int(word)})")
+
+
+def _check(q, t2, qlen, tlen, tables: Tables, mode: str, want_ptr: bool, err):
+    """Check the arguments; returns the lengths to launch with."""
     if mode not in MODES:
         raise ValueError(f"strip_fill: unknown mode {mode!r}")
     if want_ptr and mode == "emode":
@@ -84,8 +101,18 @@ def _check(q, t2, qlen, tlen, tables: Tables, mode: str, want_ptr: bool):
         raise ValueError(
             f"strip_fill: alphabet of {tables.A1 - 1} letters > {MAX_LETTERS}")
     bad = (qlen < 0) | (qlen > q.shape[1]) | (tlen < 0) | (tlen >= t2.shape[1])
+    if err is not None and dev.type == "cuda":
+        if err.dtype != torch.int32 or err.numel() != 1 or err.device != dev:
+            raise ValueError(f"strip_fill: err must be one int32 word on {dev}")
+        if B:
+            first = torch.where(bad, torch.arange(B, dtype=torch.int32, device=dev),
+                                NO_ERROR).amin()
+            torch.minimum(err, first, out=err)
+        return (qlen.clamp(0, q.shape[1]).contiguous(),
+                tlen.clamp(0, max(t2.shape[1] - 1, 0)).contiguous())
     if bool(bad.any()):
         raise ValueError("strip_fill: a length exceeds its letter array")
+    return qlen, tlen
 
 
 def strip_fill_ref(q, t2, qlen, tlen, tables: Tables, *, mq: int, mode: str,
@@ -191,7 +218,7 @@ def strip_fill_ref(q, t2, qlen, tlen, tables: Tables, *, mq: int, mode: str,
 
 
 def strip_fill(q, t2, qlen, tlen, tables: Tables, *, mq: int, mode: str,
-               want_ptr: bool = False):
+               want_ptr: bool = False, err=None):
     """Fill every pair of the batch; see the module docstring.  A CPU
     tensor runs ``strip_fill_ref``; a CUDA tensor the kernel, with
     ``strip_warps(Nq)`` warps per pair."""
@@ -199,7 +226,7 @@ def strip_fill(q, t2, qlen, tlen, tables: Tables, *, mq: int, mode: str,
     t2 = t2.contiguous()
     qlen = qlen.to(torch.int32).contiguous()
     tlen = tlen.to(torch.int32).contiguous()
-    _check(q, t2, qlen, tlen, tables, mode, want_ptr)
+    qlen, tlen = _check(q, t2, qlen, tlen, tables, mode, want_ptr, err)
     if q.device.type == "cpu":
         return strip_fill_ref(q, t2, qlen, tlen, tables, mq=mq, mode=mode,
                               want_ptr=want_ptr)

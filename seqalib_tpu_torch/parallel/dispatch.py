@@ -11,7 +11,8 @@ Three routes:
 * length buckets: pairs are sorted into (Lq, Lt) buckets (``bucket_len``),
   each bucket is padded and aligned by ``strip_bucket``, or, for a band
   with a wider table, by the full-matrix ``wavefront_bucket``.  Every
-  bucket is launched before any is turned into ``AlignResult``s.
+  bucket is launched (``run_bucket(launch_only=True)``) before any is
+  finalized and turned into ``AlignResult``s.
 
 Results come back in input order.
 """
@@ -24,7 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..models.banded import banded_align_batch, banded_matrix_supported
-from ..ops.strip import strip_bucket
+from ..ops.strip import strip_launch
 from ..ops.wavefront import wavefront_bucket
 from ..scoring import tables_from_params
 from ..types import AlignResult, ScoringParams
@@ -58,16 +59,24 @@ def _pad_stack(seqs: List[np.ndarray], L: int) -> np.ndarray:
 
 
 def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str, band: Optional[int],
-               traceback: bool, device) -> Dict[str, np.ndarray]:
+               traceback: bool, device, launch_only: bool = False):
     """Align one padded bucket (B, Lq) x (B, Lt) on ``device``: the strip
-    engine, or with ``band`` the banded full-matrix wavefront."""
+    engine, or with ``band`` the banded full-matrix wavefront.
+
+    ``launch_only``: return a 0-arg finalize callable instead of the
+    result dict.  On the strip engine the device work is left in flight
+    (``strip_launch``: no device-to-host sync) so that the caller can
+    prepare the next bucket meanwhile; the wavefront route finalizes at
+    once and the callable hands the result back."""
     if band is not None:
         if mode != "global":
             raise ValueError("banded local alignment is out of contract")
-        return wavefront_bucket(q, t, qlen, tlen, sp, band=band, want_tb=traceback,
-                                device=device)
+        res = wavefront_bucket(q, t, qlen, tlen, sp, band=band, want_tb=traceback,
+                               device=device)
+        return (lambda r=res: r) if launch_only else res
     tables = tables_from_params(sp, device)
-    return strip_bucket(q, t, qlen, tlen, tables, mode=mode, want_tb=traceback)
+    finish = strip_launch(q, t, qlen, tlen, tables, mode=mode, want_tb=traceback)
+    return finish if launch_only else finish()
 
 
 def dispatch_banded(qs: List[np.ndarray], ts: List[np.ndarray], sp: ScoringParams,
@@ -113,12 +122,12 @@ def dispatch_batch(
         tb = _pad_stack([ts[i] for i in idxs], Lt)
         qlen = np.array([len(qs[i]) for i in idxs], np.int32)
         tlen = np.array([len(ts[i]) for i in idxs], np.int32)
-        pending.append(
-            (idxs, run_bucket(qb, tb, qlen, tlen, sp, mode, band, traceback, device))
-        )
+        pending.append((idxs, run_bucket(qb, tb, qlen, tlen, sp, mode, band, traceback,
+                                         device, launch_only=True)))
 
     results: List[AlignResult] = [None] * len(qs)  # type: ignore[list-item]
-    for idxs, out in pending:
+    for idxs, finish in pending:
+        out = finish()
         for r, idx in enumerate(idxs):
             results[idx] = AlignResult(
                 int(out["score"][r]),

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .transfer import to_device
 from .types import ScoringParams
 
 # score of a padding sentinel letter (index >= A1) against anything; any
@@ -76,7 +77,7 @@ def tables_from_params(sp: ScoringParams, device) -> Tables:
     """``Tables`` on ``device`` for ``sp``."""
     host = np.ascontiguousarray(sentinel_table(sp), np.int32)
     return Tables(
-        table=torch.from_numpy(host.copy()).to(device),
+        table=to_device(host, device),
         gap_open=int(sp.gap_open),
         gap_extend=int(sp.gap_extend),
         affine=sp.is_affine,

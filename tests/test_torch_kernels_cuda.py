@@ -906,3 +906,75 @@ def test_kernels_launch_on_their_tensors_device():
     assert align_score_banded_sp([q], [t], psp, 40, (one,) * 2) == [
         nw_affine(q, t, dna, band=40).score]
     assert torch.cuda.current_device() == 0
+
+
+def test_all_vs_all_on_cuda_equals_the_cpu(dev):
+    """The chunked product on the card, several bucket pairs and tail
+    chunks, equals the same call on the CPU (the plain versions)."""
+    from seqalib_tpu_torch import align_all_vs_all
+
+    rng = np.random.default_rng(31)
+    reads = [rng.integers(0, 4, rng.integers(40, 200)).astype(np.uint8) for _ in range(24)]
+    refs = [rng.integers(0, 4, rng.integers(100, 400)).astype(np.uint8) for _ in range(5)]
+    sp = scoring_params(2, -3, 0, -2, None)
+    want = align_all_vs_all(reads, refs, scoring=sp, chunk_pairs=40, device="cpu")
+    got = align_all_vs_all(reads, refs, scoring=sp, chunk_pairs=40, device=dev)
+    for f in want:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+
+
+@pytest.mark.parametrize("mode,traceback,pass2", [
+    ("local", False, "banded"), ("local", False, "strip"), ("local", True, "banded"),
+    ("global", True, "banded"), ("global", False, "banded")])
+def test_strip_launch_makes_no_sync(dev, mode, traceback, pass2, monkeypatch):
+    """The launch half of a bucket (``run_bucket(launch_only=True)``:
+    letters, tables, every kernel and the results' host copy) enqueues all
+    its work with no device-to-host sync; its finalize equals the CPU's."""
+    from seqalib_tpu_torch.parallel.dispatch import run_bucket
+
+    monkeypatch.setenv("SEQALIB_FUSED_PASS2", pass2)
+    rng = np.random.default_rng(32)
+    B = 64
+    q = rng.integers(0, 4, size=(B, 256)).astype(np.int32)
+    t = rng.integers(0, 4, size=(B, 1024)).astype(np.int32)
+    t[:, 300:500] = q[:, 20:220]
+    qlen, tlen = rng.integers(0, 257, size=B), rng.integers(0, 1025, size=B)
+    args = (q, t, qlen, tlen, scoring_params(2, -3, -5, -2, None), mode, None, traceback)
+    want = run_bucket(*args, torch.device("cpu"))
+    run_bucket(*args, dev)  # the build and the allocators' first blocks
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = run_bucket(*args, dev, launch_only=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = finish()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if k == "cigars":
+            assert got[k] == want[k]
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_strip_fill_defers_its_length_check(dev):
+    """With ``err`` the fill records the first bad pair in the word and
+    launches with the lengths clamped (no sync); the word raises later."""
+    sp, alpha = SCORINGS["dna_affine"]
+    tables = tables_from_params(sp, dev)
+    q = torch.zeros((3, 40), dtype=torch.int32, device=dev)
+    t2 = torch.zeros((3, 41), dtype=torch.int32, device=dev)
+    qlen = torch.tensor([40, 41, 3], dtype=torch.int32, device=dev)
+    tlen = torch.tensor([40, 5, 41], dtype=torch.int32, device=dev)
+    err = error_words(1, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        strip_fill(q, t2, qlen, tlen, tables, mq=40, mode="local", err=err)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(err) == 1
+    with pytest.raises(ValueError, match="a length exceeds its letter array"):
+        sf_mod.raise_on_bad_length(err.cpu()[0])
+    with pytest.raises(ValueError, match="a length exceeds its letter array"):
+        strip_fill(q, t2, qlen, tlen, tables, mq=40, mode="local")

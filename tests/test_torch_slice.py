@@ -251,8 +251,8 @@ def test_small_nonuniform_matrix_follows_the_oracle():
 
 def test_oracle_backend_and_api_errors():
     sp = ScoringParams.linear()
-    got = st.align_batch(["ACGT"], ["AGT"], scoring=_port_sp(sp), backend="oracle",
-                         device="cpu")
+    got = st.align_batch(["ACGT"], ["AGT"], scoring=_port_sp(sp), mode="local",
+                         backend="oracle", device="cpu")
     assert str(got[0]) == str(sa.align("ACGT", "AGT", scoring=sp, mode="local", backend="oracle"))
     got = st.align_batch(["ACGTTA"], ["AGTA"], scoring=_port_sp(sp), mode="global",
                          band=2, backend="oracle", device="cpu")
@@ -274,6 +274,24 @@ def test_oracle_backend_and_api_errors():
         st.align_batch(["ACGT"], ["AGT"], mode="local", band=4, device="cpu")
 
 
+def test_package_align_batch_default_mode_matches_jax():
+    # the package-level align_batch is global by default in both packages,
+    # api.align_batch local in both
+    q, t = ["TTTTACGTACGTTTTT"], ["GGACGTACGGG"]
+    want = sa.align_batch(q, t, backend="xla")
+    got = st.align_batch(q, t, device="cpu")
+    assert [str(r) for r in got] == [str(r) for r in want]
+    assert (got[0].score, got[0].cigar) == (-8, "2I9M3I2M")
+    import inspect
+
+    import seqalib_tpu.api as sa_api
+    import seqalib_tpu_torch.api as st_api
+
+    default = [inspect.signature(f).parameters["mode"].default
+               for f in (sa_api.align_batch, st_api.align_batch)]
+    assert default == ["local", "local"]
+
+
 def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -283,10 +301,12 @@ def test_cuda_device_without_a_card_raises():
 
 def test_port_never_imports_jax():
     # neither jax nor any module of the JAX package, after a local call, a
-    # banded global call (both banded routes) and both sequence-parallel ones
+    # banded global call (both banded routes), both sequence-parallel ones,
+    # an all-vs-all product, the CLI and the headline bench
     code = (
         "import sys, numpy as np, seqalib_tpu_torch as st\n"
-        "r = st.align_batch(['ACGTACGT', 'TTGCA'], ['ACGACGT', 'TTGGCA'], device='cpu')\n"
+        "r = st.align_batch(['ACGTACGT', 'TTGCA'], ['ACGACGT', 'TTGGCA'], mode='local',\n"
+        "                   device='cpu')\n"
         "assert r[0].score > 0, r\n"
         "g = st.align_batch(['ACGTACGTAA'], ['ACGACGTTA'], mode='global', band=3,\n"
         "                   device='cpu')\n"
@@ -303,6 +323,18 @@ def test_port_never_imports_jax():
         "b = st.align_banded_sp(st.encode_dna('ACGTACGTAACG'), st.encode_dna('ACGACGTTACG'),\n"
         "                       dna, 3, st.make_band_mesh(['cpu'] * 2), CK=8)\n"
         "assert b.cigar == a.cigar, (a, b)\n"
+        "import contextlib, io, os\n"
+        "x = st.align_all_vs_all(['ACGTACGT', 'TTGCA'], ['ACGACGT'], chunk_pairs=1,\n"
+        "                        device='cpu')\n"
+        "assert x['score'].shape == (2, 1), x\n"
+        "from seqalib_tpu_torch import bench, cli\n"
+        "os.environ.update(BENCH_B='2', BENCH_L='32')\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert cli.main(['align', 'ACGT', 'AGT', '--device', 'cpu']) == 0\n"
+        "    assert cli.main(['bench', '5', '--reads', '2', '--refs', '2', '--read-len',\n"
+        "                     '16', '--ref-len', '32', '--device', 'cpu',\n"
+        "                     '--parity-check']) == 0\n"
+        "    assert bench.main(['--device', 'cpu']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'seqalib_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a warm ``seqalib_tpu_torch.align_batch`` call goes.
 
-    python3 tools/profile_port.py [--config 3|1|4|sp|wide|banded_sp] [--batch B]
+    python3 tools/profile_port.py [--config 3|1|2|4|5|sp|wide|banded_sp] [--batch B]
                                   [--calls N] [--device cuda|cpu]
 
 Inputs are those of ``chip_smoke.py`` (seed 0): config 3 is B=512
@@ -9,7 +9,15 @@ BLOSUM62 o=-10 e=-1 local pairs of 1024 x 1024 with full CIGARs, config 1
 is B=512 DNA global linear-gap pairs of 256 x 256, config 4 is B=64 DNA
 pairs of 10 kb (the target is the query with 2% substitutions) aligned
 globally in a band of 128, match 2, mismatch -3, o=-5, e=-2, with full
-CIGARs.  ``sp`` is ``align_sp`` on one 10 240 x 8 192 DNA pair (the
+CIGARs.  Config 2 is B=512 DNA local linear-gap pairs of 512-1024 letters
+(``cli.py``'s generator, seed 0), score and coordinates only.  Config 5 is
+``align_all_vs_all`` of ``--batch`` reads (default 1 000) of 128-256 letters
+against 100 references of 512-1 024 (the generator of ``cli.py``'s config
+5), chunks of 8 192 pairs, local, score and coordinates; it runs twice:
+as shipped, then with every chunk padded with zero-length pairs the way
+the JAX package pins its chunk shapes (a multi-chunk bucket pair's chunks
+to the full 8 192 rows, a single chunk to the next power of two), to
+measure that padding.  ``sp`` is ``align_sp`` on one 10 240 x 8 192 DNA pair (the
 target is the query's first 8 192 letters with 150 substitutions; the
 config-4 scoring; tiles of 256 columns) over a mesh of one device, then
 ``align_score_sp`` global and local on a 16 384 x 16 381 pair (2%
@@ -53,6 +61,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import seqalib_tpu_torch as st  # noqa: E402
+from seqalib_tpu_torch.cli import _synth as synth  # noqa: E402
+
+AVALL_CHUNK = 8192  # config 5: pairs per chunk, as cli.py's --chunk-pairs
 
 
 def long_reads(rng, batch: int, length: int):
@@ -69,8 +80,47 @@ def long_reads(rng, batch: int, length: int):
     return qs, ts
 
 
+def pinned(run_bucket, reads, refs, chunk: int):
+    """``run_bucket`` with the JAX package's chunk-shape pinning: each
+    call padded with zero-length pairs to the full ``chunk`` rows when its
+    bucket pair spans several chunks, else to the next power of two (at
+    least 8, at most ``chunk``); the result cut back to the real pairs."""
+    from seqalib_tpu_torch.parallel.dispatch import bucket_len
+
+    nq, nr = {}, {}
+    for s in reads:
+        nq[bucket_len(len(s))] = nq.get(bucket_len(len(s)), 0) + 1
+    for s in refs:
+        nr[bucket_len(len(s))] = nr.get(bucket_len(len(s)), 0) + 1
+
+    def run(q, t, qlen, tlen, *args, **kw):
+        B = len(q)
+        if nq[q.shape[1]] * nr[t.shape[1]] > chunk:
+            rows = chunk
+        else:
+            rows = 8
+            while rows < B:
+                rows *= 2
+            rows = min(rows, chunk)
+        pad = rows - B
+        q = np.concatenate([q, np.zeros((pad, q.shape[1]), q.dtype)])
+        t = np.concatenate([t, np.zeros((pad, t.shape[1]), t.dtype)])
+        qlen = np.concatenate([qlen, np.zeros(pad, qlen.dtype)])
+        tlen = np.concatenate([tlen, np.zeros(pad, tlen.dtype)])
+        finish = run_bucket(q, t, qlen, tlen, *args, **kw)
+        return lambda: {k: v[:B] for k, v in finish().items()}
+
+    return run
+
+
 def inputs(config: str, batch: int):
     rng = np.random.default_rng(0)
+    if config == "5":
+        sp = st.ScoringParams(match=2, mismatch=-3, gap_open=0, gap_extend=-2)
+        return synth(rng, batch, 256, 256, 4)[0], synth(rng, 100, 1024, 1024, 4)[0], sp, "local"
+    if config == "2":
+        sp = st.ScoringParams(match=2, mismatch=-3, gap_open=0, gap_extend=-2)
+        return (*synth(rng, batch, 1024, 1024, 4), sp, "local")
     if config == "banded_sp":
         sp = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
         return (*long_reads(rng, batch, 100_000), sp, "global")
@@ -194,15 +244,16 @@ def profile(label: str, run, calls: int, dev) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("1", "3", "4", "sp", "wide", "banded_sp"),
+    ap.add_argument("--config", choices=("1", "2", "3", "4", "5", "sp", "wide", "banded_sp"),
                     default="3")
     ap.add_argument("--batch", type=int, default=None,
-                    help="pairs per call (default 512; 64 for config 4, 16 for banded_sp)")
+                    help="pairs per call (default 512; 64 for config 4, 16 for banded_sp; "
+                    "config 5: reads, default 1000)")
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     if args.batch is None:
-        args.batch = {"4": 64, "wide": 64, "banded_sp": 16}.get(args.config, 512)
+        args.batch = {"4": 64, "wide": 64, "banded_sp": 16, "5": 1000}.get(args.config, 512)
     dev = torch.device(args.device)
     if dev.type == "cuda":
         print(subprocess.run(
@@ -217,14 +268,36 @@ def main() -> int:
         runs += [(f"sp_score_{m}", lambda m=m: st.align_score_sp(q16, t16, sp, mesh, mode=m,
                                                                C=256))
                  for m in ("global", "local")]
+    elif args.config == "5":
+        from seqalib_tpu_torch.parallel import dispatch
+
+        real = dispatch.run_bucket
+        pin = pinned(real, qs, ts, AVALL_CHUNK)
+
+        def product(run_bucket):
+            dispatch.run_bucket = run_bucket
+            try:
+                return st.align_all_vs_all(qs, ts, scoring=sp, chunk_pairs=AVALL_CHUNK,
+                                           device=dev)
+            finally:
+                dispatch.run_bucket = real
+
+        label = f"config 5 {len(qs)} x {len(ts)}"
+        runs = [(label, lambda: product(real)),
+                (f"{label}, chunks padded as the JAX package pins them",
+                 lambda: product(pin))]
+        a, b = product(real), product(pin)
+        if any(not np.array_equal(a[f], b[f]) for f in a):
+            raise AssertionError("padded chunks changed the product")
     elif args.config == "banded_sp":
         mesh = st.make_band_mesh([dev] * 4)
         runs = [("banded_sp_score", lambda: st.align_score_banded_sp(qs, ts, sp, band, mesh)),
                 ("banded_sp_align", lambda: st.align_banded_sp(qs[0], ts[0], sp, band, mesh))]
     else:
+        tb = args.config != "2"
         runs = [(f"config {args.config} B={args.batch}",
                  lambda: st.align_batch(qs, ts, scoring=sp, mode=mode, band=band,
-                                        traceback=True, device=dev))]
+                                        traceback=tb, device=dev))]
     summary = [profile(label, run, args.calls, dev) for label, run in runs]
     print(json.dumps({"config": args.config, "batch": args.batch, "runs": summary}))
     return 0
