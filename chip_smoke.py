@@ -88,7 +88,28 @@ Phases (any failure raises and exits non-zero):
    pair escalates) is held exactly against its plain version on the same
    device inputs, and timed, with its bound; the launch counts of configs 2
    and 5 include every kernel of the slice's path;
-10. every kernel was launched by its path: the launch counts are set to 0
+   the product's ``bench 5`` line reports ``"devices"``: the visible cards
+   of ``make_pair_mesh()``;
+10. the pair mesh (``mesh=``), every result held exactly against
+   ``mesh=None``: config 3 through ``align_batch`` on ``make_pair_mesh()``
+   (the one card) and on a mesh of 4 entries naming it (warm walls of both
+   and of ``mesh=None``, timed in turns with the order rotated each round,
+   printed; on the mesh of 4 every kernel of the path
+   launched 4 times as often as without, its launch half made no
+   device-to-host sync, and the first shard's kernel calls are held
+   against their plain versions and timed at the shard's shape), config 1,
+   config 4 (timed in turns with ``mesh=None``) and 3 pairs of config 3 (one
+   shard empty) on the mesh of 4;
+   2 000 reads x 100
+   references of config 5's product through ``align_all_vs_all`` on the
+   mesh of 4 (timed in turns with ``mesh=None``), equal element by element,
+   and resumed on that mesh from the
+   shards written without one; two processes of the package's worker
+   (``python -m seqalib_tpu_torch.parallel.dist_check``, gloo through a
+   ``FileStore``, both on the card, a shard each) on config 3's pairs, each
+   rank's results hashing to one process's; ``dryrun_multichip(4,
+   device="cuda")``, and ``dryrun_multichip(n + 1)`` raising on n cards;
+11. every kernel was launched by its path: the launch counts are set to 0
    just before each path's runs (1 warm-up + 3 timed calls; for the CLI's
    configs, each config's run) and read just after.
 
@@ -136,6 +157,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -185,6 +207,10 @@ BENCH_ARGS = ["bench", "all", "--pairs", str(BENCH_PAIRS), "--reads", "10000", "
 AVALL_SAMPLE, AVALL_CHUNK = 256, 8192
 RESUME_READS, RESUME_REFS, RESUME_CHUNK = 500, 20, 1024
 SLICE_KERNELS = ("strip_fill/local", "row_window", "band_fill/emode")
+# the pair-mesh phase (10): config 5's product cut to 2 000 reads; the
+# workers' time limit
+AVALL_MESH_READS = 2000
+TWO_PROCESS_TIMEOUT = 300
 # the edge checks of the redesigned fills: a ragged strip batch, and
 # wavefront fills of 300-letter pairs with a band over the slots (Np 384)
 # and with deltas past the band
@@ -924,6 +950,24 @@ def timed_runs(run, reps=REPS):
     return res, walls
 
 
+def runs_in_turns(runs, reps=REPS):
+    """One warm-up call of each of ``runs`` (name -> 0-arg call), then
+    ``reps`` rounds of one timed call each, the order rotated every round so
+    that no run always goes first; {name: (results, walls)}."""
+    import torch
+
+    names = list(runs)
+    res = {k: runs[k]() for k in names}
+    walls = {k: [] for k in names}
+    for r in range(reps):
+        for k in names[r % len(names):] + names[: r % len(names)]:
+            t0 = time.perf_counter()
+            res[k] = runs[k]()
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    return {k: (res[k], walls[k]) for k in names}
+
+
 def config_run(name, qs, ts, sp, mode, dev, want=None):
     """Warm ``align_batch`` runs: times, rates and an oracle check of
     N_ORACLE sampled pairs (``want``: their oracle results, if known)."""
@@ -1321,6 +1365,10 @@ def cli_runs(dev, card, counts):
             x.get("parity_ok") is True for x in lines):
         raise AssertionError(f"bench all: rc {rc}, lines {lines}")
     say("[cli] bench all: rc 0, every config's parity gate passed")
+    if lines[-1]["devices"] != torch.cuda.device_count():
+        raise AssertionError(f"bench 5 ran on {lines[-1]['devices']} devices, not on "
+                             f"make_pair_mesh()'s {torch.cuda.device_count()}")
+    say(f"[cli] bench 5 ran on make_pair_mesh(): \"devices\": {lines[-1]['devices']}")
     for cfg in (2, 5):
         c = counts[f"bench{cfg}"]
         say(f"[launches] bench config {cfg} (warm-up, timed run, parity): "
@@ -1385,6 +1433,214 @@ def cli_runs(dev, card, counts):
     kernel_phase_bucket(q, t, qlen, tlen, sp, dev, "config 5 chunk")
     q2, t2, qlen2, tlen2, sp2 = config2_bucket(dev)
     kernel_phase_bucket(q2, t2, qlen2, tlen2, sp2, dev, "config 2 bucket")
+    return reads, refs, sp
+
+
+def kernel_phase_shard(q, t, sp, mesh):
+    """The kernel calls of the first shard of config 3 on ``mesh``
+    (``dist.strip_sharded``), each held against its plain version on the
+    same device inputs and timed at the shard's shape."""
+    from seqalib_tpu_torch.ops import band_fill as bf_mod
+    from seqalib_tpu_torch.ops import row_window as rw_mod
+    from seqalib_tpu_torch.ops import strip as strip_mod
+    from seqalib_tpu_torch.ops import strip_fill as sf_mod
+    from seqalib_tpu_torch.ops import strip_walk as sw_mod
+    from seqalib_tpu_torch.parallel import dist
+
+    targets = [(strip_mod, "row_window", rw_mod.row_window_ref),
+               (strip_mod, "strip_fill", sf_mod.strip_fill_ref),
+               (strip_mod, "strip_walk", sw_mod.strip_walk_ref),
+               (strip_mod, "band_fill", bf_mod.band_fill_ref)]
+    n, m = np.full(len(q), q.shape[1]), np.full(len(t), t.shape[1])
+    calls, _ = record(lambda: dist.strip_sharded(mesh, q, t, n, m, sp, mode="local",
+                                                 want_tb=True), targets)
+    label = f" (config 3, a shard of {dist.shard_bounds(len(q), len(mesh))[0][1]})"
+    for key, (fn, plain, args, kw, _) in calls.items():
+        kernel_entry(key, fn, plain, args, kw, label=label)
+    say(f"[kernel] config 3 on a mesh of {len(mesh)}: the first shard's {len(calls)} kernels "
+        f"equal to their plain versions")
+
+
+def mesh_equal(name, got, want):
+    """``got`` and ``want`` (lists of AlignResult) equal at the ``str`` level."""
+    bad = [b for b, (g, w) in enumerate(zip(got, want)) if str(g) != str(w)]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{name}: {len(got)} results, pairs {bad[:5]} differ from "
+                             f"mesh=None")
+    say(f"[pairmesh] {name}: {len(got)}/{len(want)} results str-equal to mesh=None")
+
+
+def result_hash(res) -> str:
+    import hashlib
+
+    return hashlib.blake2b("\n".join(map(str, res)).encode(), digest_size=16).hexdigest()
+
+
+def two_process_run(q, t, sp, dev, card, want_hash, tmp):
+    """Two ranks of the package's worker on the one card (gloo, a FileStore),
+    each with a mesh of one entry, on config 3's pairs given as a file: each
+    rank's results hash to ``want_hash``.  Returns the ranks' median walls."""
+    path = os.path.join(tmp, "config3.npz")
+    B = len(q)
+    np.savez(path, q=q, t=t, qlen=np.full(B, q.shape[1]), tlen=np.full(B, t.shape[1]),
+             match=sp.match, mismatch=sp.mismatch, gap_open=sp.gap_open,
+             gap_extend=sp.gap_extend, matrix=sp.matrix, mode="local")
+    store = os.path.join(tmp, "store")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "seqalib_tpu_torch.parallel.dist_check", "--rank", str(r),
+         "--world", "2", "--store", store, "--device", str(dev), "--mesh", "1",
+         "--inputs", path, "--reps", str(REPS)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TWO_PROCESS_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    walls = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("PAIRMESH"):
+                say(f"[pairmesh] rank {r}: {line}")
+        if p.returncode != 0 or f"PAIRMESH-OK r{r}" not in out:
+            raise AssertionError(f"rank {r} exit {p.returncode}:\n{out[-3000:]}")
+        if f"PAIRMESH-HASH r{r} {want_hash}" not in out:
+            raise AssertionError(f"rank {r}'s results differ from one process's")
+        wall = [x for x in out.splitlines() if x.startswith(f"PAIRMESH-WALL r{r} ")]
+        walls.append(float(wall[0].split()[2]))
+    say(f"[pairmesh] two processes on the one card (gloo, a shard each): both ranks "
+        f"returned all {len(q)} results, equal to one process's; median walls "
+        f"{walls} s ({card})")
+    return walls
+
+
+def pair_mesh_runs(dev, card, counts, cfg3, cfg1, cfg4, product):
+    """Phase 10: the pair mesh, held exactly against ``mesh=None``."""
+    import torch
+
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch.ops import launches, reset_launches
+    from seqalib_tpu_torch.parallel import dispatch
+    from seqalib_tpu_torch.parallel.dist import dryrun_multichip
+
+    one = st.make_pair_mesh()
+    four = st.make_pair_mesh([dev] * 4)
+    q3, t3, sp3 = cfg3
+    qs3, ts3 = list(q3), list(t3)
+
+    def run3(mesh):
+        return lambda: st.align_batch(qs3, ts3, scoring=sp3, mode="local", traceback=True,
+                                      mesh=mesh, device=dev)
+
+    sharded = Counter()
+
+    def run_four():
+        # the counts of the mesh of 4's calls alone, in a phase that runs
+        # the three meshes in turns
+        reset_launches()
+        res = run3(four)()
+        sharded.update(launches)
+        return res
+
+    turns = runs_in_turns({"mesh=None": run3(None), "make_pair_mesh()": run3(one),
+                           "a mesh of 4 entries": run_four})
+    base, walls = turns["mesh=None"]
+    say(f"[pairmesh] config 3 mesh=None: wall {statistics.median(walls)!r} s "
+        f"(reps {walls}) ({card})")
+    for name, mesh in (("make_pair_mesh()", one), ("a mesh of 4 entries", four)):
+        got, walls = turns[name]
+        say(f"[pairmesh] config 3 on {name} ({len(mesh)}): wall "
+            f"{statistics.median(walls)!r} s (reps {walls}; in turns with mesh=None, the "
+            f"order rotated each round) ({card})")
+        mesh_equal(f"config 3 on {name}", got, base)
+    counts["pairmesh3"] = dict(sharded)
+    per_call = {k: v for k, v in counts["config3"].items() if v}
+    sharded = {k: v for k, v in counts["pairmesh3"].items() if v}
+    say(f"[launches] config 3 on a mesh of 4 (1 warm-up + {REPS} timed calls): {sharded}")
+    if sharded != {k: 4 * v for k, v in per_call.items()}:
+        raise AssertionError(f"a mesh of 4 launched {sharded}, not 4 x {per_call}")
+    say("[pairmesh] every kernel of config 3 launched 4 times as often on the mesh of 4")
+    kernel_phase_shard(q3, t3, sp3, four)
+    B3_, L3 = q3.shape
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = dispatch.run_bucket(q3, t3, np.full(B3_, L3), np.full(B3_, t3.shape[1]), sp3,
+                                     "local", None, True, None, launch_only=True, mesh=four)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res = finish()
+    got = [f"score={res['score'][b]} q[{res['qs'][b]}:{res['qe'][b]}] "
+           f"t[{res['ts'][b]}:{res['te'][b]}] {res['cigars'][b]}" for b in range(B3_)]
+    if got != [str(r) for r in base]:
+        raise AssertionError("the sync-free sharded launch of config 3 differs from mesh=None")
+    say("[pairmesh] the launch half of config 3's bucket on the mesh of 4 (4 shards) made no "
+        "device-to-host sync; its finalize equals mesh=None")
+
+    q1, t1, sp1 = cfg1
+    want = st.align_batch(list(q1), list(t1), scoring=sp1, mode="global", device=dev)
+    mesh_equal("config 1 on the mesh of 4",
+               st.align_batch(list(q1), list(t1), scoring=sp1, mode="global", mesh=four),
+               want)
+    qs4, ts4, sp4 = cfg4
+    kw4 = dict(scoring=sp4, mode="global", band=BAND4)
+    turns = runs_in_turns({"mesh=None": lambda: st.align_batch(qs4, ts4, device=dev, **kw4),
+                           "four": lambda: st.align_batch(qs4, ts4, mesh=four, **kw4)})
+    mesh_equal("config 4 on the mesh of 4", turns["four"][0], turns["mesh=None"][0])
+    say(f"[pairmesh] config 4 (the banded route, its parts run one after another) walls in "
+        f"turns: mesh=None {statistics.median(turns['mesh=None'][1])!r} s (reps "
+        f"{turns['mesh=None'][1]}), the mesh of 4 {statistics.median(turns['four'][1])!r} s "
+        f"(reps {turns['four'][1]}) ({card})")
+    mesh_equal("3 config-3 pairs on the mesh of 4 (one shard empty)",
+               st.align_batch(qs3[:3], ts3[:3], scoring=sp3, mode="local", mesh=four),
+               base[:3])
+
+    reads, refs, sp5 = product
+    reads = reads[:AVALL_MESH_READS]
+    kw5 = dict(scoring=sp5, mode="local", chunk_pairs=AVALL_CHUNK)
+    tmp = tempfile.mkdtemp(prefix="pairmesh_")
+    real_run = dispatch.run_bucket
+    try:
+        written = st.align_all_vs_all(reads, refs, resume_dir=tmp, device=dev, **kw5)
+        turns = runs_in_turns(
+            {"mesh=None": lambda: st.align_all_vs_all(reads, refs, device=dev, **kw5),
+             "four": lambda: st.align_all_vs_all(reads, refs, mesh=four, **kw5)}, reps=2)
+        (plain, w_plain), (meshed, w_mesh) = turns["mesh=None"], turns["four"]
+
+        def refuse(*a, **k):
+            raise AssertionError("a resumed product realigned a finished chunk")
+
+        dispatch.run_bucket = refuse
+        try:
+            resumed = st.align_all_vs_all(reads, refs, resume_dir=tmp, mesh=four, **kw5)
+        finally:
+            dispatch.run_bucket = real_run
+        for f in plain:
+            if not all(np.array_equal(plain[f], x[f]) for x in (written, meshed, resumed)):
+                raise AssertionError(f"config 5 on the mesh of 4: {f} differs")
+        say(f"[pairmesh] config 5, {len(reads)} x {len(refs)}: the mesh of 4 equal to "
+            f"mesh=None element by element (walls in turns {w_mesh!r} / {w_plain!r} s, "
+            f"{card}); "
+            f"resumed on the mesh of 4 from {len(os.listdir(tmp))} shards written without "
+            f"a mesh, run_bucket refusing: equal")
+        two_process_run(q3, t3, sp3, dev, card, result_hash(base), tmp)
+    finally:
+        shutil.rmtree(tmp)
+
+    dryrun_multichip(4, device=dev)
+    say(f"[pairmesh] dryrun_multichip(4, device={str(dev)!r}) passed")
+    n = torch.cuda.device_count()
+    try:
+        dryrun_multichip(n + 1)
+    except RuntimeError as e:
+        say(f"[pairmesh] dryrun_multichip({n + 1}) raises on {n} card(s): {e}")
+    else:
+        raise AssertionError(f"dryrun_multichip({n + 1}) ran on {n} card(s)")
 
 
 def main() -> int:
@@ -1487,7 +1743,9 @@ def main() -> int:
     say(f"[time] wide-table phase done at {time.perf_counter() - t_start:.1f} s")
     banded_sp_runs(qsb, tsb, qob, tob, qpb, tpb, sp4, sp3, dev, counts)
     say(f"[time] banded-SP phase done at {time.perf_counter() - t_start:.1f} s")
-    cli_runs(dev, card, counts)
+    product = cli_runs(dev, card, counts)
+    say(f"[time] CLI phase done at {time.perf_counter() - t_start:.1f} s")
+    pair_mesh_runs(dev, card, counts, (q3, t3, sp3), (q1, t1, sp1), (qs4, ts4, sp4), product)
     say(f"[time] paths done at {time.perf_counter() - t_start:.1f} s")
 
     for path, c in counts.items():

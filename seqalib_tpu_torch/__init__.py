@@ -1,19 +1,26 @@
 """seqalib_tpu_torch — the PyTorch + CUDA port of seqalib_tpu.
 
 Runs local and global alignment (scores, canonical coordinates, full
-CIGARs), all-vs-all products with resume (``align_all_vs_all``), banded
+CIGARs), sharded over a pair mesh of devices and processes with
+``mesh=make_pair_mesh(...)``, all-vs-all products with resume
+(``align_all_vs_all``), banded
 global alignment of long reads (``band=``), the
 full-matrix alignment of one long pair split over a list of devices
 (``align_score_sp``, ``align_sp``) and banded long pairs split into row
 blocks over a list of devices (``align_score_banded_sp``,
 ``align_banded_sp``) on an NVIDIA Hopper card through
 hand-written CUDA kernels, and on the CPU through their plain PyTorch
-versions.  It keeps its own copies of the types, the oracle
-and the CIGAR codec, and imports nothing of ``seqalib_tpu`` or JAX.
+versions.  It keeps its own copies of the types, the oracle, the CIGAR
+codec and the generic-container aligners (``models.generic``), and
+imports nothing of ``seqalib_tpu`` or JAX.
 """
 
 from .types import (  # noqa: F401
     BLOSUM62,
+    DNA_ALPHABET,
+    NEG_INF,
+    PROTEIN_ALPHABET,
+    AlignConfig,
     AlignResult,
     ScoringParams,
     decode_dna,
@@ -24,6 +31,9 @@ from .types import (  # noqa: F401
 
 from .api import align, align_all_vs_all  # noqa: F401
 from .parallel.band_pipeline import make_band_mesh  # noqa: F401
+from .parallel.dist import make_pair_mesh  # noqa: F401
+
+__version__ = "0.3.0"
 
 
 def align_batch(queries, targets, scoring=None, mode="global", backend="strip", **kw):

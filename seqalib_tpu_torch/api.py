@@ -5,9 +5,16 @@ dispatcher.  ``align_all_vs_all``: every query against every reference,
 in chunks, with resume shards.  Same parameters as the JAX package, plus ``device``
 (default ``"cuda"``).  Backends: ``"strip"`` (the default: the CUDA
 kernels on a CUDA device, their plain PyTorch versions on the CPU; with
-``band=`` and ``mode="global"`` the banded long-read path) and
-``"oracle"`` (the port's NumPy oracle, ``oracle_fast``: bit for bit
-``oracle.py``, vectorized over anti-diagonals, ``band=`` included).
+``band=`` and ``mode="global"`` the banded long-read path), also named
+``"pallas"`` and ``"xla"`` (the JAX package's names, so that code written
+for it runs here), and ``"oracle"`` (the port's NumPy oracle,
+``oracle_fast``: bit for bit ``oracle.py``, vectorized over anti-diagonals,
+``band=`` included).
+
+``mesh=`` (a pair mesh, ``make_pair_mesh``: a sequence of devices, which
+may name one device several times) shards each bucket's pairs over the
+mesh's devices, and over the processes of a ``torch.distributed`` world
+(``parallel/dist.py``); ``device`` is then not used.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ from .types import (
     encode_protein,
 )
 
-BACKENDS = ("strip", "oracle")
+# the strip route's names: the port's own and the JAX package's two
+STRIP_NAMES = ("strip", "pallas", "xla")
+BACKENDS = STRIP_NAMES + ("oracle",)
 AVALL_FIELDS = ("score", "qs", "qe", "ts", "te")
 
 log = logging.getLogger("seqalib_tpu_torch.api")
@@ -79,7 +88,7 @@ def align_batch(
     device="cuda",
 ) -> List[AlignResult]:
     """Align pairs[i] = (queries[i], targets[i]) through the length-bucketed
-    dispatcher on ``device``."""
+    dispatcher on ``device``, or sharded over ``mesh``."""
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be global|local, got {mode!r}")
     if band is not None and mode == "local":
@@ -99,14 +108,12 @@ def align_batch(
         from .oracle_fast import align_oracle
 
         return [align_oracle(q, t, sp, mode=mode, band=band) for q, t in zip(qs, ts)]
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh dispatch is not ported yet (ROADMAP.md Queue 1 item 8)"
-        )
     from .parallel.dispatch import dispatch_batch
+    from .parallel.dist import as_mesh
 
+    mesh = None if mesh is None else as_mesh(mesh)
     return dispatch_batch(qs, ts, sp, mode=mode, band=band, traceback=traceback,
-                          device=_device(device))
+                          device=None if mesh else _device(device), mesh=mesh)
 
 
 def _avall_key(qs, rs, chunk_pairs: int, sp: ScoringParams, mode: str) -> str:
@@ -144,6 +151,23 @@ def _avall_key(qs, rs, chunk_pairs: int, sp: ScoringParams, mode: str) -> str:
     return h.hexdigest()
 
 
+def _load_shard(shard: str, n: int, key: str, out: Dict[str, np.ndarray]) -> bool:
+    """Scatter a finished chunk shard of ``n`` pairs into ``out``; False
+    (and nothing scattered) when it is stale."""
+    with np.load(shard) as vals:
+        kv = str(vals["key"]) if "key" in vals.files else ""
+        # a shard passing the key check is this layout version and always
+        # stores its own index vectors: loading one without them under the
+        # bucket-grouped chunk order would scatter results to the wrong pairs
+        if (int(vals["n"]) == n and kv == key
+                and "ii" in vals.files and "jj" in vals.files):
+            for f in AVALL_FIELDS:
+                out[f][vals["ii"], vals["jj"]] = vals[f]
+            return True
+    log.warning("resume shard %s is stale (inputs or chunking changed); recomputing", shard)
+    return False
+
+
 def align_all_vs_all(
     queries: Sequence,
     references: Sequence,
@@ -174,19 +198,27 @@ def align_all_vs_all(
     rerun with the same inputs and chunking loads finished shards instead
     of realigning them.  The shards are those of
     ``seqalib_tpu.align_all_vs_all``: either package resumes the other's.
-    ``backend`` takes ``"strip"`` only: the oracle aligns no product (the
-    JAX package refuses it too)."""
-    if backend != "strip":
-        raise ValueError(f"align_all_vs_all runs backend 'strip', got {backend!r}")
+    They do not depend on the mesh: a product resumes shards written with
+    any mesh or none.  In a ``torch.distributed`` world every rank returns
+    the whole product, and rank 0 alone reads and writes the shards: it
+    sends every rank the set of chunks it resumed and their values, so the
+    ranks skip the same chunks and ``resume_dir`` need not be shared.
+    ``backend`` takes the strip route's names only: the oracle aligns no
+    product (the JAX package refuses it too).
+
+    ``mesh``: each chunk is sharded over the mesh (``run_bucket(mesh=)``),
+    all of its shards in flight while the previous chunk is finalized."""
+    if backend not in STRIP_NAMES:
+        raise ValueError(f"align_all_vs_all runs the strip route {STRIP_NAMES}, "
+                         f"got backend {backend!r}")
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be global|local, got {mode!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh dispatch is not ported yet (ROADMAP.md Queue 1 item 8)"
-        )
     from .parallel.dispatch import _pad_stack, bucket_len, run_bucket
+    from .parallel.dist import as_mesh, broadcast_host, world
 
-    dev = _device(device)
+    mesh = None if mesh is None else as_mesh(mesh)
+    dev = None if mesh else _device(device)
+    writer = world()[0] == 0
     sp = scoring if scoring is not None else ScoringParams.linear()
     qs = [_coerce(q, sp) for q in queries]
     rs = [_coerce(r, sp) for r in references]
@@ -216,56 +248,52 @@ def align_all_vs_all(
         vals = {f: np.asarray(res[f], np.int32) for f in AVALL_FIELDS}
         for f in AVALL_FIELDS:
             out[f][ii, jj] = vals[f]
-        if shard is not None:
+        if shard is not None and writer:
             tmp = shard + ".tmp.npz"
             np.savez(tmp, n=np.int64(len(ii)), key=key, ii=ii, jj=jj, **vals)
             os.replace(tmp, shard)
 
-    ci = 0
-    resumed = 0
-    pending = None  # the chunk in flight: (finalize, ii, jj, shard)
     qg, rg = _groups(qs), _groups(rs)
-    for qidx, Qmat, qleng in qg.values():
-        for ridx, Rmat, rleng in rg.values():
-            NRg = len(ridx)
-            total = len(qidx) * NRg
-            for lo in range(0, total, chunk_pairs):
-                hi = min(lo + chunk_pairs, total)
-                shard = (os.path.join(resume_dir, f"chunk_{ci:06d}.npz")
-                         if resume_dir is not None else None)
-                ci += 1
-                flat = np.arange(lo, hi, dtype=np.int64)
-                ai = flat // NRg
-                bj = flat % NRg
-                ii = qidx[ai]
-                jj = ridx[bj]
-                if shard is not None and os.path.exists(shard):
-                    with np.load(shard) as vals:
-                        kv = str(vals["key"]) if "key" in vals.files else ""
-                        # a shard passing the key check is this layout version
-                        # and always stores its own index vectors: loading one
-                        # without them under the bucket-grouped chunk order
-                        # would scatter results to the wrong pairs
-                        fresh = (int(vals["n"]) == len(flat) and kv == key
-                                 and "ii" in vals.files and "jj" in vals.files)
-                        if fresh:
-                            for f in AVALL_FIELDS:
-                                out[f][vals["ii"], vals["jj"]] = vals[f]
-                    if fresh:
-                        resumed += 1
-                        continue
-                    log.warning("resume shard %s is stale (inputs or chunking "
-                                "changed); recomputing", shard)
-                # no tail padding to a pinned shape, unlike the JAX package:
-                # the kernels take any batch size, and the padding costs wall
-                # on the card (``tools/profile_port.py --config 5`` measures it)
-                finish = run_bucket(Qmat[ai], Rmat[bj], qleng[ai], rleng[bj], sp, mode,
-                                    None, False, dev, launch_only=True)
-                # one-chunk lookahead: this chunk's device work is in flight
-                # while the previous chunk is finalized on the host
-                if pending is not None:
-                    _collect(pending)
-                pending = (finish, ii, jj, shard)
+    # the chunks in order: (query bucket, reference bucket, lo, hi)
+    chunks = [(qb, rb, lo, min(lo + chunk_pairs, len(qg[qb][0]) * len(rg[rb][0])))
+              for qb in qg for rb in rg
+              for lo in range(0, len(qg[qb][0]) * len(rg[rb][0]), chunk_pairs)]
+    shards = [os.path.join(resume_dir, f"chunk_{ci:06d}.npz") if resume_dir is not None
+              else None for ci in range(len(chunks))]
+    # which chunks resume is decided by rank 0 alone and shared with every
+    # rank, with the values it loaded: a rank that chose for itself could
+    # skip a chunk whose gathers another rank joins
+    fresh = np.zeros(len(chunks), np.uint8)
+    if resume_dir is not None:
+        if writer:
+            for ci, (_, _, lo, hi) in enumerate(chunks):
+                if os.path.exists(shards[ci]):
+                    fresh[ci] = _load_shard(shards[ci], hi - lo, key, out)
+        fresh = broadcast_host(fresh)
+        if fresh.any():
+            for f in AVALL_FIELDS:
+                out[f] = broadcast_host(out[f])
+    resumed = int(fresh.sum())
+
+    pending = None  # the chunk in flight: (finalize, ii, jj, shard)
+    for ci, (qb, rb, lo, hi) in enumerate(chunks):
+        if fresh[ci]:
+            continue
+        qidx, Qmat, qleng = qg[qb]
+        ridx, Rmat, rleng = rg[rb]
+        flat = np.arange(lo, hi, dtype=np.int64)
+        ai = flat // len(ridx)
+        bj = flat % len(ridx)
+        # no tail padding to a pinned shape, unlike the JAX package:
+        # the kernels take any batch size, and the padding costs wall
+        # on the card (``tools/profile_port.py --config 5`` measures it)
+        finish = run_bucket(Qmat[ai], Rmat[bj], qleng[ai], rleng[bj], sp, mode,
+                            None, False, dev, launch_only=True, mesh=mesh)
+        # one-chunk lookahead: this chunk's device work is in flight
+        # while the previous chunk is finalized on the host
+        if pending is not None:
+            _collect(pending)
+        pending = (finish, qidx[ai], ridx[bj], shards[ci])
     if pending is not None:
         _collect(pending)
     if resumed:

@@ -6,10 +6,11 @@
 
 The subcommands, options, defaults and printed keys are the JAX CLI's,
 except that ``--backend`` takes ``strip`` (the default) or ``oracle``,
-``--device`` (default ``cuda``) is passed to every API call, ``--trace DIR``
-writes a ``torch.profiler`` Chrome trace of the timed run into DIR, and
-config 5 runs on one device.  A run that fails raises: nothing falls back
-to another path or device.
+``--device`` (default ``cuda``) is passed to every API call, and ``--trace
+DIR`` writes a ``torch.profiler`` Chrome trace of the timed run into DIR.
+Config 5 runs on a pair mesh, as in the JAX CLI: every visible card with
+``--device cuda``, the named device alone otherwise.  A run that fails
+raises: nothing falls back to another path or device.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from contextlib import contextmanager
 
 import numpy as np
 
-from .api import BACKENDS
+# the CLI names the strip route by the port's own name only
+BACKENDS = ("strip", "oracle")
 
 
 def _scoring(args):
@@ -144,10 +146,23 @@ def _traced(trace_dir, name, device):
     prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.json"))
 
 
+def _bench_mesh(device):
+    """Config 5's pair mesh: every visible card for ``cuda`` (the JAX CLI's
+    ``make_pair_mesh()`` over every device), else the one device named."""
+    import torch
+
+    from .parallel.dist import make_pair_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return make_pair_mesh()
+    return make_pair_mesh([dev])
+
+
 def _bench_five(args) -> dict:
     """Config 5 (BASELINE.json:11): all-vs-all SW, every read against every
     reference through ``align_all_vs_all`` (bucket-grouped chunked product,
-    optionally resume-sharded) on one device.  Contract scale is
+    optionally resume-sharded), sharded over ``_bench_mesh``.  Contract scale is
     ``--reads 10000 --refs 1000`` (10M pairs); the default is a small smoke.
     Pairs/s and GCUPS are end-to-end wall over the whole product."""
     from .api import align_all_vs_all
@@ -157,8 +172,9 @@ def _bench_five(args) -> dict:
     sp = ScoringParams(match=2, mismatch=-3, gap_open=0, gap_extend=-2)
     reads, _ = _synth(rng, args.reads, args.read_len, args.read_len, 4)
     refs, _ = _synth(rng, args.refs, args.ref_len, args.ref_len, 4)
-    kw = dict(scoring=sp, mode="local", backend=args.backend,
-              chunk_pairs=args.chunk_pairs, device=args.device)
+    mesh = _bench_mesh(args.device)
+    kw = dict(scoring=sp, mode="local", backend=args.backend, mesh=mesh,
+              chunk_pairs=args.chunk_pairs)
     # warm-up at the timed run's chunk shape: enough reads x all refs to
     # fill one chunk per bucket pair; a single-chunk product warms up on a
     # small corner instead of running twice
@@ -184,7 +200,7 @@ def _bench_five(args) -> dict:
         "gcups_end_to_end": round(cells / dt / 1e9, 3),
         "backend": args.backend,
         "chunk_pairs": args.chunk_pairs,
-        "devices": 1,
+        "devices": len(mesh),
     }
     if args.parity_check:
         from .oracle_fast import align_oracle

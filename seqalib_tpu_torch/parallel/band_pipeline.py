@@ -56,19 +56,25 @@ def _ceil_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def make_band_mesh(devices=None) -> Mesh:
-    """The mesh: the given devices in order, or every visible CUDA device
-    (raises when there is none)."""
+def device_mesh(devices=None, who: str = "make_band_mesh") -> Mesh:
+    """A mesh: the given devices in order, or every visible CUDA device
+    (raises when there is none).  ``who`` names the caller in errors."""
     from ..api import _device
 
     if devices is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("make_band_mesh: no CUDA device; pass devices=")
+            raise RuntimeError(f"{who}: no CUDA device; pass devices=")
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     mesh = tuple(_device(d) for d in devices)
     if not mesh:
-        raise ValueError("make_band_mesh: a mesh needs at least one device")
+        raise ValueError(f"{who}: a mesh needs at least one device")
     return mesh
+
+
+def make_band_mesh(devices=None) -> Mesh:
+    """The mesh: the given devices in order, or every visible CUDA device
+    (raises when there is none)."""
+    return device_mesh(devices, "make_band_mesh")
 
 
 def _sp_fill(q, t, sp, mesh: Mesh, C, sp_sub, want_tb, local=False):

@@ -1,6 +1,5 @@
 """Batched alignment dispatcher (counterpart of
-``seqalib_tpu/parallel/dispatch.py::dispatch_batch`` / ``run_bucket``,
-without the mesh).
+``seqalib_tpu/parallel/dispatch.py::dispatch_batch`` / ``run_bucket``).
 
 Three routes:
 
@@ -13,6 +12,17 @@ Three routes:
   with a wider table, by the full-matrix ``wavefront_bucket``.  Every
   bucket is launched (``run_bucket(launch_only=True)``) before any is
   finalized and turned into ``AlignResult``s.
+
+With ``mesh=`` (a pair mesh, ``parallel.dist.make_pair_mesh``) each
+bucket is sharded over the mesh's devices (``dist.strip_sharded``,
+``dist.wavefront_sharded``), and the banded route splits each delta group
+over them, assigning the parts round robin.  Only the strip engine's
+shards are all in flight at once: the banded and wide-table routes run
+their parts one after another, so they gain nothing from several cards.
+The mesh comes in as a ``Mesh`` (``api.py`` normalizes the caller's
+argument).  Under a ``torch.distributed``
+world of more than one process only the strip engine's buckets run; the
+banded and wide-table routes raise.
 
 Results come back in input order.
 """
@@ -29,6 +39,8 @@ from ..ops.strip import strip_launch
 from ..ops.wavefront import wavefront_bucket
 from ..scoring import tables_from_params
 from ..types import AlignResult, ScoringParams
+from .band_pipeline import Mesh
+from .dist import refuse_multiprocess, strip_sharded, wavefront_sharded
 
 MIN_BUCKET = 16
 
@@ -59,9 +71,12 @@ def _pad_stack(seqs: List[np.ndarray], L: int) -> np.ndarray:
 
 
 def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str, band: Optional[int],
-               traceback: bool, device, launch_only: bool = False):
+               traceback: bool, device, launch_only: bool = False,
+               mesh: Optional[Mesh] = None):
     """Align one padded bucket (B, Lq) x (B, Lt) on ``device``: the strip
-    engine, or with ``band`` the banded full-matrix wavefront.
+    engine, or with ``band`` the banded full-matrix wavefront.  With
+    ``mesh`` the bucket is sharded over its devices instead (``device`` is
+    not used).
 
     ``launch_only``: return a 0-arg finalize callable instead of the
     result dict.  On the strip engine the device work is left in flight
@@ -71,22 +86,46 @@ def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str, band: Optional[in
     if band is not None:
         if mode != "global":
             raise ValueError("banded local alignment is out of contract")
+        if mesh is not None:
+            res = wavefront_sharded(mesh, q, t, qlen, tlen, sp, band=band,
+                                    want_tb=traceback)
+            return (lambda r=res: r) if launch_only else res
         res = wavefront_bucket(q, t, qlen, tlen, sp, band=band, want_tb=traceback,
                                device=device)
         return (lambda r=res: r) if launch_only else res
+    if mesh is not None:
+        return strip_sharded(mesh, q, t, qlen, tlen, sp, mode=mode, want_tb=traceback,
+                             launch_only=launch_only)
     tables = tables_from_params(sp, device)
     finish = strip_launch(q, t, qlen, tlen, tables, mode=mode, want_tb=traceback)
     return finish if launch_only else finish()
 
 
 def dispatch_banded(qs: List[np.ndarray], ts: List[np.ndarray], sp: ScoringParams,
-                    band: int, traceback: bool, device) -> List[AlignResult]:
-    """The banded route: one ``banded_align_batch`` per delta group."""
+                    band: int, traceback: bool, device,
+                    mesh: Optional[Mesh] = None) -> List[AlignResult]:
+    """The banded route: one ``banded_align_batch`` per delta group, or with
+    ``mesh`` per part of a group: each group of more than one pair is split
+    into ``min(len(mesh), len(group))`` parts, and the parts go to the mesh's
+    devices round robin (``dispatch.py:205-233`` of the JAX package).  The
+    parts run one after another (``banded_align_batch`` returns host
+    results), not at once on their devices."""
+    if mesh is not None:
+        refuse_multiprocess("banded route")
     groups: Dict[int, List[int]] = {}
     for idx, (q, t) in enumerate(zip(qs, ts)):
         groups.setdefault((len(t) - len(q)) // max(band, 1), []).append(idx)
-    results: List[Optional[AlignResult]] = [None] * len(qs)
+    parts: List[List[int]] = []
     for _, idxs in sorted(groups.items()):
+        if mesh is None or len(idxs) == 1:
+            parts.append(idxs)
+        else:
+            step = -(-len(idxs) // min(len(mesh), len(idxs)))
+            parts.extend(idxs[lo: lo + step] for lo in range(0, len(idxs), step))
+    results: List[Optional[AlignResult]] = [None] * len(qs)
+    for pi, idxs in enumerate(parts):
+        if mesh is not None:
+            device = mesh[pi % len(mesh)]
         qb = _pad_stack([qs[i] for i in idxs], max(len(qs[i]) for i in idxs))
         tb = _pad_stack([ts[i] for i in idxs], max(len(ts[i]) for i in idxs))
         qlen = np.array([len(qs[i]) for i in idxs], np.int64)
@@ -106,11 +145,13 @@ def dispatch_batch(
     band: Optional[int] = None,
     traceback: bool = True,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> List[AlignResult]:
-    """Align all pairs on ``device``; results in input order."""
+    """Align all pairs on ``device``, or sharded over ``mesh``; results in
+    input order."""
     if (band is not None and mode == "global"
             and (sp.matrix is None or banded_matrix_supported(sp.substitution_matrix()))):
-        return dispatch_banded(qs, ts, sp, band, traceback, device)
+        return dispatch_banded(qs, ts, sp, band, traceback, device, mesh=mesh)
     # a band with a wider table: the length buckets, as in the JAX package
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for idx, (q, t) in enumerate(zip(qs, ts)):
@@ -123,7 +164,7 @@ def dispatch_batch(
         qlen = np.array([len(qs[i]) for i in idxs], np.int32)
         tlen = np.array([len(ts[i]) for i in idxs], np.int32)
         pending.append((idxs, run_bucket(qb, tb, qlen, tlen, sp, mode, band, traceback,
-                                         device, launch_only=True)))
+                                         device, launch_only=True, mesh=mesh)))
 
     results: List[AlignResult] = [None] * len(qs)  # type: ignore[list-item]
     for idxs, finish in pending:

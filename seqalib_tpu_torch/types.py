@@ -213,6 +213,36 @@ class ScoringParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class AlignConfig:
+    """What kind of alignment to run.
+
+    mode: "global" (Needleman-Wunsch) or "local" (Smith-Waterman).
+    band: None for full DP; else half-width w of the banded DP
+          (cells with j - i outside [min(0, m-n) - w, max(0, m-n) + w]
+          are -inf; global mode only).
+    traceback: if False, only scores (+ coords for local) are computed.
+    backend: "oracle" (NumPy contract) or the strip route, named "strip"
+             here and "xla" or "pallas" in the JAX package.
+    """
+
+    mode: str = "global"
+    band: Optional[int] = None
+    traceback: bool = True
+    backend: str = "pallas"
+
+    def __post_init__(self):
+        if self.mode not in ("global", "local"):
+            raise ValueError(f"mode must be global|local, got {self.mode!r}")
+        if self.band is not None:
+            if self.mode != "global":
+                raise ValueError("banded alignment is global-mode only")
+            if self.band < 1:
+                raise ValueError("band half-width must be >= 1")
+        if self.backend not in ("oracle", "xla", "pallas", "strip"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+
+
+@dataclasses.dataclass(frozen=True)
 class AlignResult:
     """One pairwise alignment result.
 

@@ -141,7 +141,7 @@ def test_shard_key_is_the_jax_packages(sp):
 
 
 def test_all_vs_all_refuses_what_it_does_not_run():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="make_pair_mesh"):
         st.align_all_vs_all(["ACGT"], ["AGT"], mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         st.align_all_vs_all(["ACGT"], ["AGT"], backend="oracle", device="cpu")

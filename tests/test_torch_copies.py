@@ -1,8 +1,11 @@
 """The port keeps its own copies of the JAX package's jax-free layer
-(types, encoders, BLOSUM62, oracle, CIGAR codec, bucketing helpers, the
-sentinel table).  These tests hold each copy to the original on the same
+(types, ``AlignConfig``, the exported names, encoders, BLOSUM62, oracle,
+CIGAR codec, bucketing helpers, the sentinel table, the generic-container
+aligners).  These tests hold each copy to the original on the same
 inputs, so that the two packages keep scoring, bucketing and encoding
-alike."""
+alike; and they run the port's ``dryrun_multichip`` on a CPU mesh."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -157,3 +160,131 @@ def test_rescore_global_affine_is_the_same():
             assert port(q, t, ops, sp) == jax_rescore(q, t, ops, jsp)
         with pytest.raises(RuntimeError, match="consume"):
             port(q, t, [0, 0], sp)
+
+
+def _config_outcome(cls, **kw):
+    try:
+        return dataclasses.astuple(cls(**kw))
+    except ValueError as e:
+        return ("ValueError", str(e))
+
+
+def test_align_config_is_the_same():
+    import itertools
+
+    grid = itertools.product(["global", "local", "semi"], [None, 0, 1, 7], [True, False],
+                             ["oracle", "xla", "pallas", "cuda"])
+    for mode, band, tb, backend in grid:
+        kw = dict(mode=mode, band=band, traceback=tb, backend=backend)
+        assert _config_outcome(pt.AlignConfig, **kw) == _config_outcome(jt.AlignConfig, **kw)
+    assert dataclasses.astuple(pt.AlignConfig()) == dataclasses.astuple(jt.AlignConfig())
+    # the port's own name for the strip route, which the JAX package calls
+    # "xla" or "pallas"
+    assert pt.AlignConfig(backend="strip").backend == "strip"
+    with pytest.raises(ValueError, match="unknown backend"):
+        jt.AlignConfig(backend="strip")
+
+
+def test_exported_names_are_the_same():
+    import seqalib_tpu as sa
+    import seqalib_tpu_torch as st
+
+    for name in ("DNA_ALPHABET", "PROTEIN_ALPHABET", "NEG_INF", "__version__"):
+        assert getattr(st, name) == getattr(sa, name), name
+    assert st.__version__ == "0.3.0"
+    assert {"AlignConfig", "AlignResult", "ScoringParams", "BLOSUM62"} <= set(dir(st))
+    np.testing.assert_array_equal(st.BLOSUM62, sa.BLOSUM62)
+
+
+def _generic_cases():
+    """tests/test_generic.py's inputs: (aligner name, kwargs, s1, s2)."""
+    cases = [("NeedlemanWunschSA", {}, "ACGTACGT", "ACGACGT"),
+             ("SmithWatermanSA", {}, "TTTACGTACGTTT", "GGACGTACGG"),
+             ("NeedlemanWunschSA", {}, "AB", "AB")]
+    rng = np.random.default_rng(3)
+    for _ in range(5):
+        s1 = list(rng.integers(0, 4, rng.integers(1, 40)))
+        s2 = list(rng.integers(0, 4, rng.integers(1, 40)))
+        cases += [("NeedlemanWunschSA", {}, s1, s2), ("HirschbergSA", {}, s1, s2)]
+    rng = np.random.default_rng(4)
+    cases.append(("DiagonalWindowsSA", {"window": 64}, list(rng.integers(0, 4, 30)),
+                  list(rng.integers(0, 4, 33))))
+    rng = np.random.default_rng(7)
+    for _ in range(8):
+        cases.append(("FOGSAA", {}, list(rng.integers(0, 4, rng.integers(0, 35))),
+                      list(rng.integers(0, 4, rng.integers(0, 35)))))
+    rng = np.random.default_rng(8)
+    s1 = list(rng.integers(0, 4, 60))
+    s2 = list(s1)
+    s2[30] = (s2[30] + 1) % 4
+    cases.append(("FOGSAA", {}, s1, s2))
+    rng = np.random.default_rng(0)
+    for o, e in [(-5, -1), (-3, -2), (0, -2), (-11, -1)]:
+        for _ in range(3):
+            q = list(rng.integers(0, 4, int(rng.integers(0, 40))))
+            t = list(rng.integers(0, 4, int(rng.integers(0, 40))))
+            cases.append(("MyersMillerSA", {"gap_open": o, "gap_extend": e}, q, t))
+    rng = np.random.default_rng(3)
+    for _ in range(6):
+        q = list(rng.integers(0, 4, int(rng.integers(0, 35))))
+        t = list(rng.integers(0, 4, int(rng.integers(0, 35))))
+        for local in (False, True):
+            cases.append(("GotohSA", {"gap_open": -5, "gap_extend": -2, "local": local},
+                          q, t))
+    return cases
+
+
+SCORING_SYSTEMS = [dict(gap_penalty=-2, match_profit=2, mismatch_penalty=-3),
+                   dict(gap_penalty=-1, match_profit=2, mismatch_penalty=-1),
+                   dict(gap_penalty=-3, match_profit=2, mismatch_penalty=-3),
+                   dict(match_profit=3, mismatch_penalty=-2)]
+
+
+@pytest.mark.parametrize("si", range(len(SCORING_SYSTEMS)))
+def test_generic_aligners_are_the_same(si):
+    import seqalib_tpu.models.generic as jg
+    from seqalib_tpu_torch.models import generic as pg
+
+    def run(mod, name, kw, s1, s2, **sc):
+        sa = getattr(mod, name)(mod.ScoringSystem(**sc), **kw)
+        res = sa.get_alignment(s1, s2)
+        return (res.score, res.cigar(), res.matches(),
+                [(e.a, e.b, e.is_match) for e in res], getattr(sa, "expanded", None))
+
+    sc = SCORING_SYSTEMS[si]
+    for name, kw, s1, s2 in _generic_cases():
+        assert run(pg, name, kw, s1, s2, **sc) == run(jg, name, kw, s1, s2, **sc), name
+    # arbitrary objects and a match function, with mismatches disallowed
+    ops1 = [("add", 1), ("mul", 2), ("ld", 3), ("st", 4)]
+    ops2 = [("add", 9), ("ld", 7), ("st", 4)]
+    for name in ("NeedlemanWunschSA", "FOGSAA"):
+        got, want = (getattr(m, name)(m.ScoringSystem(gap_penalty=-1, match_profit=3,
+                                                      allow_mismatch=False),
+                                      match_fn=lambda a, b: a[0] == b[0])
+                     .get_alignment(ops1, ops2) for m in (pg, jg))
+        assert (got.score, got.cigar(), [(e.a, e.b) for e in got]) == (
+            want.score, want.cigar(), [(e.a, e.b) for e in want])
+
+
+@pytest.mark.parametrize("preset", [None, "strip"])
+def test_dryrun_multichip_passes_and_restores_the_environment(preset, monkeypatch):
+    import torch
+
+    from seqalib_tpu_torch.parallel.dist import dryrun_multichip
+
+    if preset is None:
+        monkeypatch.delenv("SEQALIB_FUSED_PASS2", raising=False)
+    else:
+        monkeypatch.setenv("SEQALIB_FUSED_PASS2", preset)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        dryrun_multichip(4, device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    import os
+
+    assert os.environ.get("SEQALIB_FUSED_PASS2") == preset
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="2 CUDA devices asked for, 0 visible"):
+            dryrun_multichip(2)

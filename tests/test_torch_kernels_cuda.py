@@ -978,3 +978,55 @@ def test_strip_fill_defers_its_length_check(dev):
         sf_mod.raise_on_bad_length(err.cpu()[0])
     with pytest.raises(ValueError, match="a length exceeds its letter array"):
         strip_fill(q, t2, qlen, tlen, tables, mq=40, mode="local")
+
+
+@pytest.mark.parametrize("mode,traceback", [("local", True), ("local", False),
+                                            ("global", True)])
+def test_sharded_launch_makes_no_sync(dev, mode, traceback):
+    """Every shard of a bucket on a mesh of 4 entries naming the card is
+    launched with no device-to-host sync (``dist.strip_sharded``); the
+    finalize equals the unsharded bucket and the CPU's plain versions."""
+    from seqalib_tpu_torch.parallel import dispatch
+
+    sp, alpha = SCORINGS["blosum62_affine"]
+    psp = scoring_params(sp.match, sp.mismatch, sp.gap_open, sp.gap_extend, sp.matrix)
+    rng = np.random.default_rng(41)
+    q = rng.integers(0, alpha, size=(13, 200)).astype(np.int32)
+    t = rng.integers(0, alpha, size=(13, 230)).astype(np.int32)
+    qlen, tlen = rng.integers(1, 201, 13), rng.integers(1, 231, 13)
+    args = (q, t, qlen, tlen, psp, mode, None, traceback)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = dispatch.run_bucket(*args, None, launch_only=True, mesh=[dev] * 4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = finish()
+    for want in (dispatch.run_bucket(*args, dev), dispatch.run_bucket(*args, "cpu")):
+        for k in ("score", "qs", "qe", "ts", "te") + (("cigars",) if traceback else ()):
+            if k == "cigars":
+                assert got[k] == want[k]
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_pair_mesh_over_two_cards():
+    """A pair mesh over two cards: each shard on its own card, every result
+    equal to the oracle, cuda:0 left current."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a pair mesh over distinct cards")
+    from seqalib_tpu_torch import make_pair_mesh
+
+    sp, alpha = SCORINGS["blosum62_affine"]
+    rng = np.random.default_rng(43)
+    qs = [rng.integers(0, alpha, size=rng.integers(1, 300)).astype(np.uint8)
+          for _ in range(9)]
+    ts = [np.concatenate([q[2:], rng.integers(0, alpha, size=5)]).astype(np.uint8)
+          for q in qs]
+    torch.cuda.set_device(0)
+    mesh = make_pair_mesh(["cuda:0", "cuda:1"])
+    for mode, band in (("local", None), ("global", None), ("global", 16)):
+        got = align_batch(qs, ts, scoring=sp, mode=mode, band=band, mesh=mesh)
+        for q, t, r in zip(qs, ts, got):
+            assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode=mode, band=band))
+    assert torch.cuda.current_device() == 0

@@ -259,7 +259,7 @@ def test_oracle_backend_and_api_errors():
     want = sa.align("ACGTTA", "AGTA", scoring=sp, mode="global", band=2, backend="oracle")
     assert str(got[0]) == str(want)
     with pytest.raises(ValueError, match="backend"):
-        st.align_batch(["ACGT"], ["AGT"], backend="pallas", device="cpu")
+        st.align_batch(["ACGT"], ["AGT"], backend="tpu", device="cpu")
     # a band with a table outside [-4, 11]: the full-matrix wavefront route
     wide = np.full((4, 4), -20)
     np.fill_diagonal(wide, 20)
@@ -268,7 +268,7 @@ def test_oracle_backend_and_api_errors():
                          scoring=_port_sp(wsp))
     want = sa.align("ACGT", "AGT", scoring=wsp, mode="global", band=4, backend="oracle")
     assert str(got[0]) == str(want)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="make_pair_mesh"):
         st.align_batch(["ACGT"], ["AGT"], mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="out of contract"):
         st.align_batch(["ACGT"], ["AGT"], mode="local", band=4, device="cpu")
@@ -302,7 +302,8 @@ def test_cuda_device_without_a_card_raises():
 def test_port_never_imports_jax():
     # neither jax nor any module of the JAX package, after a local call, a
     # banded global call (both banded routes), both sequence-parallel ones,
-    # an all-vs-all product, the CLI and the headline bench
+    # an all-vs-all product, a call on a pair mesh, the generic aligners,
+    # the distribution layer and its worker, the CLI and the headline bench
     code = (
         "import sys, numpy as np, seqalib_tpu_torch as st\n"
         "r = st.align_batch(['ACGTACGT', 'TTGCA'], ['ACGACGT', 'TTGGCA'], mode='local',\n"
@@ -327,6 +328,13 @@ def test_port_never_imports_jax():
         "x = st.align_all_vs_all(['ACGTACGT', 'TTGCA'], ['ACGACGT'], chunk_pairs=1,\n"
         "                        device='cpu')\n"
         "assert x['score'].shape == (2, 1), x\n"
+        "m = st.align_batch(['ACGTACGT', 'TTGCA', 'GGA'], ['ACGACGT', 'TTGGCA', 'GA'],\n"
+        "                   mode='local', backend='pallas', mesh=st.make_pair_mesh(['cpu'] * 2))\n"
+        "assert [str(a) for a in m[:2]] == [str(a) for a in r], (m, r)\n"
+        "from seqalib_tpu_torch.models import generic\n"
+        "from seqalib_tpu_torch.parallel import dist, dist_check\n"
+        "nw = generic.NeedlemanWunschSA(generic.ScoringSystem()).get_alignment('AB', 'AB')\n"
+        "assert nw.cigar() == '2M', nw\n"
         "from seqalib_tpu_torch import bench, cli\n"
         "os.environ.update(BENCH_B='2', BENCH_L='32')\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
