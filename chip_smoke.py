@@ -61,7 +61,10 @@ Phases (any failure raises and exits non-zero):
    with o=-20, e=-2, full CIGAR, then score-only; every result equals the
    BLOSUM62 o=-10, e=-1 banded route's (``band_fill``) with the score
    doubled, 8 pairs equal the banded oracle; warm wall, pairs/s,
-   GCUPS(n*w);
+   GCUPS(n*w) (the walk runs on the card: ``wavefront_walk``); the
+   bucket's launch half, with and without CIGARs, makes no device-to-host
+   sync and its finalize equals ``align_batch``'s, and no ``.cpu()`` of a
+   call with CIGARs copies as much as the (K, B, Np) pointer stream;
 8. banded sequence parallelism on meshes naming the one card: B=16 DNA
    pairs of 100 kb (config 4's generator and scoring), band 256,
    ``align_score_banded_sp`` on a mesh of 4 (R = 25 000, two relay groups,
@@ -98,7 +101,9 @@ Phases (any failure raises and exits non-zero):
    launched 4 times as often as without, its launch half made no
    device-to-host sync, and the first shard's kernel calls are held
    against their plain versions and timed at the shard's shape), config 1,
-   config 4 (timed in turns with ``mesh=None``) and 3 pairs of config 3 (one
+   config 4 (timed in turns with ``mesh=None``), phase 7's wide-table batch
+   (timed in turns with ``mesh=None``; one fill and one walk per shard, every
+   shard launched before any is finalized) and 3 pairs of config 3 (one
    shard empty) on the mesh of 4;
    2 000 reads x 100
    references of config 5's product through ``align_all_vs_all`` on the
@@ -129,9 +134,12 @@ whole call's time printed beside, and the one-tile launches of the
 2048 diagonals of the 17 000-delta pair, and of pairs whose deltas give Wp
 8 320 and 16 384), the
 wavefront fill (pointer and score-only modes, at the wide-table phase's
-shapes) and phase 8's kernels against their plain versions: the resumed
-block fill of a block d >= 1 on a mesh of 4, in the score relay of
-phase 8's 100 kb pairs (``band_fill/relay``, 8 live pairs) and in the
+shapes), the wavefront walk (at the same phase's stream, on its CIGAR
+text, lengths and final states, with its kernel's own time under
+``torch.profiler``, the ns per op of its longest walk, and a bound of one
+32-byte sector per op walked plus the text) and phase 8's kernels against
+their plain versions: the resumed block fill of a block d >= 1 on a mesh
+of 4, in the score relay of phase 8's 100 kb pairs (``band_fill/relay``, 8 live pairs) and in the
 align of the first of them (``band_fill/relay_ptr``), on diagonals
 [0, 2048) (the boundary injection) and [2R - 1024, 2R + 1024) resumed
 from the kernel's own state (the capture of row R), with the whole
@@ -173,6 +181,7 @@ CMP_DIAGONALS = 2048  # config-4 fill and ptr: diagonals held against the plain 
 # 132 SMs x 64 INT32 lanes per SM per clock (Hopper white paper) x the
 # 1.98 GHz boost clock = 16.7 Tops/s: the DP fills run no tensor-core work
 HBM_BYTES_PER_S = 3.35e12
+SECTOR_BYTES = 32  # the least a DRAM read moves: a walk step's byte costs a sector
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations per cell, the least the recurrence needs: E and F take
 # two adds and a max each, the diagonal one add, H two maxes (9, affine);
@@ -242,6 +251,9 @@ KERNELS = {  # launch-counter key -> (CUDA source, replaced Pallas kernel, path)
     "sp_tile/run_local": ("sp_tile.cu", f"{SPTILE}:52", "sp_local"),
     "wavefront_fill/ptr": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide"),
     "wavefront_fill/score": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide_score"),
+    # a kernel of the port alone: it replaces the host walk of the JAX
+    # route (native.walk_to_cigars, then _host_traceback_affine)
+    "wavefront_walk": ("wavefront_walk.cu", f"{WAVEFRONT}:707", "wide"),
     "band_fill/relay": ("band_fill.cu", f"{BANDED}:90", "banded_sp_score"),
     "band_fill/relay_ptr": ("band_fill.cu", f"{BANDED}:90", "banded_sp_align"),
     "band_walk/floor": ("band_walk.cu", f"{BANDED}:890", "banded_sp_align"),
@@ -332,6 +344,11 @@ def bound(key, args, kw, out):
         _, nchar, state = out
         steps = int(walked_ops(out).sum())
         nbytes = steps + _nbytes(args[1:]) + _nbytes((nchar, state)) + int(nchar.sum())
+    elif name == "wavefront_walk":  # a 32-byte sector per op walked; the text written
+        _, nchar, state = out
+        steps = int(wavefront_walked_ops(out).sum())
+        nbytes = (SECTOR_BYTES * steps + _nbytes(args[1:]) + _nbytes((nchar, state))
+                  + int(nchar.sum()))
     elif name == "band_walk":
         steps = int((out[0] != 255).sum())
         nbytes = _nbytes(out) + _nbytes(args[1:]) + steps
@@ -405,12 +422,22 @@ def walked_ops(out):
     return total - head
 
 
-def walk_report(call, out):
-    """The shape of a ``strip_walk`` call, its ops walked, and the kernel's
-    own time under ``torch.profiler`` per call and per op of the longest
-    walk."""
-    steps = walked_ops(out)
-    alone = kernel_split(call, ("strip_walk_kernel",))["strip_walk_kernel"]
+def wavefront_walked_ops(out):
+    """Ops each pair's ``wavefront_walk`` walked: every op of its CIGAR (the
+    walk reaches (0, 0) through the stream's row 0 and column 0)."""
+    text, nchar, _ = out
+    cig = strip_walk_mod().cigars_from_text(text, nchar)
+    return np.array([sum(int(n) for n in re.findall(r"(\d+)[MID]", c)) for c in cig],
+                    np.int64)
+
+
+def walk_report(call, out, key="strip_walk"):
+    """The shape of a ``strip_walk`` or ``wavefront_walk`` call, its ops
+    walked, and the kernel's own time under ``torch.profiler`` per call and
+    per op of the longest walk."""
+    steps = wavefront_walked_ops(out) if key == "wavefront_walk" else walked_ops(out)
+    name = key + "_kernel"
+    alone = kernel_split(call, (name,))[name]
     text = (f"B {len(steps)}, text {tuple(out[0].shape)}; ops walked: longest "
             f"{steps.max()}, mean {steps.mean():.1f}; kernel alone ")
     if alone is None:
@@ -514,9 +541,10 @@ def per_diagonal(kw, ms):
 
 
 def kernel_entry(key, fn, plain, args, kw, label=""):
-    # the plain version has no deferred range check: it checks at once
-    pkw = {k: v for k, v in kw.items() if k != "err"}
-    view = walk_view if key == "strip_walk" else (lambda out: out)
+    # the plain version has no deferred range check: it checks at once; a
+    # fill's span sizes the kernel's ring alone
+    pkw = {k: v for k, v in kw.items() if k not in ("err", "span")}
+    view = walk_view if key in ("strip_walk", "wavefront_walk") else (lambda out: out)
     stats, out = check_kernel(key + label, lambda: fn(*args, **kw),
                               lambda: plain(*args, **pkw), view)
     b_ms, b_by = bound(key, args, kw, out)
@@ -529,9 +557,9 @@ def kernel_entry(key, fn, plain, args, kw, label=""):
             f"per anti-diagonal")
     if key.startswith(("strip_fill/", "wavefront_fill/")):
         say(f"[kernel] {key}: {layout(key, args, kw)}")
-    if key == "strip_walk":
-        say(f"[kernel] {key}{label}: {walk_report(lambda: fn(*args, **kw), out)}; wrapper "
-            f"{stats['ms']:.4f} ms")
+    if key in ("strip_walk", "wavefront_walk"):
+        say(f"[kernel] {key}{label}: {walk_report(lambda: fn(*args, **kw), out, key)}; "
+            f"wrapper {stats['ms']:.4f} ms")
     if key == "wavefront_fill/ptr":
         split = kernel_split(lambda: fn(*args, **kw), ("wf_far_kernel", "wf_window_kernel"))
         say(f"[kernel] {key}: 2 kernels per call, the far pass then the window: "
@@ -865,12 +893,14 @@ def kernel_phase_wide4(q, t, sp, dev):
 
 
 def kernel_phase_wide(qs, ts, sp, dev):
-    """The wide-table route's fills, pointer and score-only, at the
-    phase's shapes."""
+    """The wide-table route's fills, pointer and score-only, and its walk
+    at the phase's shapes."""
     import seqalib_tpu_torch as st
     from seqalib_tpu_torch.ops import wavefront as wf_mod
+    from seqalib_tpu_torch.ops.wavefront_walk import wavefront_walk_ref
 
-    targets = [(wf_mod, "wavefront_fill", wf_mod.wavefront_fill_ref)]
+    targets = [(wf_mod, "wavefront_fill", wf_mod.wavefront_fill_ref),
+               (wf_mod, "wavefront_walk", wavefront_walk_ref)]
     per_kernel = {}
     for tb in (True, False):
         calls, _ = record(lambda: st.align_batch(qs, ts, scoring=sp, mode="global",
@@ -1226,6 +1256,58 @@ def wide_runs(qs, ts, sp2, sp1, dev, counts):
         if str(g) != str(w):
             raise AssertionError(f"wide pair {b}: {g} != oracle {w}")
     say(f"[wide] {N_ORACLE4}/{N_ORACLE4} pairs equal to the banded oracle")
+    wide_launch_checks(qs, ts, sp2, dev, out)
+
+
+def wide_launch_checks(qs, ts, sp, dev, out):
+    """Phase 7's bucket: its launch half (``run_bucket(launch_only=True)``,
+    with and without CIGARs) makes no device-to-host sync and its finalize
+    equals ``out`` (the phase's results); no ``.cpu()`` of a call with
+    CIGARs copies as much as the pointer stream."""
+    import torch
+
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch.parallel import dispatch
+
+    Lq = max(dispatch.bucket_len(len(x)) for x in qs)
+    Lt = max(dispatch.bucket_len(len(x)) for x in ts)
+    q, t = dispatch._pad_stack(qs, Lq), dispatch._pad_stack(ts, Lt)
+    qlen = np.array([len(x) for x in qs])
+    tlen = np.array([len(x) for x in ts])
+    for tb in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            finish = dispatch.run_bucket(q, t, qlen, tlen, sp, "global", BAND7, tb, dev,
+                                         launch_only=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        res = finish()
+        got = [f"score={res['score'][b]} q[{res['qs'][b]}:{res['qe'][b]}] "
+               f"t[{res['ts'][b]}:{res['te'][b]}] {res['cigars'][b] if tb else ''}"
+               for b in range(len(qs))]
+        if got != [str(r) for r in out[tb]]:
+            raise AssertionError(f"wide: the sync-free launch (traceback={tb}) differs")
+    say("[wide] the launch half of the bucket, with and without CIGARs, made no "
+        "device-to-host sync; its finalize equals align_batch's")
+    copied = []
+    real_cpu = torch.Tensor.cpu
+
+    def counted_cpu(self, *a, **k):
+        copied.append(self.numel() * self.element_size() if self.is_cuda else 0)
+        return real_cpu(self, *a, **k)
+
+    torch.Tensor.cpu = counted_cpu
+    try:
+        st.align_batch(qs, ts, scoring=sp, mode="global", band=BAND7, device=dev)
+    finally:
+        torch.Tensor.cpu = real_cpu
+    stream = (Lq + Lt + 1) * len(qs) * (-(-(Lq + 1) // 128) * 128)
+    if max(copied, default=0) >= stream:
+        raise AssertionError(f"wide: a .cpu() copied {max(copied)} bytes, the stream's size")
+    say(f"[wide] one call with CIGARs: {len(copied)} .cpu() copies of device tensors, the "
+        f"largest {max(copied, default=0)} bytes (the pointer stream: {stream} bytes, "
+        f"walked on the card)")
 
 
 def banded_sp_pairs():
@@ -1519,7 +1601,7 @@ def two_process_run(q, t, sp, dev, card, want_hash, tmp):
     return walls
 
 
-def pair_mesh_runs(dev, card, counts, cfg3, cfg1, cfg4, product):
+def pair_mesh_runs(dev, card, counts, cfg3, cfg1, cfg4, wide, product):
     """Phase 10: the pair mesh, held exactly against ``mesh=None``."""
     import torch
 
@@ -1596,6 +1678,22 @@ def pair_mesh_runs(dev, card, counts, cfg3, cfg1, cfg4, product):
         f"turns: mesh=None {statistics.median(turns['mesh=None'][1])!r} s (reps "
         f"{turns['mesh=None'][1]}), the mesh of 4 {statistics.median(turns['four'][1])!r} s "
         f"(reps {turns['four'][1]}) ({card})")
+    qs7, ts7, sp7 = wide
+    kw7 = dict(scoring=sp7, mode="global", band=BAND7)
+    reset_launches()
+    st.align_batch(qs7, ts7, mesh=four, **kw7)
+    walks = launches["wavefront_walk"], launches["wavefront_fill/ptr"]
+    if walks != (4, 4):
+        raise AssertionError(f"the wide route on the mesh of 4 launched (walk, fill) {walks}")
+    turns = runs_in_turns({"mesh=None": lambda: st.align_batch(qs7, ts7, device=dev, **kw7),
+                           "four": lambda: st.align_batch(qs7, ts7, mesh=four, **kw7)})
+    mesh_equal("the wide-table route on the mesh of 4", turns["four"][0],
+               turns["mesh=None"][0])
+    say(f"[pairmesh] the wide-table route (phase 7's batch, every shard launched before any "
+        f"is finalized; one fill and one walk a shard) walls in turns: mesh=None "
+        f"{statistics.median(turns['mesh=None'][1])!r} s (reps {turns['mesh=None'][1]}), the "
+        f"mesh of 4 {statistics.median(turns['four'][1])!r} s (reps {turns['four'][1]}) "
+        f"({card})")
     mesh_equal("3 config-3 pairs on the mesh of 4 (one shard empty)",
                st.align_batch(qs3[:3], ts3[:3], scoring=sp3, mode="local", mesh=four),
                base[:3])
@@ -1745,7 +1843,8 @@ def main() -> int:
     say(f"[time] banded-SP phase done at {time.perf_counter() - t_start:.1f} s")
     product = cli_runs(dev, card, counts)
     say(f"[time] CLI phase done at {time.perf_counter() - t_start:.1f} s")
-    pair_mesh_runs(dev, card, counts, (q3, t3, sp3), (q1, t1, sp1), (qs4, ts4, sp4), product)
+    pair_mesh_runs(dev, card, counts, (q3, t3, sp3), (q1, t1, sp1), (qs4, ts4, sp4),
+                   (qs7, ts7, sp7), product)
     say(f"[time] paths done at {time.perf_counter() - t_start:.1f} s")
 
     for path, c in counts.items():

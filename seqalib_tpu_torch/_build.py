@@ -56,6 +56,7 @@ _SIGNATURES = {
     "seqalib_sp_run": [_P] * 7 + [_I] * 16 + [_P] * 4 + [_I] + [_P] * 6,
     "seqalib_wavefront_fill": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_P] * 2 + [_I]
     + [_P] * 2,
+    "seqalib_wavefront_walk": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -4,10 +4,13 @@
   align   one pair from the command line
   bench   run a BASELINE.json benchmark config (1-5) and print JSON
 
-The subcommands, options, defaults and printed keys are the JAX CLI's,
-except that ``--backend`` takes ``strip`` (the default) or ``oracle``,
-``--device`` (default ``cuda``) is passed to every API call, and ``--trace
-DIR`` writes a ``torch.profiler`` Chrome trace of the timed run into DIR.
+The subcommands, options, defaults and printed keys are the JAX CLI's:
+``--backend`` takes any name of ``api.BACKENDS`` and defaults to ``pallas``,
+as the JAX CLI does (``pallas``, ``xla`` and ``strip`` name the port's strip
+route, ``oracle`` the oracle), and a bench line prints the name it was
+given.  Beyond them, ``--device`` (default ``cuda``) is passed to every
+API call, and ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of
+the timed run into DIR.
 Config 5 runs on a pair mesh, as in the JAX CLI: every visible card with
 ``--device cuda``, the named device alone otherwise.  A run that fails
 raises: nothing falls back to another path or device.
@@ -24,8 +27,7 @@ from contextlib import contextmanager
 
 import numpy as np
 
-# the CLI names the strip route by the port's own name only
-BACKENDS = ("strip", "oracle")
+from .api import BACKENDS
 
 
 def _scoring(args):
@@ -282,7 +284,7 @@ def main(argv=None) -> int:
     pa.add_argument("query")
     pa.add_argument("target")
     pa.add_argument("--mode", choices=["global", "local"], default="global")
-    pa.add_argument("--backend", choices=BACKENDS, default="strip")
+    pa.add_argument("--backend", choices=BACKENDS, default="pallas")
     pa.add_argument("--device", default="cuda")
     pa.add_argument("--band", type=int, default=None)
     pa.add_argument("--match", type=int, default=2)
@@ -309,7 +311,7 @@ def main(argv=None) -> int:
     pb.add_argument("--long-len", type=int, default=10000)
     pb.add_argument("--no-tb", action="store_true",
                     help="config 4: fill-only (skip the checkpointed traceback)")
-    pb.add_argument("--backend", choices=BACKENDS, default="strip")
+    pb.add_argument("--backend", choices=BACKENDS, default="pallas")
     pb.add_argument("--device", default="cuda")
     pb.add_argument("--seed", type=int, default=0)
     pb.add_argument("--parity-check", action="store_true")

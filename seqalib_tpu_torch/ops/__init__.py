@@ -35,6 +35,7 @@ launches: dict[str, int] = {
     "sp_tile/ptr_batch": 0,
     "wavefront_fill/ptr": 0,
     "wavefront_fill/score": 0,
+    "wavefront_walk": 0,
 }
 
 

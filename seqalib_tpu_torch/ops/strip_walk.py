@@ -57,7 +57,9 @@ def _check(P, state):
 
 
 def _bad_start(b: int):
-    return ValueError(f"strip_walk: pair {b}'s start cell lies outside P")
+    """The error of a walk whose pair b started outside its pointers P
+    (``strip_walk``'s and ``wavefront_walk``'s)."""
+    return ValueError(f"walk: pair {b}'s start cell lies outside P")
 
 
 def cigars_from_text(text, nchar) -> list[str]:

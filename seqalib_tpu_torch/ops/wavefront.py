@@ -4,10 +4,12 @@ function around it (counterpart of ``seqalib_tpu/ops/wavefront_pallas.py``:
 
 The route: ``align_batch(band=w, mode="global")`` with a substitution
 table outside the packed-nibble range [-4, 11] (``banded_matrix_supported``
-is false) goes through the length buckets to ``wavefront_bucket``, as in
-the JAX package.  Only the modes that route reaches are ported: global,
-affine (a band forces affine gaps), band mask, with pointers
-(``want_ptr``) or score-only.  Not ported, because no entry point reaches
+is false) goes through the length buckets to ``wavefront_launch`` (the
+launch half of ``wavefront_bucket``), as in the JAX package: the fill,
+then with a CIGAR the walk on the device (``ops/wavefront_walk.py``).
+Only the modes that route reaches are ported: global, affine (a band
+forces affine gaps), band mask, with pointers (``want_ptr``) or
+score-only.  Not ported, because no entry point reaches
 them (``pallas_bucket`` sends unbanded work to the strip engine, and banded
 local is out of contract): local with start propagation, linear gaps, no
 band.
@@ -36,7 +38,10 @@ rule, then the window kernel its own.  Inputs, for a batch of B pairs:
 Outputs: ``score`` (B,) int32, H of cell (qlen, tlen); with ``want_ptr``
 also ``ptr`` (K, B, Np) uint8, ``ptr[k, b, i]`` = ``PTR_* | ext_e << 2 |
 ext_f << 3`` of cell (i, k - i), taken before the band mask.  Kernel:
-``csrc/wavefront_fill.cu``.
+``csrc/wavefront_fill.cu``.  The window kernel's ring follows the widest
+window, so the wrapper needs the largest |tlen - qlen| of the batch: from
+the caller's ``span=`` (the bucket has the lengths on the host), else read
+back from the device (a device-to-host sync).
 """
 
 from __future__ import annotations
@@ -45,9 +50,11 @@ import numpy as np
 import torch
 
 from ..scoring import sentinel_table
+from ..transfer import host_buffer, to_host, upload
 from ..types import NEG_INF, PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP, ScoringParams
-from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD, op_rows_to_cigars
 from . import launches
+from .strip_walk import cigars_from_text
+from .wavefront_walk import wavefront_walk
 
 LANES = 128
 MAX_TABLE = 66  # the kernel keeps the score table in shared memory
@@ -191,9 +198,11 @@ def wavefront_far_bytes_ref(qpad, tk, tab, *, K: int, gap_open: int, gap_extend:
 
 
 def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: int,
-                   gap_extend: int, want_ptr: bool):
+                   gap_extend: int, want_ptr: bool, span: int | None = None):
     """Fill diagonals [0, K) of every pair; see the module docstring.  A
-    CPU tensor runs ``wavefront_fill_ref``; a CUDA tensor the kernel."""
+    CPU tensor runs ``wavefront_fill_ref``; a CUDA tensor the kernel.
+    ``span``: at least the largest |tlen - qlen| of the batch (None: read
+    from the device)."""
     qpad, tk, tab = qpad.contiguous(), tk.contiguous(), tab.contiguous()
     qlen, tlen = qlen.to(torch.int32).contiguous(), tlen.to(torch.int32).contiguous()
     _check(qpad, tk, qlen, tlen, tab, K)
@@ -214,8 +223,8 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: in
         ptr = out["ptr"] = torch.empty((K, B, Np), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
-    # the ring follows the widest window: one host read of the deltas
-    span = int((tlen.long() - qlen.long()).abs().max())
+    if span is None:  # the ring follows the widest window: one host read
+        span = int((tlen.long() - qlen.long()).abs().max())
     R, rows_in_smem = window_ring(window_width(span, band, Np), NT)
     if not rows_in_smem:
         rows = torch.empty((B, 6, R), dtype=torch.int32, device=dev)
@@ -232,97 +241,112 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: in
     return out
 
 
-def _host_traceback_affine(P, starts_i, starts_j, done0, B):
-    """Vectorized host pointer walk (affine H/E/F state machine); a copy of
-    the JAX package's ``wavefront_pallas._host_traceback_affine``."""
-    ST_H, ST_E, ST_F = 0, 1, 2
-    i = starts_i.copy()
-    j = starts_j.copy()
-    st = np.zeros(B, np.int32)
-    done = done0.copy()
-    barr = np.arange(B)
-    ops = []
-    while not done.all():
-        byte = P[i + j, barr, i].astype(np.int32)
-        ph = byte & 3
-        ext_e = ((byte >> _EXT_E_BIT) & 1).astype(bool)
-        ext_f = ((byte >> _EXT_F_BIT) & 1).astype(bool)
-        in_h = st == ST_H
-        done = done | (in_h & (ph == PTR_STOP))
-        act = ~done
-        act_m = act & in_h & (ph == PTR_DIAG)
-        act_i = act & ((in_h & (ph == PTR_UP)) | (st == ST_F))
-        act_d = act & ((in_h & (ph == PTR_LEFT)) | (st == ST_E))
-        op = np.where(
-            act_m, OP_M, np.where(act_i, OP_I, np.where(act_d, OP_D, OP_PAD))
-        )
-        ops.append(op.astype(np.uint8))
-        st = np.where(
-            act_m,
-            ST_H,
-            np.where(
-                act_i,
-                np.where(ext_f, ST_F, ST_H),
-                np.where(act_d, np.where(ext_e, ST_E, ST_H), st),
-            ),
-        )
-        i = i - (act_m | act_i)
-        j = j - (act_m | act_d)
-    ops_rev = np.stack(ops, axis=1) if ops else np.full((B, 1), OP_PAD, np.uint8)
-    return ops_rev, i, j
+def _geometry(q, t):
+    """(B, n, m, Np, K) of a padded bucket: Np = n + 1 rounded up to 128,
+    K = n + m + 1 (the JAX ``_fill``)."""
+    B, n = q.shape
+    m = t.shape[1]
+    return B, n, m, _ceil_to(n + 1, LANES), n + m + 1
+
+
+def _fill_inputs(qpad, tk, q, t, qlen, tlen, sent_q: int, sent_t: int) -> None:
+    """Write ``wavefront_fill``'s letters of a padded bucket into ``qpad``
+    (B, Np) and ``tk`` (B, K), int32 arrays: ``qpad[:, i] = q[:, i - 1]``
+    for 1 <= i <= qlen, ``tk[:, x] = t[:, x - 1]`` for 1 <= x <= tlen, the
+    sentinels elsewhere."""
+    n, m = q.shape[1], t.shape[1]
+    qpad[:] = sent_q
+    qpad[:, 1: 1 + n] = np.where(np.arange(n)[None, :] < qlen[:, None], q, sent_q)
+    tk[:] = sent_t
+    tk[:, 1: 1 + m] = np.where(np.arange(m)[None, :] < tlen[:, None], t, sent_t)
 
 
 def wavefront_inputs(q, t, qlen, tlen, sp: ScoringParams):
     """``wavefront_fill``'s letter and table inputs for a padded bucket
-    (B, n) x (B, m), as numpy arrays: (qpad (B, Np), tk (B, K), tab), with
-    Np = n + 1 rounded up to 128 and K = n + m + 1 (the JAX ``_fill``)."""
-    q = np.asarray(q)
-    t = np.asarray(t)
+    (B, n) x (B, m), as numpy arrays: (qpad (B, Np), tk (B, K), tab)."""
+    q, t = np.asarray(q), np.asarray(t)
+    B, n, m, Np, K = _geometry(q, t)
+    tab = wide_table(sp)
+    qpad = np.empty((B, Np), np.int32)
+    tk = np.empty((B, K), np.int32)
+    _fill_inputs(qpad, tk, q, t, np.asarray(qlen), np.asarray(tlen), tab.shape[0] - 2,
+                 tab.shape[0] - 1)
+    return qpad, tk, tab
+
+
+def stage_wavefront(q, t, qlen, tlen, sp: ScoringParams, device):
+    """``wavefront_inputs`` and the lengths, built in one host buffer
+    (pinned for a CUDA device) and copied to ``device`` in one copy with no
+    sync: (qpad, tk, qlen, tlen, tab) int32 tensors on ``device``."""
+    q, t = np.asarray(q), np.asarray(t)
+    B, n, m, Np, K = _geometry(q, t)
+    table = wide_table(sp)
+    NT = table.shape[0]
+    sizes = [B * Np, B * K, B, B, NT * NT]
+    buf = host_buffer(sum(sizes), device)
+    qpad, tk, ql, tl, tab = np.split(buf.numpy(), np.cumsum(sizes)[:-1])
+    _fill_inputs(qpad.reshape(B, Np), tk.reshape(B, K), q, t, qlen, tlen, NT - 2, NT - 1)
+    ql[:] = qlen
+    tl[:] = tlen
+    tab[:] = table.reshape(-1)
+    qpad_d, tk_d, ql_d, tl_d, tab_d = torch.split(upload(buf, device), sizes)
+    return qpad_d.view(B, Np), tk_d.view(B, K), ql_d, tl_d, tab_d.view(NT, NT)
+
+
+def wavefront_launch(q, t, qlen, tlen, sp: ScoringParams, *, band: int, want_tb: bool,
+                     device):
+    """The launch half of ``wavefront_bucket`` (same arguments): the
+    letters' one copy (``stage_wavefront``), the fill, with ``want_tb`` the
+    walk (``wavefront_walk``), and the copy of the small results (score,
+    and with ``want_tb`` the CIGAR lengths and the walkers' final state) to
+    the host behind an event, all enqueued with no device-to-host sync on a
+    CUDA device: the ring's span comes from the host lengths.  The pointer
+    stream is dropped once the walk is queued; only the text rows wait for
+    the finalize.  Returns the finalize callable, which waits for that copy
+    only, decodes the CIGARs from the text rows' used tail
+    (``cigars_from_text``, which raises for a start cell outside the
+    stream) and returns ``wavefront_bucket``'s dict.  On the CPU everything
+    runs here and the callable only returns the result."""
     qlen = np.asarray(qlen).astype(np.int64)
     tlen = np.asarray(tlen).astype(np.int64)
-    B, n = q.shape
-    m = t.shape[1]
-    Np = _ceil_to(n + 1, LANES)
-    K = n + m + 1
-    tab = wide_table(sp)
-    sent_q, sent_t = tab.shape[0] - 2, tab.shape[0] - 1
-    iarr = np.arange(Np)[None, :]
-    qpad = np.full((B, Np), sent_q, np.int32)
-    qpad[:, 1: 1 + min(n, Np - 1)] = q[:, : Np - 1]
-    qpad = np.where((iarr >= 1) & (iarr <= qlen[:, None]), qpad, sent_q)
-    xarr = np.arange(K)[None, :]
-    tk = np.full((B, K), sent_t, np.int32)
-    tk[:, 1: 1 + m] = t
-    tk = np.where((xarr >= 1) & (xarr <= tlen[:, None]), tk, sent_t)
-    return qpad.astype(np.int32), tk.astype(np.int32), tab
+    B = len(qlen)
+    device = torch.device(device)
+    qpad, tk, ql, tl, tab = stage_wavefront(q, t, qlen, tlen, sp, device)
+    span = int(np.abs(tlen - qlen).max(initial=0))
+    res = wavefront_fill(qpad, tk, ql, tl, tab, K=tk.shape[1], band=band,
+                         gap_open=sp.gap_open, gap_extend=sp.gap_extend, want_ptr=want_tb,
+                         span=span)
+    copy = {"score": res.pop("score")}
+    text = None
+    if want_tb:
+        text, copy["nchar"], copy["state"] = wavefront_walk(res.pop("ptr"), ql, tl)
+    wait = to_host(copy)
+
+    def finish():
+        host = wait()
+        out = {"score": host["score"], "qe": qlen.astype(np.int32),
+               "te": tlen.astype(np.int32)}
+        if not want_tb:
+            out["qs"] = np.zeros(B, np.int32)
+            out["ts"] = np.zeros(B, np.int32)
+            return out
+        out["cigars"] = cigars_from_text(text, host["nchar"])
+        out["qs"] = host["state"][0].copy()
+        out["ts"] = host["state"][1].copy()
+        return out
+
+    if device.type == "cpu":
+        out = finish()
+        return lambda: out
+    return finish
 
 
 def wavefront_bucket(q, t, qlen, tlen, sp: ScoringParams, *, band: int,
                      want_tb: bool, device):
     """One padded bucket (B, n) x (B, m) on the banded full-matrix route
     (``pallas_bucket``'s banded branch): global score read at (b, qlen),
-    ``qs = ts = 0``, and with ``want_tb`` the CIGARs from the host walk
-    over the pointer stream.  Returns score/qs/qe/ts/te (+ cigars)."""
-    qlen = np.asarray(qlen).astype(np.int64)
-    tlen = np.asarray(tlen).astype(np.int64)
-    B = len(qlen)
-    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
-
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
-
-    res = wavefront_fill(put(qpad), put(tk), put(qlen), put(tlen), put(tab),
-                         K=tk.shape[1], band=band, gap_open=sp.gap_open,
-                         gap_extend=sp.gap_extend, want_ptr=want_tb)
-    out = {"score": res["score"].cpu().numpy(), "qe": qlen.astype(np.int32),
-           "te": tlen.astype(np.int32)}
-    if not want_tb:
-        out["qs"] = np.zeros(B, np.int32)
-        out["ts"] = np.zeros(B, np.int32)
-        return out
-    P = res["ptr"].cpu().numpy()
-    ops_rev, fi, fj = _host_traceback_affine(P, qlen, tlen, np.zeros(B, bool), B)
-    out["qs"] = fi.astype(np.int32)
-    out["ts"] = fj.astype(np.int32)
-    out["cigars"] = op_rows_to_cigars(ops_rev[:, ::-1])
-    return out
+    ``qs = ts = 0``, and with ``want_tb`` the CIGARs and start cells from
+    the walk over the pointer stream.  Returns score/qs/qe/ts/te (+
+    cigars).  ``wavefront_launch(...)()``."""
+    return wavefront_launch(q, t, qlen, tlen, sp, band=band, want_tb=want_tb,
+                            device=device)()

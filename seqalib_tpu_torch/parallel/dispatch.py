@@ -10,19 +10,21 @@ Three routes:
 * length buckets: pairs are sorted into (Lq, Lt) buckets (``bucket_len``),
   each bucket is padded and aligned by ``strip_bucket``, or, for a band
   with a wider table, by the full-matrix ``wavefront_bucket``.  Every
-  bucket is launched (``run_bucket(launch_only=True)``) before any is
+  bucket is launched (``run_bucket(launch_only=True)``: ``strip_launch``
+  or ``wavefront_launch``, no device-to-host sync) before any is
   finalized and turned into ``AlignResult``s.
 
 With ``mesh=`` (a pair mesh, ``parallel.dist.make_pair_mesh``) each
 bucket is sharded over the mesh's devices (``dist.strip_sharded``,
-``dist.wavefront_sharded``), and the banded route splits each delta group
-over them, assigning the parts round robin.  Only the strip engine's
-shards are all in flight at once: the banded and wide-table routes run
-their parts one after another, so they gain nothing from several cards.
-The mesh comes in as a ``Mesh`` (``api.py`` normalizes the caller's
-argument).  Under a ``torch.distributed``
-world of more than one process only the strip engine's buckets run; the
-banded and wide-table routes raise.
+``dist.wavefront_sharded``: every shard launched before any is
+finalized), and the banded route splits each delta group over them,
+assigning the parts round robin; its parts run one after another, so it
+gains nothing from several cards.  The mesh comes in as a ``Mesh``
+(``api.py`` normalizes the caller's argument).  Under a
+``torch.distributed`` world of more than one process the length buckets
+run on both engines; the banded route raises, as the JAX package's cannot
+run there either (it places its parts on devices by index and syncs per
+part).
 
 Results come back in input order.
 """
@@ -36,7 +38,7 @@ import numpy as np
 
 from ..models.banded import banded_align_batch, banded_matrix_supported
 from ..ops.strip import strip_launch
-from ..ops.wavefront import wavefront_bucket
+from ..ops.wavefront import wavefront_launch
 from ..scoring import tables_from_params
 from ..types import AlignResult, ScoringParams
 from .band_pipeline import Mesh
@@ -79,20 +81,18 @@ def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str, band: Optional[in
     not used).
 
     ``launch_only``: return a 0-arg finalize callable instead of the
-    result dict.  On the strip engine the device work is left in flight
-    (``strip_launch``: no device-to-host sync) so that the caller can
-    prepare the next bucket meanwhile; the wavefront route finalizes at
-    once and the callable hands the result back."""
+    result dict.  The device work is left in flight (``strip_launch``,
+    ``wavefront_launch``: no device-to-host sync) so that the caller can
+    prepare the next bucket meanwhile."""
     if band is not None:
         if mode != "global":
             raise ValueError("banded local alignment is out of contract")
         if mesh is not None:
-            res = wavefront_sharded(mesh, q, t, qlen, tlen, sp, band=band,
-                                    want_tb=traceback)
-            return (lambda r=res: r) if launch_only else res
-        res = wavefront_bucket(q, t, qlen, tlen, sp, band=band, want_tb=traceback,
-                               device=device)
-        return (lambda r=res: r) if launch_only else res
+            return wavefront_sharded(mesh, q, t, qlen, tlen, sp, band=band,
+                                     want_tb=traceback, launch_only=launch_only)
+        finish = wavefront_launch(q, t, qlen, tlen, sp, band=band, want_tb=traceback,
+                                  device=device)
+        return finish if launch_only else finish()
     if mesh is not None:
         return strip_sharded(mesh, q, t, qlen, tlen, sp, mode=mode, want_tb=traceback,
                              launch_only=launch_only)

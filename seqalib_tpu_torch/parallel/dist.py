@@ -5,19 +5,20 @@ The unit of parallelism is the pair.  A pair mesh is an ordered tuple of
 ``torch.device`` entries (``make_pair_mesh``), the same kind of mesh as the
 sequence-parallel paths take; it may name one device several times.  A
 bucket of B pairs is cut into contiguous shards in input order, one per
-mesh entry; each shard runs the strip engine (``ops/strip.py``) on its own
-device with that device's ``Tables``, and the results are joined in shard
-order.  Every shard is launched before any is finalized.  The wide-table
-route (``wavefront_sharded``) and the banded route
-(``dispatch.dispatch_banded``) shard the same way but run their parts one
-after another, each returning host results before the next starts: on a
-mesh of distinct cards they gain nothing over one card.
+mesh entry; each shard runs the strip engine (``ops/strip.py``) or the
+wide-table route (``ops/wavefront.py``) on its own device, and the results
+are joined in shard order.  Every shard is launched before any is
+finalized.  The banded route (``dispatch.dispatch_banded``) shards the same
+way but runs its parts one after another, each returning host results
+before the next starts: on a mesh of distinct cards it gains nothing over
+one card.
 
 With ``torch.distributed`` initialized and a world of W > 1 processes, the
 shard list is ``W x len(mesh)`` long, rank-major: every rank holds the
 whole input, runs only its own ``len(mesh)`` shards, and ``gather_to_host``
 all-gathers the small host results (the five coordinates and the CIGAR
 text), so that every rank returns the whole batch in input order.  The
+banded route refuses such a world (``refuse_multiprocess``).  The
 gather runs over a gloo group: NCCL gathers no CPU tensors and refuses two
 ranks on one card.
 
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from ..ops.strip import strip_launch
-from ..ops.wavefront import wavefront_bucket
+from ..ops.wavefront import wavefront_launch
 from ..scoring import tables_from_params
 from ..types import ScoringParams
 from .band_pipeline import Mesh, device_mesh
@@ -71,11 +72,13 @@ def world() -> tuple[int, int]:
 
 
 def refuse_multiprocess(route: str) -> None:
-    """Raise on a route that has no multi-process version."""
+    """Raise on a route that has no multi-process version (the banded route:
+    the JAX package's places its parts on devices by index and syncs per
+    part, so it has none either)."""
     if world()[1] > 1:
         raise NotImplementedError(
-            f"the {route} under a mesh runs in one process only; its multi-process "
-            "version is not ported (ROADMAP.md, Queue 1)")
+            f"the {route} under a mesh runs in one process only, as in the JAX "
+            "package; it has no multi-process version (ROADMAP.md, Queue 1)")
 
 
 def shard_bounds(B: int, n: int) -> List[tuple[int, int]]:
@@ -138,19 +141,24 @@ def strip_sharded(mesh: Mesh, q, t, qlen, tlen, sp: ScoringParams, *, mode: str,
 
 
 def wavefront_sharded(mesh: Mesh, q, t, qlen, tlen, sp: ScoringParams, *, band: int,
-                      want_tb: bool) -> dict:
+                      want_tb: bool, launch_only: bool = False):
     """The wide-table route (``wavefront_bucket``) of one padded bucket,
-    sharded over ``mesh`` as ``strip_sharded`` shards, in one process
-    (counterpart of ``wavefront_sharded``).
+    sharded over ``mesh`` (and over the processes of a ``torch.distributed``
+    world) as ``strip_sharded`` shards (counterpart of
+    ``wavefront_sharded``): each shard runs ``wavefront_launch`` on its own
+    device, every shard is launched before any is finalized, and the launch
+    half makes no device-to-host sync.  Returns the finalize callable with
+    ``launch_only``, else its result, as ``strip_sharded``."""
+    q, t = np.asarray(q), np.asarray(t)
+    qlen, tlen = np.asarray(qlen), np.asarray(tlen)
+    pending = [wavefront_launch(q[lo:hi], t[lo:hi], qlen[lo:hi], tlen[lo:hi], sp, band=band,
+                                want_tb=want_tb, device=dev)
+               for dev, lo, hi in my_shards(mesh, len(qlen))]
 
-    The shards run one after another: ``wavefront_bucket`` returns host
-    results, so a shard's device work ends before the next shard starts,
-    and a mesh of distinct cards gains nothing over one card here."""
-    refuse_multiprocess("wide-table route (kernel 7)")
-    parts = [wavefront_bucket(q[lo:hi], t[lo:hi], qlen[lo:hi], tlen[lo:hi], sp, band=band,
-                              want_tb=want_tb, device=dev)
-             for dev, lo, hi in my_shards(mesh, len(qlen))]
-    return _join(parts, want_tb)
+    def finish():
+        return gather_to_host(_join([p() for p in pending], want_tb))
+
+    return finish if launch_only else finish()
 
 
 def broadcast_host(arr: np.ndarray) -> np.ndarray:

@@ -13,14 +13,17 @@ rank-major, and joins a gloo group (a 60 s timeout).  Without
 ``--inputs`` it aligns 16 seeded DNA pairs (match 2, mismatch -3, o=-5,
 e=-2) with ``align_batch(..., backend="pallas", mesh=...)``, local and
 global with full CIGARs, and holds every result to the oracle at the
-``str(AlignResult)`` level; then a 6 x 4 ``align_all_vs_all`` product in
+``str(AlignResult)`` level; then 9 seeded protein pairs on the wide-table
+route (2 x BLOSUM62, o=-20, e=-2, band 8, global) with and without CIGARs,
+each equal to the one-process batch (``mesh=None``) and, with CIGARs, to
+the oracle; then a 6 x 4 ``align_all_vs_all`` product in
 chunks of 5 pairs, every entry equal to the oracle's, with a
 ``resume_dir`` of each rank's own that only rank 0 writes; rank 0 then
 deletes one shard, and the product run again realigns that chunk alone
 on every rank and equals the first.  With ``--inputs
 FILE.npz`` (arrays ``q``, ``t``, ``qlen``, ``tlen``, ``match``,
 ``mismatch``, ``gap_open``, ``gap_extend``, ``matrix`` (empty for none),
-``mode``) it runs that batch
+``mode``, and ``band`` where the batch is banded) it runs that batch
 once to warm up and ``--reps`` times timed, and prints the median wall
 (``PAIRMESH-WALL r<rank> <s> <walls>``) and a BLAKE2b hash of the results'
 ``str`` joined by newlines (``PAIRMESH-HASH r<rank> <hex>``).  Either way
@@ -68,9 +71,35 @@ def check_seeded(rank: int, mesh) -> None:
             want = str(align_oracle(q, t, sp, mode=mode))
             if str(res[b]) != want:
                 raise AssertionError(f"rank {rank} {mode} pair {b}: {res[b]} != {want}")
+    check_wide(rank, mesh)
     # a product in chunks of 5 pairs: every chunk sharded over the world
     with tempfile.TemporaryDirectory() as own:
         check_product(rank, mesh, sp, qs[:6], ts[:4], own)
+
+
+def check_wide(rank: int, mesh) -> None:
+    """The wide-table route (a table outside [-4, 11], banded, global)
+    sharded over the world: equal to the one-process batch, and with
+    CIGARs to the oracle."""
+    from .. import BLOSUM62, ScoringParams, align_batch
+    from ..oracle_fast import align_oracle
+
+    sp = ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * BLOSUM62)
+    rng = np.random.default_rng(7)
+    qs = [rng.integers(0, 20, size=rng.integers(30, 60)).astype(np.uint8) for _ in range(9)]
+    ts = [np.concatenate([q[3:], rng.integers(0, 20, size=rng.integers(0, 5))])
+          .astype(np.uint8) for q in qs]
+    kw = dict(scoring=sp, mode="global", band=8)
+    oracle = [align_oracle(q, t, sp, mode="global", band=8) for q, t in zip(qs, ts)]
+    for tb in (True, False):
+        got = align_batch(qs, ts, mesh=mesh, traceback=tb, **kw)
+        want = align_batch(qs, ts, device=mesh[0], traceback=tb, **kw)
+        if list(map(str, got)) != list(map(str, want)):
+            raise AssertionError(f"rank {rank} wide-table route, traceback={tb}: differs "
+                                 "from the one-process batch")
+        for b, (g, o) in enumerate(zip(got, oracle)):
+            if (str(g) != str(o)) if tb else (g.score != o.score):
+                raise AssertionError(f"rank {rank} wide pair {b}: {g} != the oracle's {o}")
 
 
 def check_product(rank: int, mesh, sp, qs, ts, own: str) -> None:
@@ -127,12 +156,13 @@ def run_inputs(rank: int, mesh, path: str, reps: int) -> None:
                            gap_open=int(z["gap_open"]), gap_extend=int(z["gap_extend"]),
                            matrix=matrix if matrix.size else None)
         mode = str(z["mode"])
+        band = int(z["band"]) if "band" in z.files else None
     qs = [q[b, : qlen[b]] for b in range(len(qlen))]
     ts = [t[b, : tlen[b]] for b in range(len(tlen))]
 
     def run():
-        return align_batch(qs, ts, scoring=sp, mode=mode, backend="pallas", mesh=mesh,
-                           traceback=True)
+        return align_batch(qs, ts, scoring=sp, mode=mode, band=band, backend="pallas",
+                           mesh=mesh, traceback=True)
 
     res = run()
     walls = []

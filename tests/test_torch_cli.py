@@ -1,8 +1,10 @@
 """The port's CLI (``python -m seqalib_tpu_torch``) and headline bench
 (``python -m seqalib_tpu_torch.bench``) on the CPU, after
-``tests/test_cli.py``: ``align`` equal to the JAX CLI's JSON on both
-backends, ``bench`` configs 1, 2, 4 and 5 through their oracle parity
-gates, ``bench all`` as a module run, and the headline's INVALID tag."""
+``tests/test_cli.py``: ``align`` equal to the JAX CLI's JSON on every
+backend name the JAX CLI takes (its default ``pallas`` included), ``bench``
+configs 1, 2, 4 and 5 through their oracle parity gates, each line
+echoing the backend name it was given, ``bench all`` as a module run, and
+the headline's INVALID tag."""
 
 import json
 import os
@@ -45,8 +47,11 @@ ALIGN_CASES = {
 
 
 @pytest.mark.parametrize("backend", [["--backend", "oracle"],
-                                     ["--backend", "strip", "--device", "cpu"]],
-                         ids=["oracle", "strip"])
+                                     ["--backend", "strip", "--device", "cpu"],
+                                     ["--backend", "pallas", "--device", "cpu"],
+                                     ["--backend", "xla", "--device", "cpu"],
+                                     ["--device", "cpu"]],
+                         ids=["oracle", "strip", "pallas", "xla", "default"])
 @pytest.mark.parametrize("case", list(ALIGN_CASES))
 def test_align_equals_the_jax_cli(case, backend, capsys):
     argv = ALIGN_CASES[case]
@@ -59,8 +64,21 @@ def test_align_equals_the_jax_cli(case, backend, capsys):
 def test_align_rejects_a_bad_mode_and_a_bad_backend():
     with pytest.raises(SystemExit):
         main(["align", "A", "A", "--mode", "sideways"])
-    with pytest.raises(SystemExit):
-        main(["align", "A", "A", "--backend", "pallas"])
+    with pytest.raises(SystemExit) as exc:
+        main(["align", "A", "A", "--backend", "tpu"])
+    assert exc.value.code == 2
+
+
+def test_align_takes_the_jax_clis_line_and_default_backend(capsys):
+    """The line of the JAX CLI's own default (``--backend pallas``), on the
+    port's default and on the names ``pallas`` and ``xla``."""
+    argv = ["align", "ACGTACGT", "ACGTTCGT"]
+    assert jax_main([*argv, "--backend", "oracle"]) == 0
+    want = _json_lines(capsys)
+    assert want[0]["score"] == 11 and want[0]["cigar"] == "8M"
+    for extra in ([], ["--backend", "pallas"], ["--backend", "xla"]):
+        assert main([*argv, *extra, "--device", "cpu"]) == 0
+        assert _json_lines(capsys) == want
 
 
 @pytest.mark.parametrize("config,extra", [
@@ -75,13 +93,21 @@ def test_bench_config_parity(config, extra, capsys):
     assert rc == 0 and len(out) == 1
     out = out[0]
     assert out["config"] == int(config) and out["parity_ok"] is True
-    assert out["backend"] == "strip" and out["pairs_per_sec"] > 0
+    assert out["backend"] == "pallas" and out["pairs_per_sec"] > 0
     want = {"1": 6, "2": 2, "4": 1, "5": 18}[config]
     assert out["pairs"] == out["parity_pairs"] == want
     if config == "5":
         assert (out["reads"], out["refs"], out["devices"], out["chunk_pairs"]) == (6, 3, 1, 5)
     else:
         assert out["example"]
+
+
+@pytest.mark.parametrize("backend", ["strip", "xla", "oracle"])
+def test_bench_line_echoes_the_backend_name_it_was_given(backend, capsys):
+    assert main(["bench", "1", "--pairs", "2", "--backend", backend, "--device", "cpu",
+                 "--parity-check", "--parity-pairs", "2"]) == 0
+    out = _json_lines(capsys)[0]
+    assert (out["backend"], out["parity_ok"]) == (backend, True)
 
 
 def test_bench_parity_failure_exits_1_and_trace_is_written(capsys, monkeypatch, tmp_path):

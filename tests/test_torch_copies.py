@@ -124,11 +124,17 @@ def test_oracles_are_the_same(name, mode, band):
 
 def test_host_traceback_affine_is_the_same():
     # the banded full-matrix route's host walk, on a pointer stream the
-    # port's plain fill emits for a bucket with an empty pair
+    # port's plain fill emits for a bucket with an empty pair: the port
+    # keeps no copy of it since its walk runs on the card, and the walk's
+    # plain version (the same lockstep walk, its ops encoded as text) gives
+    # the JAX walk's CIGARs and final cells
     import torch
 
     from seqalib_tpu.ops.wavefront_pallas import _host_traceback_affine as jax_walk
+    from seqalib_tpu.utils.cigar import OP_PAD
     from seqalib_tpu_torch.ops import wavefront as port_wf
+    from seqalib_tpu_torch.ops.strip_walk import cigars_from_text
+    from seqalib_tpu_torch.ops.wavefront_walk import wavefront_walk_ref
 
     rng = np.random.default_rng(2)
     jsp, sp = _both(jt.ScoringParams(gap_open=-5, gap_extend=-2,
@@ -141,12 +147,13 @@ def test_host_traceback_affine_is_the_same():
     as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32)  # noqa: E731
     P = port_wf.wavefront_fill(as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab),
                                K=tk.shape[1], band=8, gap_open=sp.gap_open,
-                               gap_extend=sp.gap_extend, want_ptr=True)["ptr"].numpy()
-    done = np.array([False, False, False, True])
-    got = port_wf._host_traceback_affine(P, qlen, tlen, done, 4)
-    want = jax_walk(P.view(np.int8), qlen, tlen, done, 4)
-    for g, w in zip(got, want, strict=True):
-        np.testing.assert_array_equal(g, w)
+                               gap_extend=sp.gap_extend, want_ptr=True)["ptr"]
+    text, nchar, state = wavefront_walk_ref(P, as_t(qlen), as_t(tlen))
+    ops_rev, fi, fj = jax_walk(P.numpy().view(np.int8), qlen, tlen, np.zeros(4, bool), 4)
+    assert cigars_from_text(text, nchar) == [
+        jax_cigar.ops_to_cigar(r[r != OP_PAD][::-1]) for r in ops_rev]
+    np.testing.assert_array_equal(state[0].numpy(), fi)
+    np.testing.assert_array_equal(state[1].numpy(), fj)
 
 
 def test_rescore_global_affine_is_the_same():

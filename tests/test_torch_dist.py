@@ -4,7 +4,7 @@ CPU: ``align_batch`` and ``align_all_vs_all`` with ``mesh=`` against
 sharded ``align_batch`` on the conftest's faked 8-device CPU mesh; the
 banded and wide-table routes under a mesh; an escalation inside a shard;
 resume shards across mesh sizes and packages; the backend names; and the
-routes a multi-process world refuses.
+route a multi-process world refuses.
 
 The JAX run compiles once per mode (interpret mode): it is shared through
 a module fixture."""
@@ -231,14 +231,28 @@ def test_wide_table_route_under_a_mesh():
 
 
 def test_multiprocess_world_refuses_the_banded_and_wide_routes(monkeypatch):
+    """Under a world of 2 the banded route refuses; the wide-table route
+    no longer does: it runs this rank's shards and hands them to the
+    gather (a two-process run in ``test_torch_multihost.py`` checks the
+    gathered batch)."""
     monkeypatch.setattr(dist, "world", lambda: (0, 2))
     qs, ts = _long_pairs(9, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         st.align_batch(qs, ts, scoring=PDNA, mode="global", band=16, mesh=["cpu"] * 2)
     wide = scoring_params(0, 0, -20, -2, 2 * sa.BLOSUM62)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        st.align_batch(["HEAGAWGHEE"], ["PAWHEAE"], scoring=wide, mode="global", band=4,
-                       mesh=["cpu"] * 2)
+    wq, wt = _pairs(8, 4, 20, 50, alpha=20)
+    q, t = st_dispatch._pad_stack(wq, 64), st_dispatch._pad_stack(wt, 64)
+    qlen, tlen = np.array([len(x) for x in wq]), np.array([len(x) for x in wt])
+    gathered = []
+    monkeypatch.setattr(dist, "gather_to_host", lambda out: gathered.append(out) or out)
+    got = dist.wavefront_sharded(dist.make_pair_mesh(["cpu"] * 2), q, t, qlen, tlen, wide,
+                                 band=8, want_tb=True)
+    # rank 0 of 2 with a mesh of 2: shards 0 and 1 of 4, the first 2 pairs
+    want = st.align_batch(wq[:2], wt[:2], scoring=wide, mode="global", band=8, device="cpu")
+    assert len(gathered) == 1
+    assert [f"score={got['score'][b]} q[{got['qs'][b]}:{got['qe'][b]}] "
+            f"t[{got['ts'][b]}:{got['te'][b]}] {got['cigars'][b]}"
+            for b in range(len(got["score"]))] == _strs(want)
     # without a mesh nothing is distributed, and nothing refuses
     st.align_batch(qs, ts, scoring=PDNA, mode="global", band=16, device="cpu")
 

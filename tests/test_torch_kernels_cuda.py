@@ -33,6 +33,7 @@ from seqalib_tpu_torch.ops import strip_walk as sw_mod
 from seqalib_tpu_torch.ops.strip_walk import strip_walk, strip_walk_ref
 from seqalib_tpu_torch.ops.wavefront import (wavefront_fill, wavefront_fill_ref,
                                              wavefront_inputs)
+from seqalib_tpu_torch.ops.wavefront_walk import wavefront_walk, wavefront_walk_ref
 from seqalib_tpu_torch.scoring import scoring_params, tables_from_params
 from seqalib_tpu_torch.types import NEG_INF
 
@@ -599,6 +600,202 @@ def test_wavefront_fill_kernel_matches_plain_version_at_the_edges(dev, case, wan
     got = wavefront_fill(*args, **kw)
     torch.cuda.synchronize()
     _same(got, wavefront_fill_ref(*args, **kw))
+
+
+def _walkable_stream(rng, n, m, B, Np, fill=None):
+    """A (K, B, Np) pointer stream every affine walk from a cell of the
+    (n + 1) x (m + 1) matrix leaves at (0, 0): row 0 points left, column 0
+    up, (0, 0) is STOP, the E bit cleared in column 1 and the F bit in row
+    1; the interior random bytes, or ``fill``'s pointer with random extend
+    bits (a straight walk across the staged tiles)."""
+    K = n + m + 1
+    P = rng.integers(0, 16, size=(K, B, Np))
+    # an interior STOP ends a walk: keep 1 in 100 so that walks are long
+    P = np.where((P & 3 == 0) & (rng.random(P.shape) > 0.04), P | PTR_DIAG, P)
+    if fill is not None:
+        P = (P & 12) | fill
+    k = np.arange(K)[:, None, None]
+    i = np.arange(Np)[None, None, :]
+    j = k - i
+    ph = np.where(i == 0, PTR_LEFT, np.where(j == 0, PTR_UP, P & 3))
+    ph = np.where((i == 0) & (j == 0), 0, ph)
+    ext = P & 12
+    ext = np.where(j == 1, ext & ~4, ext)
+    ext = np.where(i == 1, ext & ~8, ext)
+    return (ph | ext).astype(np.uint8)
+
+
+def _same_walk_text(got, want):
+    torch.cuda.synchronize()
+    text, nchar, state = got
+    assert torch.equal(nchar, want[1]) and torch.equal(state, want[2])
+    assert sw_mod.cigars_from_text(text, nchar.cpu()) == sw_mod.cigars_from_text(
+        want[0], want[1].cpu())
+
+
+WALK_STREAMS = {  # name -> (n, m, B, Np, interior pointer or None)
+    "random": (300, 320, 37, 304, None),
+    "random_wide_slots": (90, 700, 9, 512, None),
+    "diagonal": (400, 410, 5, 416, PTR_DIAG),
+    "up": (250, 30, 5, 256, PTR_UP),
+    "left": (30, 600, 5, 32, PTR_LEFT),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WALK_STREAMS))
+def test_wavefront_walk_kernel_matches_plain_version(dev, name):
+    n, m, B, Np, fill = WALK_STREAMS[name]
+    rng = np.random.default_rng(len(name))
+    P = torch.as_tensor(_walkable_stream(rng, n, m, B, Np, fill), device=dev)
+    i = rng.integers(0, n + 1, size=B)
+    j = rng.integers(0, m + 1, size=B)
+    i[0], j[0] = n, m
+    i[1], j[1] = 0, m  # row 0 alone
+    i[2], j[2] = n, 0  # column 0 alone
+    if B > 3:
+        i[3], j[3] = 0, 0
+    args = (P, torch.as_tensor(i, dtype=torch.int32, device=dev),
+            torch.as_tensor(j, dtype=torch.int32, device=dev))
+    before = launches["wavefront_walk"]
+    got = wavefront_walk(*args)
+    assert launches["wavefront_walk"] == before + 1
+    _same_walk_text(got, wavefront_walk_ref(*args))
+
+
+def _wide_stream(dev, B, n, band, lens, seed=7):
+    """The fill's pointer stream on the card for B protein pairs of up to
+    n letters (2 x BLOSUM62, o=-20, e=-2), the targets the queries with
+    substitutions and a 3-letter deletion, and the lengths."""
+    sp = scoring_params(0, 0, -20, -2, 2 * BLOSUM62)
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 20, size=(B, n))
+    t = np.concatenate([np.delete(q, [40, 41, 42], axis=1), rng.integers(0, 20, (B, 3))], 1)
+    t[:, ::19] = rng.integers(0, 20, size=t[:, ::19].shape)
+    qlen, tlen = lens
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    ptr = wavefront_fill(as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab),
+                         K=tk.shape[1], band=band, gap_open=-20, gap_extend=-2,
+                         want_ptr=True)["ptr"]
+    return ptr, as_t(qlen), as_t(tlen)
+
+
+@pytest.mark.parametrize("case", ["phase7_cut", "edges"])
+def test_wavefront_walk_kernel_on_the_fills_streams(dev, case):
+    """Phase 7's shapes cut in batch (8 pairs of 1 000 letters, band 64),
+    and the edges: qlen 0, tlen 0, both, and a query whose last letter
+    sits in the stream's last slot (n = 127, Np = 128)."""
+    if case == "phase7_cut":
+        B, n, band = 8, 1000, 64
+        lens = (np.full(B, n), np.full(B, n))
+    else:
+        B, n, band = 5, 127, 8
+        lens = (np.array([127, 0, 60, 0, 127]), np.array([127, 50, 0, 0, 120]))
+    ptr, ql, tl = _wide_stream(dev, B, n, band, lens)
+    if case == "edges":
+        assert ptr.shape[2] == 128
+    before = launches["wavefront_walk"]
+    got = wavefront_walk(ptr, ql, tl)
+    assert launches["wavefront_walk"] == before + 1
+    want = wavefront_walk_ref(ptr, ql, tl)
+    _same_walk_text(got, want)
+    assert (want[2][3] == 1).all()  # every walk reached (0, 0)
+
+
+def test_wavefront_walk_makes_one_launch_and_no_sync(dev):
+    """Under the sync debug mode a device-to-host transfer raises; a call
+    counts one launch.  (The device-side count of kernels is
+    ``chip_smoke.py``'s profile of the walk: a second ``torch.profiler``
+    session in one test process has shown no device events.)"""
+    rng = np.random.default_rng(9)
+    P = torch.as_tensor(_walkable_stream(rng, 200, 200, 16, 208), device=dev)
+    i = torch.full((16,), 200, dtype=torch.int32, device=dev)
+    before = launches["wavefront_walk"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = wavefront_walk(P, i, i)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert launches["wavefront_walk"] == before + 1
+    _same_walk_text(got, wavefront_walk_ref(P, i, i))
+
+
+def test_wavefront_walk_defers_its_range_check_and_refuses_unaligned_streams(dev):
+    rng = np.random.default_rng(10)
+    P = torch.as_tensor(_walkable_stream(rng, 40, 40, 3, 48), device=dev)
+    K, _, Np = P.shape
+    i = torch.tensor([40, Np, 3], dtype=torch.int32, device=dev)
+    j = torch.tensor([40, 0, K - 3], dtype=torch.int32, device=dev)
+    got = wavefront_walk(P, i, j)
+    want = wavefront_walk_ref(P, i, j)
+    assert got[1].tolist() == want[1].tolist() and got[1][1] == sw_mod.BAD_START
+    assert torch.equal(got[2], want[2])
+    with pytest.raises(ValueError, match="pair 1's start cell lies outside P"):
+        sw_mod.cigars_from_text(got[0], got[1].cpu())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wavefront_walk(P[:, :, :40], i * 0, j * 0)
+
+
+def _wide_bucket(rng, B=13, n=300):
+    sp = scoring_params(0, 0, -20, -2, 2 * BLOSUM62)
+    q = rng.integers(0, 20, size=(B, n)).astype(np.int32)
+    t = np.concatenate([q[:, 2:], rng.integers(0, 20, size=(B, 9))], 1).astype(np.int32)
+    t[:, ::13] = rng.integers(0, 20, size=t[:, ::13].shape)
+    qlen = rng.integers(0, n + 1, size=B)
+    tlen = np.clip(qlen + rng.integers(-20, 21, size=B), 0, t.shape[1])
+    return q, t, qlen, tlen, sp
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+@pytest.mark.parametrize("traceback", [True, False])
+def test_wavefront_launch_makes_no_sync(dev, traceback, mesh):
+    """The wide-table route's launch half (``run_bucket(band=,
+    launch_only=True)``: the letters' one copy, the fill, the walk and the
+    results' host copy), alone or as 4 shards on a mesh naming the card,
+    makes no device-to-host sync; the finalize equals the CPU's, and the
+    walk launched once per bucket or shard."""
+    from seqalib_tpu_torch.parallel import dispatch
+
+    q, t, qlen, tlen, sp = _wide_bucket(np.random.default_rng(44))
+    args = (q, t, qlen, tlen, sp, "global", 24, traceback)
+    want = dispatch.run_bucket(*args, torch.device("cpu"))
+    dispatch.run_bucket(*args, dev)  # the build and the allocators' first blocks
+    kw = dict(mesh=[dev] * 4) if mesh else {}
+    before = launches["wavefront_walk"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = dispatch.run_bucket(*args, None if mesh else dev, launch_only=True, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = finish()
+    assert launches["wavefront_walk"] - before == (4 if mesh else 1) * traceback
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if k == "cigars":
+            assert got[k] == want[k]
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_wide_table_route_on_a_mesh_of_4_equals_mesh_none(dev):
+    """``align_batch`` on the wide-table route, sharded over a mesh of 4
+    entries naming the card (``dist.wavefront_sharded``), equals
+    ``mesh=None`` and, for a sample, the oracle."""
+    q, t, qlen, tlen, sp = _wide_bucket(np.random.default_rng(45), B=11)
+    qs = [q[b, : qlen[b]].astype(np.uint8) for b in range(len(qlen))]
+    ts = [t[b, : tlen[b]].astype(np.uint8) for b in range(len(tlen))]
+    jsp = ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * BLOSUM62)
+    for tb in (False, True):
+        want = align_batch(qs, ts, scoring=sp, mode="global", band=24, traceback=tb,
+                           device=dev)
+        got = align_batch(qs, ts, scoring=sp, mode="global", band=24, traceback=tb,
+                          mesh=[dev] * 4)
+        assert [str(r) for r in got] == [str(r) for r in want]
+    for b in range(3):
+        assert str(got[b]) == str(oracle_fast.align_oracle(qs[b], ts[b], jsp, mode="global",
+                                                           band=24))
 
 
 STRIP_QLENS = (1, 31, 32, 33, 255, 257, 1029)

@@ -53,6 +53,30 @@ def test_two_process_pair_mesh(tmp_path):
     _run_ranks(tmp_path)
 
 
+def _hash(res):
+    return hashlib.blake2b("\n".join(map(str, res)).encode(), digest_size=16).hexdigest()
+
+
+def _ranks_return(tmp_path, q, t, qlen, tlen, sp, mode, band=None):
+    """Both ranks align the batch given as a file and return the whole
+    batch: the hash of their results equals one process's, which is
+    returned."""
+    B = len(qlen)
+    path = str(tmp_path / "batch.npz")
+    extra = {} if band is None else {"band": band}
+    np.savez(path, q=q, t=t, qlen=qlen, tlen=tlen, match=sp.match, mismatch=sp.mismatch,
+             gap_open=sp.gap_open, gap_extend=sp.gap_extend, matrix=sp.matrix, mode=mode,
+             **extra)
+    res = st.align_batch([q[b, : qlen[b]] for b in range(B)],
+                         [t[b, : tlen[b]] for b in range(B)], scoring=sp, mode=mode,
+                         band=band, device="cpu")
+    outs = _run_ranks(tmp_path, "--inputs", path, "--reps", "1")
+    for r, out in enumerate(outs):
+        assert f"PAIRMESH-HASH r{r} {_hash(res)}" in out, out[-2000:]
+        assert f"PAIRMESH-WALL r{r} " in out
+    return res
+
+
 def test_two_processes_return_the_single_process_batch(tmp_path):
     """Both ranks align a BLOSUM62 batch given as a file and return the
     whole batch: the hash of its results equals one process's."""
@@ -62,18 +86,31 @@ def test_two_processes_return_the_single_process_batch(tmp_path):
     t = rng.integers(0, 20, size=(B, L)).astype(np.uint8)
     qlen = rng.integers(1, L + 1, size=B)
     tlen = rng.integers(1, L + 1, size=B)
-    path = str(tmp_path / "batch.npz")
-    np.savez(path, q=q, t=t, qlen=qlen, tlen=tlen, match=0, mismatch=0, gap_open=-10,
-             gap_extend=-1, matrix=st.BLOSUM62, mode="local")
     sp = st.ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
-    res = st.align_batch([q[b, : qlen[b]] for b in range(B)],
-                         [t[b, : tlen[b]] for b in range(B)], scoring=sp, mode="local",
-                         device="cpu")
-    digest = hashlib.blake2b("\n".join(map(str, res)).encode(), digest_size=16).hexdigest()
-    outs = _run_ranks(tmp_path, "--inputs", path, "--reps", "1")
-    for r, out in enumerate(outs):
-        assert f"PAIRMESH-HASH r{r} {digest}" in out, out[-2000:]
-        assert f"PAIRMESH-WALL r{r} " in out
+    _ranks_return(tmp_path, q, t, qlen, tlen, sp, "local")
+
+
+def test_two_processes_run_the_wide_table_route(tmp_path):
+    """The wide-table route (2 x BLOSUM62, o=-20, e=-2, band 6) in a world
+    of two ranks, four shards, every rank returning the whole batch: equal
+    to one process's and to the oracle, a ragged bucket with an empty
+    target among its pairs."""
+    from seqalib_tpu_torch.oracle_fast import align_oracle
+
+    rng = np.random.default_rng(5)
+    B, L = 9, 60
+    q = rng.integers(0, 20, size=(B, L)).astype(np.uint8)
+    t = np.concatenate([q[:, 2:], rng.integers(0, 20, size=(B, 2))], axis=1).astype(np.uint8)
+    t[:, ::9] = rng.integers(0, 20, size=t[:, ::9].shape)
+    qlen = rng.integers(L - 20, L + 1, size=B)
+    tlen = np.clip(qlen + rng.integers(-5, 6, size=B), 0, L)
+    tlen[4] = 0
+    sp = st.ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * st.BLOSUM62)
+    res = _ranks_return(tmp_path, q, t, qlen, tlen, sp, "global", band=6)
+    want = [align_oracle(q[b, : qlen[b]], t[b, : tlen[b]], sp, mode="global", band=6)
+            for b in range(B)]
+    assert list(map(str, res)) == list(map(str, want))
+    assert any("I" in r.cigar and "D" in r.cigar for r in res)
 
 
 def test_worker_defaults_to_the_card(tmp_path, monkeypatch):
