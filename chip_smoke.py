@@ -114,11 +114,27 @@ Phases (any failure raises and exits non-zero):
    ``FileStore``, both on the card, a shard each) on config 3's pairs, each
    rank's results hashing to one process's; ``dryrun_multichip(4,
    device="cuda")``, and ``dryrun_multichip(n + 1)`` raising on n cards;
-11. every kernel was launched by its path: the launch counts are set to 0
+11. ``backend="xla"``, the JAX package's default backend (its full-matrix
+   anti-diagonal wavefront: kernel 7's unbanded global and local modes,
+   linear and affine, and its banded global mode; the walk, linear and
+   affine) at full width: config 1 (with CIGARs, then score-only), config 3,
+   config 2's 512 pairs (``bench 2``'s, score-only) and phase 7's batch with
+   BLOSUM62 o=-10 e=-1 at band 64 (``band_fill`` under ``"pallas"``, kernel
+   7 under ``"xla"``): warm wall, pairs/s and GCUPS, the launch counts of
+   each run, every result equal to ``backend="pallas"``'s, 32 sampled
+   pairs equal to the oracle;
+12. every kernel was launched by its path: the launch counts are set to 0
    just before each path's runs (1 warm-up + 3 timed calls; for the CLI's
    configs, each config's run) and read just after.
 
-The kernel phase prints the warps per pair of each ``strip_fill`` key, the
+The kernel phase also holds every kernel call of phase 11's buckets
+(``run_bucket(backend="xla")`` on config 1's, with CIGARs and
+score-only, config 3's and config 2's fullest) against its plain version
+and times it: the new keys ``wavefront_fill/lin_ptr``, ``lin_score``,
+``local``, ``local_lin`` and ``wavefront_walk/linear``, and config 3's
+window fill and walk of pass (c); the edge checks hold the modes no path
+launches (local with pointers, local with a band, linear with a band).
+It prints the warps per pair of each ``strip_fill`` key, the
 window's ring of each ``wavefront_fill`` key and, under ``torch.profiler``,
 the device time of the two kernels a ``wavefront_fill/ptr`` call launches
 (the far pass, then the window), and holds, on shapes no
@@ -194,7 +210,12 @@ OPS_PER_CELL = {"strip_fill/local": 11, "strip_fill/emode": 10, "strip_fill/gmod
                 "band_fill/wide": 9, "band_fill/wide_ptr": 13,
                 "sp_tile/global": 9, "sp_tile/local": 11, "sp_tile/ptr": 13,
                 "sp_tile/run_global": 9, "sp_tile/run_local": 11, "sp_tile/ptr_batch": 13,
-                "wavefront_fill/score": 9, "wavefront_fill/ptr": 13}
+                "wavefront_fill/score": 9, "wavefront_fill/ptr": 13,
+                # linear gaps: three adds and two maxes, two compares for the
+                # move; local start propagation a select per start row (H, and
+                # affine E and F)
+                "wavefront_fill/lin_score": 5, "wavefront_fill/lin_ptr": 7,
+                "wavefront_fill/local": 14, "wavefront_fill/local_lin": 8}
 # the SP phase (6) and the wide-table phase (7)
 SP_N, SP_M, SP_SUBS, SP_C, SP_LONG, SP_CUT_ROWS = 10_240, 8_192, 150, 256, 16_384, 2048
 SP_ORACLE_N = 1536  # align_sp held to the oracle, str(AlignResult), on meshes of 1 and 4
@@ -227,6 +248,11 @@ STRIP_EDGE_QLENS = (1, 31, 33, 257, 1000, 1029, 700)
 STRIP_EDGE_TLENS = (900, 1029, 1000, 17, 1029, 640, 20)
 WAVEFRONT_EDGES = (("band over the slots", 400, 7), ("delta past the band", 8, 41),
                    ("delta past the band, negative", 8, -41))
+# kernel 7's modes no path launches, held in the edge checks: (mode, affine,
+# pointers, band)
+UNREACHED_MODES = (("local", True, True, None), ("local", False, True, None),
+                   ("local", True, False, 8), ("local", False, True, 8),
+                   ("global", False, True, 8), ("global", False, False, 8))
 STRIP = "seqalib_tpu/ops/strip_pallas.py"
 BANDED = "seqalib_tpu/ops/banded_pallas.py"
 SPTILE = "seqalib_tpu/ops/sp_tile_pallas.py"
@@ -254,6 +280,13 @@ KERNELS = {  # launch-counter key -> (CUDA source, replaced Pallas kernel, path)
     # a kernel of the port alone: it replaces the host walk of the JAX
     # route (native.walk_to_cigars, then _host_traceback_affine)
     "wavefront_walk": ("wavefront_walk.cu", f"{WAVEFRONT}:707", "wide"),
+    # the "xla" route's modes of kernel 7, and the linear walk
+    # (_host_traceback_linear)
+    "wavefront_fill/lin_ptr": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "xla_config1"),
+    "wavefront_fill/lin_score": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "xla_config1_score"),
+    "wavefront_fill/local": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "xla_config3"),
+    "wavefront_fill/local_lin": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "xla_config2"),
+    "wavefront_walk/linear": ("wavefront_walk.cu", f"{WAVEFRONT}:520", "xla_config1"),
     "band_fill/relay": ("band_fill.cu", f"{BANDED}:90", "banded_sp_score"),
     "band_fill/relay_ptr": ("band_fill.cu", f"{BANDED}:90", "banded_sp_align"),
     "band_walk/floor": ("band_walk.cu", f"{BANDED}:890", "banded_sp_align"),
@@ -359,11 +392,14 @@ def bound(key, args, kw, out):
     elif name == "sp_tile":  # every cell of R rows x the tiles' columns; ptr: a byte each
         cells = args[0].shape[0] * args[3].numel()
         nbytes = _nbytes(args) + _nbytes(out)
-    elif name == "wavefront_fill":  # the in-band cells of each pair's matrix
+    elif name == "wavefront_fill":  # the (in-band) cells of each pair's matrix
         qlen, tlen = (v.cpu().numpy().astype(np.int64) for v in args[2:4])
         d = tlen - qlen
-        cells, _, _ = _band_cells(qlen, tlen, np.minimum(0, d) - kw["band"],
-                                  np.maximum(0, d) + kw["band"], 0, kw["K"])
+        if kw["band"] is None:
+            cells = int((qlen * tlen).sum())
+        else:
+            cells, _, _ = _band_cells(qlen, tlen, np.minimum(0, d) - kw["band"],
+                                      np.maximum(0, d) + kw["band"], 0, kw["K"])
         # every byte of the (K, B, Np) pointer stream is the function's output
         nbytes = _nbytes(args) + _nbytes(out)
     elif kw["mode"] == "emode":  # band_fill, pass 2: every slot of every diagonal
@@ -435,8 +471,9 @@ def walk_report(call, out, key="strip_walk"):
     """The shape of a ``strip_walk`` or ``wavefront_walk`` call, its ops
     walked, and the kernel's own time under ``torch.profiler`` per call and
     per op of the longest walk."""
-    steps = wavefront_walked_ops(out) if key == "wavefront_walk" else walked_ops(out)
-    name = key + "_kernel"
+    steps = (wavefront_walked_ops(out) if key.startswith("wavefront_walk")
+             else walked_ops(out))
+    name = key.split("/")[0] + "_kernel"
     alone = kernel_split(call, (name,))[name]
     text = (f"B {len(steps)}, text {tuple(out[0].shape)}; ops walked: longest "
             f"{steps.max()}, mean {steps.mean():.1f}; kernel alone ")
@@ -493,7 +530,11 @@ def _key(name, args, kw):
     from seqalib_tpu_torch.ops.band_fill import launch_key
 
     if name == "wavefront_fill":
-        return f"{name}/" + ("ptr" if kw["want_ptr"] else "score")
+        from seqalib_tpu_torch.ops.wavefront import launch_key as wf_key
+
+        return wf_key(kw.get("mode", "global"), kw.get("affine", True), kw["want_ptr"])
+    if name == "wavefront_walk" and not kw.get("affine", True):
+        return "wavefront_walk/linear"
     if name == "band_fill":
         return launch_key(kw["mode"], kw.get("bh") is not None, args[6].shape[2])
     if name == "band_walk" and kw.get("i_floor", -1) >= 0:
@@ -544,7 +585,8 @@ def kernel_entry(key, fn, plain, args, kw, label=""):
     # the plain version has no deferred range check: it checks at once; a
     # fill's span sizes the kernel's ring alone
     pkw = {k: v for k, v in kw.items() if k not in ("err", "span")}
-    view = walk_view if key in ("strip_walk", "wavefront_walk") else (lambda out: out)
+    walks = ("strip_walk", "wavefront_walk", "wavefront_walk/linear")
+    view = walk_view if key in walks else (lambda out: out)
     stats, out = check_kernel(key + label, lambda: fn(*args, **kw),
                               lambda: plain(*args, **pkw), view)
     b_ms, b_by = bound(key, args, kw, out)
@@ -557,10 +599,10 @@ def kernel_entry(key, fn, plain, args, kw, label=""):
             f"per anti-diagonal")
     if key.startswith(("strip_fill/", "wavefront_fill/")):
         say(f"[kernel] {key}: {layout(key, args, kw)}")
-    if key in ("strip_walk", "wavefront_walk"):
+    if key in walks:
         say(f"[kernel] {key}{label}: {walk_report(lambda: fn(*args, **kw), out, key)}; "
             f"wrapper {stats['ms']:.4f} ms")
-    if key == "wavefront_fill/ptr":
+    if key == "wavefront_fill/ptr" and kw["band"] is not None:
         split = kernel_split(lambda: fn(*args, **kw), ("wf_far_kernel", "wf_window_kernel"))
         say(f"[kernel] {key}: 2 kernels per call, the far pass then the window: "
             + ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f} ms'}"
@@ -603,16 +645,17 @@ def layout(key, args, kw):
         return (f"B {q.shape[0]}, Nq {q.shape[1]}, {W} warps per pair, {nbytes} B shared "
                 f"(letters {'shared' if letters else 'global'}, wrap row "
                 f"{'shared' if row else 'global'})")
-    from seqalib_tpu_torch.ops.wavefront import window_ring, window_width
+    from seqalib_tpu_torch.ops.wavefront import window_ring, window_rows, window_width
 
     qpad, tk, qlen, tlen, tab = args
     span = int((tlen.long() - qlen.long()).abs().max())
     width = window_width(span, kw["band"], qpad.shape[1])
-    R, rows_in_smem = window_ring(width, tab.shape[0])
+    rows = window_rows(kw.get("mode", "global"), kw.get("affine", True), kw["want_ptr"])
+    R, rows_in_smem = window_ring(width, tab.shape[0], rows)
     threads = min(1024, -(-min(R, qpad.shape[1]) // 32) * 32)
     return (f"B {qpad.shape[0]}, Np {qpad.shape[1]}, K {kw['K']}, band {kw['band']}, "
             f"max |delta| {span}: window {width} slots, {threads} threads per pair, "
-            f"ring R={R} ({'shared' if rows_in_smem else 'global'})")
+            f"ring R={R} x {rows} rows ({'shared' if rows_in_smem else 'global'})")
 
 
 def edge_checks(sp3, sp7, dev):
@@ -663,6 +706,25 @@ def edge_checks(sp3, sp7, dev):
             raise AssertionError(f"wavefront_fill/ptr, {name}: differs by {err}")
         say(f"[edge] wavefront_fill/ptr, {name}: every byte equal to the plain version; "
             f"{layout('wavefront_fill/ptr', args, kw)}")
+    # the modes of kernel 7 that no path launches: local with pointers,
+    # local with a band, linear with a band
+    qlen = rng.integers(200, 301, size=4)
+    tlen = np.clip(qlen + rng.integers(-30, 31, size=4), 0, 300)
+    q = rng.integers(0, 20, size=(4, 300))
+    t = rng.integers(0, 20, size=(4, 300))
+    t[:, 10:150] = q[:, 12:152]
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp3)
+    args = (as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab))
+    for mode, affine, want_ptr, band in UNREACHED_MODES:
+        kw = dict(K=tk.shape[1], band=band, gap_open=sp3.gap_open, gap_extend=sp3.gap_extend,
+                  want_ptr=want_ptr, mode=mode, affine=affine, stride=301)
+        key = _key("wavefront_fill", args, kw)
+        got = wavefront_fill(*args, **kw)
+        err = max_abs_err(got, wavefront_fill_ref(*args, **kw))
+        if err:
+            raise AssertionError(f"{key}, band {band}: differs by {err}")
+        say(f"[edge] {key} (affine {affine}), band {band}: every output equal to the plain "
+            f"version; {layout(key, args, kw)}")
 
 
 def kernel_phase3(q, t, sp, dev):
@@ -908,6 +970,38 @@ def kernel_phase_wide(qs, ts, sp, dev):
                           targets)
         for key, (fn, plain, args, kw, _) in calls.items():
             per_kernel[key] = kernel_entry(key, fn, plain, args, kw)
+    return per_kernel
+
+
+def kernel_phase_xla(q1, t1, sp1, q3, t3, sp3, dev):
+    """The ``"xla"`` route's kernel calls at its shapes, each held against
+    its plain version and timed: config 1's bucket (global linear, with
+    CIGARs and score-only), config 3's (local affine: pass (a), then the
+    window fill and walk of pass (c)) and config 2's fullest bucket (local
+    linear, score-only), made as ``align_batch`` makes them
+    (``run_bucket(backend="xla")``)."""
+    from seqalib_tpu_torch.ops import wavefront as wf_mod
+    from seqalib_tpu_torch.ops import wavefront_xla as xla_mod
+    from seqalib_tpu_torch.ops.wavefront_walk import wavefront_walk_ref
+    from seqalib_tpu_torch.parallel import dispatch
+
+    targets = [(wf_mod, "wavefront_fill", wf_mod.wavefront_fill_ref),
+               (xla_mod, "wavefront_fill", wf_mod.wavefront_fill_ref),
+               (wf_mod, "wavefront_walk", wavefront_walk_ref)]
+    q2, t2, qlen2, tlen2, sp2 = config2_bucket(dev)
+    full = lambda x: np.full(len(x), x.shape[1])  # noqa: E731
+    buckets = (("config 1", (q1, t1, full(q1), full(t1), sp1, "global", None, True)),
+               ("config 1, score-only", (q1, t1, full(q1), full(t1), sp1, "global", None,
+                                         False)),
+               ("config 3", (q3, t3, full(q3), full(t3), sp3, "local", None, True)),
+               ("config 2 bucket", (q2, t2, qlen2, tlen2, sp2, "local", None, False)))
+    per_kernel = {}
+    for label, args in buckets:
+        calls, _ = record(lambda: dispatch.run_bucket(*args, dev, backend="xla"), targets)
+        for key, (fn, plain, a, kw, _) in calls.items():
+            entry = kernel_entry(key, fn, plain, a, kw, label=f" (xla, {label})")
+            if KERNELS.get(key, ("", "", ""))[2].startswith("xla"):
+                per_kernel.setdefault(key, entry)
     return per_kernel
 
 
@@ -1308,6 +1402,57 @@ def wide_launch_checks(qs, ts, sp, dev, out):
     say(f"[wide] one call with CIGARs: {len(copied)} .cpu() copies of device tensors, the "
         f"largest {max(copied, default=0)} bytes (the pointer stream: {stream} bytes, "
         f"walked on the card)")
+
+
+def xla_runs(dev, card, counts, cfg1, cfg3, wide, want1, want3):
+    """Phase 11: ``backend="xla"`` (the full-matrix wavefront route) at full
+    width: config 1 with CIGARs and score-only, config 3, config 2's pairs
+    (score-only) and phase 7's batch with BLOSUM62 o=-10 e=-1 at band 64
+    (``band_fill`` under ``"pallas"``, kernel 7 under ``"xla"``).  Each run
+    timed (1 warm-up + REPS), its launch counts read, every result equal to
+    ``backend="pallas"``'s and N_ORACLE sampled pairs to the oracle."""
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch import cli
+    from seqalib_tpu_torch.ops import launches, reset_launches
+
+    (q1, t1, sp1), (q3, t3, sp3), (qs7, ts7) = cfg1, cfg3, wide
+    args = argparse.Namespace(pairs=BENCH_PAIRS, backend="xla", device=dev)
+    sp2, qs2, ts2 = cli._bench_setup(args, 2, np.random.default_rng(0))[:3]
+    runs = (  # path, pairs, scoring, mode, band, traceback, the picks' oracle results
+        ("xla_config1", list(q1), list(t1), sp1, "global", None, True, want1),
+        ("xla_config1_score", list(q1), list(t1), sp1, "global", None, False, want1),
+        ("xla_config3", list(q3), list(t3), sp3, "local", None, True, want3),
+        ("xla_config2", qs2, ts2, sp2, "local", None, False, None),
+        ("xla_banded", qs7, ts7, sp3, "global", BAND7, True, None))
+    fields = lambda r: (r.score, r.query_start, r.query_end, r.target_start,  # noqa: E731
+                        r.target_end)
+    for path, qs, ts, sp, mode, band, tb, want in runs:
+        kw = dict(scoring=sp, mode=mode, band=band, traceback=tb)
+        reset_launches()
+        res, walls = timed_runs(lambda: st.align_batch(qs, ts, backend="xla", device=dev,
+                                                       **kw))
+        counts[path] = dict(launches)
+        wall = statistics.median(walls)
+        cells = sum(len(q) * (2 * band if band else len(t)) for q, t in zip(qs, ts))
+        say(f"[{path}] B={len(qs)} {mode} band={band} traceback={tb} wall {wall!r} s (reps "
+            f"{walls}); {len(qs) / wall:.1f} pairs/s; {cells / wall / 1e9:.3f} "
+            f"GCUPS{'(n*w)' if band else ''} ({card})")
+        say(f"[launches] {path} (1 warm-up + {REPS} timed calls): "
+            f"{ {k: v for k, v in counts[path].items() if v} }")
+        pallas = st.align_batch(qs, ts, backend="pallas", device=dev, **kw)
+        bad = [b for b, (g, w) in enumerate(zip(res, pallas)) if str(g) != str(w)]
+        if len(res) != len(pallas) or bad:
+            raise AssertionError(f"{path}: pairs {bad[:5]} differ from backend='pallas'")
+        picks = np.random.default_rng(SEED + 1).choice(len(qs), N_ORACLE, replace=False)
+        if want is None:
+            want = st.align_batch([qs[b] for b in picks], [ts[b] for b in picks],
+                                  scoring=sp, mode=mode, band=band, backend="oracle")
+        for b, w in zip(picks, want):
+            if (str(res[b]) != str(w)) if tb else (fields(res[b]) != fields(w)):
+                raise AssertionError(f"{path} pair {b}: {res[b]} != oracle {w}")
+        say(f"[{path}] {len(res)}/{len(res)} results equal backend='pallas' results; "
+            f"{N_ORACLE}/{N_ORACLE} sampled pairs equal the oracle"
+            + ("" if tb else " (score and coordinates)"))
 
 
 def banded_sp_pairs():
@@ -1789,6 +1934,7 @@ def main() -> int:
     per_kernel.update(kernel_phase_wide4(qw, tw, sp4, dev))
     per_kernel.update(kernel_phase_sp(qsp, tsp, q16, t16, qo, to, sp4, dev))
     per_kernel.update(kernel_phase_wide(qs7, ts7, sp7, dev))
+    per_kernel.update(kernel_phase_xla(q1, t1, sp1, q3, t3, sp3, dev))
     per_kernel.update(kernel_phase_banded_sp(qsb, tsb, sp4, dev))
     edge_checks(sp3, sp7, dev)
     n_checks = 100_000
@@ -1815,7 +1961,7 @@ def main() -> int:
         del os.environ["SEQALIB_FUSED_PASS2"]
 
     reset_launches()
-    config_run("config1", list(q1), list(t1), sp1, "global", dev)
+    want1 = config_run("config1", list(q1), list(t1), sp1, "global", dev)
     counts["config1"] = dict(launches)
 
     reset_launches()
@@ -1845,6 +1991,8 @@ def main() -> int:
     say(f"[time] CLI phase done at {time.perf_counter() - t_start:.1f} s")
     pair_mesh_runs(dev, card, counts, (q3, t3, sp3), (q1, t1, sp1), (qs4, ts4, sp4),
                    (qs7, ts7, sp7), product)
+    say(f"[time] pair-mesh phase done at {time.perf_counter() - t_start:.1f} s")
+    xla_runs(dev, card, counts, (q1, t1, sp1), (q3, t3, sp3), (qs7, ts7), want1, want3)
     say(f"[time] paths done at {time.perf_counter() - t_start:.1f} s")
 
     for path, c in counts.items():

@@ -6,15 +6,19 @@ in chunks, with resume shards.  Same parameters as the JAX package, plus ``devic
 (default ``"cuda"``).  Backends: ``"strip"`` (the default: the CUDA
 kernels on a CUDA device, their plain PyTorch versions on the CPU; with
 ``band=`` and ``mode="global"`` the banded long-read path), also named
-``"pallas"`` and ``"xla"`` (the JAX package's names, so that code written
-for it runs here), and ``"oracle"`` (the port's NumPy oracle,
+``"pallas"`` (the JAX package's name, so that code written for it runs
+here); ``"xla"`` (the JAX package's default backend: its full-matrix
+anti-diagonal wavefront, ``ops/wavefront_xla.py``, on the CUDA kernels of
+``csrc/wavefront_fill.cu`` and ``csrc/wavefront_walk.cu``, every bucket,
+banded or not); and ``"oracle"`` (the port's NumPy oracle,
 ``oracle_fast``: bit for bit ``oracle.py``, vectorized over anti-diagonals,
 ``band=`` included).
 
 ``mesh=`` (a pair mesh, ``make_pair_mesh``: a sequence of devices, which
 may name one device several times) shards each bucket's pairs over the
 mesh's devices, and over the processes of a ``torch.distributed`` world
-(``parallel/dist.py``); ``device`` is then not used.
+(``parallel/dist.py``); ``device`` is then not used.  Under a mesh,
+``"xla"`` runs the strip and banded routes, as ``"strip"`` does.
 """
 
 from __future__ import annotations
@@ -35,9 +39,11 @@ from .types import (
     encode_protein,
 )
 
-# the strip route's names: the port's own and the JAX package's two
-STRIP_NAMES = ("strip", "pallas", "xla")
-BACKENDS = STRIP_NAMES + ("oracle",)
+# the strip route's names: the port's own and the JAX package's
+STRIP_NAMES = ("strip", "pallas")
+# the backends that run on a device: the strip route and the wavefront's
+DEVICE_BACKENDS = STRIP_NAMES + ("xla",)
+BACKENDS = DEVICE_BACKENDS + ("oracle",)
 AVALL_FIELDS = ("score", "qs", "qe", "ts", "te")
 
 log = logging.getLogger("seqalib_tpu_torch.api")
@@ -113,7 +119,8 @@ def align_batch(
 
     mesh = None if mesh is None else as_mesh(mesh)
     return dispatch_batch(qs, ts, sp, mode=mode, band=band, traceback=traceback,
-                          device=None if mesh else _device(device), mesh=mesh)
+                          device=None if mesh else _device(device), mesh=mesh,
+                          backend=backend)
 
 
 def _avall_key(qs, rs, chunk_pairs: int, sp: ScoringParams, mode: str) -> str:
@@ -180,8 +187,9 @@ def align_all_vs_all(
     device="cuda",
 ) -> Dict[str, np.ndarray]:
     """All-vs-all alignment (BASELINE.json config 5): every query against
-    every reference on ``device``, streamed through the strip engine in
-    chunks of at most ``chunk_pairs`` pairs.
+    every reference on ``device``, streamed in chunks of at most
+    ``chunk_pairs`` pairs through the strip engine, or with ``backend="xla"``
+    the wavefront route (``run_bucket(backend=)``, as in the JAX package).
 
     Returns a dict of (n_queries, n_references) int32 arrays: score, qs,
     qe, ts, te.  Tracebacks are excluded at this scale; realign the hits
@@ -203,13 +211,13 @@ def align_all_vs_all(
     the whole product, and rank 0 alone reads and writes the shards: it
     sends every rank the set of chunks it resumed and their values, so the
     ranks skip the same chunks and ``resume_dir`` need not be shared.
-    ``backend`` takes the strip route's names only: the oracle aligns no
+    ``backend`` takes the device backends only: the oracle aligns no
     product (the JAX package refuses it too).
 
     ``mesh``: each chunk is sharded over the mesh (``run_bucket(mesh=)``),
     all of its shards in flight while the previous chunk is finalized."""
-    if backend not in STRIP_NAMES:
-        raise ValueError(f"align_all_vs_all runs the strip route {STRIP_NAMES}, "
+    if backend not in DEVICE_BACKENDS:
+        raise ValueError(f"align_all_vs_all runs the device backends {DEVICE_BACKENDS}, "
                          f"got backend {backend!r}")
     if mode not in ("local", "global"):
         raise ValueError(f"mode must be global|local, got {mode!r}")
@@ -288,7 +296,7 @@ def align_all_vs_all(
         # the kernels take any batch size, and the padding costs wall
         # on the card (``tools/profile_port.py --config 5`` measures it)
         finish = run_bucket(Qmat[ai], Rmat[bj], qleng[ai], rleng[bj], sp, mode,
-                            None, False, dev, launch_only=True, mesh=mesh)
+                            None, False, dev, launch_only=True, mesh=mesh, backend=backend)
         # one-chunk lookahead: this chunk's device work is in flight
         # while the previous chunk is finalized on the host
         if pending is not None:

@@ -6,9 +6,9 @@
 
 The subcommands, options, defaults and printed keys are the JAX CLI's:
 ``--backend`` takes any name of ``api.BACKENDS`` and defaults to ``pallas``,
-as the JAX CLI does (``pallas``, ``xla`` and ``strip`` name the port's strip
-route, ``oracle`` the oracle), and a bench line prints the name it was
-given.  Beyond them, ``--device`` (default ``cuda``) is passed to every
+as the JAX CLI does (``pallas`` and ``strip`` name the port's strip route,
+``xla`` its full-matrix wavefront route, ``oracle`` the oracle), and a
+bench line prints the name it was given.  Beyond them, ``--device`` (default ``cuda``) is passed to every
 API call, and ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of
 the timed run into DIR.
 Config 5 runs on a pair mesh, as in the JAX CLI: every visible card with

@@ -6,11 +6,13 @@
 // (seqalib_tpu/native/__init__.py::walk_to_cigars, called from
 // seqalib_tpu/ops/wavefront_pallas.py::pallas_bucket) and its NumPy
 // fallback (_host_traceback_affine), and the XLA route's on-device walk
-// (seqalib_tpu/ops/wavefront_xla.py::_global_walk).  The walk reads
+// (seqalib_tpu/ops/wavefront_xla.py::_global_walk, both branches).  The walk reads
 // P[k, b, i] (K, B, Np) uint8, the byte of cell (i, j = k - i) that
 // csrc/wavefront_fill.cu writes, from (i, j) = (qlen_b, tlen_b) in state H,
 // runs the affine H/E/F state machine one op per step, and stops at a STOP
-// pointer in state H.  The stream holds the bytes of row 0 and column 0, so
+// pointer in state H.  The linear variant (LINEAR, for the linear-gap
+// fills of backend="xla") reads only a byte's two pointer bits, so it never
+// leaves state H: the JAX package's _host_traceback_linear.  The stream holds the bytes of row 0 and column 0, so
 // the walk reaches (0, 0) through them: there is no implicit boundary run.
 // ops/wavefront_walk.py's docstring states the outputs: the CIGAR, walked
 // ops run-length encoded in start -> end order and right-aligned in the
@@ -75,6 +77,7 @@ __device__ __forceinline__ void stage(uint8_t* sb, const uint8_t* P, int B, int 
   cp_async_commit();
 }
 
+template <bool LINEAR>
 __global__ void __launch_bounds__(32)
     wavefront_walk_kernel(const uint8_t* __restrict__ P, int K, int B, int Np,
                           const int32_t* __restrict__ iv, const int32_t* __restrict__ jv,
@@ -105,7 +108,7 @@ __global__ void __launch_bounds__(32)
     __syncwarp();
     uint32_t a = base + (i - ilo);  // the byte of (i, j): tile row 0
     for (int s = 0; s < kSteps; ++s) {
-      const int byte = lds_u8(a);
+      const int byte = LINEAR ? lds_u8(a) & 3 : lds_u8(a);
       const int ph = byte & 3;
       const bool in_h = st == kStateH;
       if (in_h && ph == kPtrStop) {
@@ -147,12 +150,13 @@ __global__ void __launch_bounds__(32)
 }  // namespace
 
 // P (K, B, Np) must be 16-byte aligned with Np a multiple of 16;
-// L >= 2 * K (ops/wavefront_walk.py's text_width).
+// L >= 2 * K (ops/wavefront_walk.py's text_width); linear: the linear variant.
 extern "C" int seqalib_wavefront_walk(const uint8_t* P, int K, int B, int Np,
                                       const int32_t* iv, const int32_t* jv, uint8_t* text,
-                                      int L, int32_t* nchar, int32_t* out, void* stream) {
+                                      int L, int32_t* nchar, int32_t* out, int linear,
+                                      void* stream) {
   if (B < 1 || K < 1 || (Np & 15) || ((uintptr_t)P & 15)) return (int)cudaErrorInvalidValue;
-  wavefront_walk_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(P, K, B, Np, iv, jv, text, L,
-                                                            nchar, out);
+  auto kernel = linear ? wavefront_walk_kernel<true> : wavefront_walk_kernel<false>;
+  kernel<<<B, 32, 0, (cudaStream_t)stream>>>(P, K, B, Np, iv, jv, text, L, nchar, out);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 ``launches`` counts, per kernel, the launches each wrapper made on a CUDA
 tensor (a call on a CPU tensor runs the plain PyTorch version and counts
 nothing).  ``strip_fill``, ``band_fill``, ``sp_tile`` and ``wavefront_fill``
-count each mode under its own key, ``band_walk`` its ``i_floor`` handoff;
+(``ops.wavefront.launch_key``) count each mode under its own key,
+``wavefront_walk`` its linear variant, ``band_walk`` its ``i_floor`` handoff;
 ``band_fill``'s wide variant (Wp > 8192) counts under ``band_fill/wide*``,
 and ``sp_tile`` counts a run of several tiles under ``sp_tile/run_*`` and a
 batch of several pointer tiles under ``sp_tile/ptr_batch``.
@@ -35,7 +36,14 @@ launches: dict[str, int] = {
     "sp_tile/ptr_batch": 0,
     "wavefront_fill/ptr": 0,
     "wavefront_fill/score": 0,
+    "wavefront_fill/lin_ptr": 0,
+    "wavefront_fill/lin_score": 0,
+    "wavefront_fill/local": 0,
+    "wavefront_fill/local_lin": 0,
+    "wavefront_fill/local_ptr": 0,
+    "wavefront_fill/local_lin_ptr": 0,
     "wavefront_walk": 0,
+    "wavefront_walk/linear": 0,
 }
 
 

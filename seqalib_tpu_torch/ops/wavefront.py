@@ -1,29 +1,32 @@
-"""Full-matrix anti-diagonal wavefront with a band mask, and the bucket
-function around it (counterpart of ``seqalib_tpu/ops/wavefront_pallas.py``:
-``_fill`` / ``_fill_kernel`` and the banded branch of ``pallas_bucket``).
+"""Full-matrix anti-diagonal wavefront fill, and the bucket function around
+it (counterpart of ``seqalib_tpu/ops/wavefront_pallas.py``: ``_fill`` /
+``_fill_kernel`` and the banded branch of ``pallas_bucket``).
 
-The route: ``align_batch(band=w, mode="global")`` with a substitution
-table outside the packed-nibble range [-4, 11] (``banded_matrix_supported``
-is false) goes through the length buckets to ``wavefront_launch`` (the
-launch half of ``wavefront_bucket``), as in the JAX package: the fill,
-then with a CIGAR the walk on the device (``ops/wavefront_walk.py``).
-Only the modes that route reaches are ported: global, affine (a band
-forces affine gaps), band mask, with pointers (``want_ptr``) or
-score-only.  Not ported, because no entry point reaches
-them (``pallas_bucket`` sends unbanded work to the strip engine, and banded
-local is out of contract): local with start propagation, linear gaps, no
-band.
+Two routes reach it, as in the JAX package:
 
-``wavefront_fill`` layout: lanes are query positions.  On anti-diagonal
+* ``align_batch(band=w, mode="global")`` with a substitution table outside
+  the packed-nibble range [-4, 11] (``banded_matrix_supported`` is false)
+  goes through the length buckets to ``wavefront_launch`` (the launch half
+  of ``wavefront_bucket``): global, affine (a band forces affine gaps),
+  band mask, then with a CIGAR the walk on the device
+  (``ops/wavefront_walk.py``);
+* ``backend="xla"`` (``ops/wavefront_xla.py``): every mode of the fill,
+  global or local, linear or affine gaps, with a band mask or none.
+
+``wavefront_fill`` computes every mode of ``_fill_kernel``: ``mode``
+``"global"`` or ``"local"`` (local with start propagation when score-only),
+``affine`` or linear gaps (2-bit pointers, no E/F state), ``band`` or none
+(``band=None``).  Layout: lanes are query positions.  On anti-diagonal
 ``k`` slot ``i`` (0 <= i < Np) holds cell (i, j = k - i); every slot of
 every diagonal ``k < K`` has the TPU kernel's byte, the ones with j < 0
 included (a slot with j < 0 reads target letter 0), so every pointer byte
 the walk can read, the extend bits of row 0 and column 0 included, is the
-TPU kernel's.  The kernel keeps state only for the window of slots with
-k - 2i in [dlo - 1, dhi + 1] (``window_width``); every other slot's inputs
-are -inf, and its byte (``wavefront_far_bytes_ref``) depends on its
-letters alone: with pointers a stateless pass writes every byte by that
-rule, then the window kernel its own.  Inputs, for a batch of B pairs:
+TPU kernel's.  With a band the kernel keeps state only for the window of
+slots with k - 2i in [dlo - 1, dhi + 1] (``window_width``); every other
+slot's inputs are -inf, and its byte (``wavefront_far_bytes_ref``) depends
+on its letters alone: with pointers a stateless pass writes every byte by
+that rule, then the window kernel its own.  Unbanded, the window is every
+slot and there is no far pass.  Inputs, for a batch of B pairs:
 
 * ``qpad`` (B, Np) int32: ``qpad[:, i] = q[i - 1]`` for 1 <= i <= qlen,
   else the query sentinel;
@@ -35,13 +38,28 @@ rule, then the window kernel its own.  Inputs, for a batch of B pairs:
   [0, NT - 1] (``wide_table`` scores the sentinels as the TPU kernel's
   route does).
 
-Outputs: ``score`` (B,) int32, H of cell (qlen, tlen); with ``want_ptr``
-also ``ptr`` (K, B, Np) uint8, ``ptr[k, b, i]`` = ``PTR_* | ext_e << 2 |
-ext_f << 3`` of cell (i, k - i), taken before the band mask.  Kernel:
-``csrc/wavefront_fill.cu``.  The window kernel's ring follows the widest
-window, so the wrapper needs the largest |tlen - qlen| of the batch: from
-the caller's ``span=`` (the bucket has the lengths on the host), else read
-back from the device (a device-to-host sync).
+Outputs.  Global: ``score`` (B,) int32, H of cell (qlen, tlen).  Local:
+the TPU kernel's per-slot bests over the valid cells (1 <= i <= qlen,
+1 <= j <= tlen), ``bv`` (B, Np) the best H of slot i and ``bk`` the first
+diagonal k reaching it (updated on a strict >), and score-only also ``bs``,
+the start cell propagated to that best, packed ``i * stride + j``
+(``stride`` = the padded target width + 1, the JAX kernel's ``m + 1``).
+With ``want_ptr`` also ``ptr`` (K, B, Np) uint8, ``ptr[k, b, i]`` =
+``PTR_*`` of cell (i, k - i), affine ``| ext_e << 2 | ext_f << 3``, taken
+before the band mask.  Kernel: ``csrc/wavefront_fill.cu``.  A banded
+window kernel's ring follows the widest window, so the wrapper needs the
+largest |tlen - qlen| of the batch: from the caller's ``span=`` (the
+bucket has the lengths on the host), else read back from the device (a
+device-to-host sync).
+
+One departure from the TPU kernel, in local affine mode: the TPU kernel
+computes E of column 0 from the slots with j < 0, which score target
+letter 0 and so hold positive junk in local mode; that junk reaches E of
+column 1 and can raise local scores above the oracle's (a 32-letter
+DNA query of 30 A's against ACCGTT: 21 against the oracle's 4).  The port
+sets E of column 0 to -inf, as the oracle does, after its pointer byte is
+taken; where the junk stays below -gap_extend every output is the TPU
+kernel's.
 """
 
 from __future__ import annotations
@@ -53,18 +71,20 @@ from ..scoring import sentinel_table
 from ..transfer import host_buffer, to_host, upload
 from ..types import NEG_INF, PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP, ScoringParams
 from . import launches
+from .strip import ptr_cap_bytes
 from .strip_walk import cigars_from_text
 from .wavefront_walk import wavefront_walk
 
 LANES = 128
 MAX_TABLE = 66  # the kernel keeps the score table in shared memory
-# the window kernel's slot rows (2 H, 2 F, E, shifted H over a ring of R
+# the window kernel's slot rows (``window_rows`` of them over a ring of R
 # slots) stay in shared memory beside the table while they fit in this
 # many bytes, else in a global scratch buffer
 SMEM_BYTES = 200 * 1024
 _EXT_E_BIT = 2
 _EXT_F_BIT = 3
 _EXT_BITS = (1 << _EXT_E_BIT) | (1 << _EXT_F_BIT)  # both extend bits
+MODES = ("global", "local")
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -87,21 +107,46 @@ def wide_table(sp: ScoringParams) -> np.ndarray:
     return out
 
 
-def window_width(span: int, band: int, Np: int) -> int:
+def launch_key(mode: str, affine: bool, want_ptr: bool) -> str:
+    """The ``launches`` key of a ``wavefront_fill`` call: ``ptr``/``score``
+    (global affine), ``lin_ptr``/``lin_score`` (global linear), ``local``,
+    ``local_lin`` (score-only, with start propagation) and ``local_ptr``,
+    ``local_lin_ptr``."""
+    if mode == "local":
+        return ("wavefront_fill/local" + ("" if affine else "_lin")
+                + ("_ptr" if want_ptr else ""))
+    return "wavefront_fill/" + ("" if affine else "lin_") + ("ptr" if want_ptr else "score")
+
+
+def window_width(span: int, band: int | None, Np: int) -> int:
     """Slots of one diagonal whose state the kernel keeps: those with
     k - 2i in [dlo - 1, dhi + 1] for a band of ``band`` around deltas up to
-    ``span`` (dhi - dlo = span + 2 band), at most every slot."""
+    ``span`` (dhi - dlo = span + 2 band), at most every slot; every slot
+    with no band."""
+    if band is None:
+        return Np
     return min(Np, (span + 2 * band) // 2 + 2)
 
 
-def window_ring(width: int, NT: int) -> tuple[int, bool]:
+def window_rows(mode: str, affine: bool, want_ptr: bool) -> int:
+    """Slot rows of the window kernel's ring: H (2), the shifted H (1),
+    affine F (2) and E (1); local score-only the start cells of H (2), of
+    the shifted H (1) and, affine, of F (2) and E (1)."""
+    rows = 6 if affine else 3
+    if mode == "local" and not want_ptr:
+        rows *= 2
+    return rows
+
+
+def window_ring(width: int, NT: int, rows: int = 6) -> tuple[int, bool]:
     """(R, rows in shared memory) of the window kernel for windows of
-    ``width`` slots: a ring of R >= width + 2 slots, a power of 2."""
+    ``width`` slots and ``rows`` slot rows (``window_rows``): a ring of
+    R >= width + 2 slots, a power of 2."""
     R = 1 << (width + 1).bit_length()
-    return R, 4 * (NT * NT + 6 * R) <= SMEM_BYTES
+    return R, 4 * (NT * NT + rows * R) <= SMEM_BYTES
 
 
-def _check(qpad, tk, qlen, tlen, tab, K):
+def _check(qpad, tk, qlen, tlen, tab, K, mode, want_ptr, stride):
     dev = qpad.device
     for name, x in (("qpad", qpad), ("tk", tk), ("qlen", qlen), ("tlen", tlen),
                     ("tab", tab)):
@@ -117,97 +162,187 @@ def _check(qpad, tk, qlen, tlen, tab, K):
     NT = tab.shape[0]
     if tab.shape != (NT, NT) or not 1 <= NT <= MAX_TABLE:
         raise ValueError(f"wavefront_fill: tab must be (NT, NT) with NT <= {MAX_TABLE}")
+    if mode not in MODES:
+        raise ValueError(f"wavefront_fill: mode must be one of {MODES}, got {mode!r}")
+    if mode == "local" and not want_ptr and (stride is None or stride < 1):
+        raise ValueError("wavefront_fill: local score-only mode needs stride >= 1")
 
 
-def wavefront_fill_ref(qpad, tk, qlen, tlen, tab, *, K: int, band: int,
-                       gap_open: int, gap_extend: int, want_ptr: bool):
+def wavefront_fill_ref(qpad, tk, qlen, tlen, tab, *, K: int, band: int | None,
+                       gap_open: int, gap_extend: int, want_ptr: bool,
+                       mode: str = "global", affine: bool = True,
+                       stride: int | None = None):
     """Plain PyTorch version: vectorized over (B, Np), one Python step per
-    anti-diagonal (int32, the kernel's values)."""
+    anti-diagonal (int32, the kernel's values), the TPU kernel's
+    ``substep`` line for line."""
     dev = qpad.device
     B, Np = qpad.shape
     NT = tab.shape[0]
+    local = mode == "local"
+    track = local and not want_ptr  # start propagation
     e, oe = gap_extend, gap_open + gap_extend
     i32 = dict(dtype=torch.int32, device=dev)
     tabf = tab.flatten()
     qrow = qpad.clamp(0, NT - 1).long() * NT
     tkc = tk.clamp(0, NT - 1).long()
     iarr = torch.arange(Np, device=dev)[None, :]
-    ql, tl = qlen.long(), tlen.long()
-    delta = tl - ql
-    dlo = (torch.clamp(delta, max=0) - band)[:, None]
-    dhi = (torch.clamp(delta, min=0) + band)[:, None]
-    fin = ql + tl
+    ql, tl = qlen.long()[:, None], tlen.long()[:, None]
+    if band is not None:
+        delta = tl - ql
+        dlo = torch.clamp(delta, max=0) - band
+        dhi = torch.clamp(delta, min=0) + band
     rows = torch.arange(B, device=dev)
-    qcol = ql.clamp(max=Np - 1)
-    neg_col = torch.full((B, 1), NEG_INF, **i32)
-    H1 = E1 = F1 = sH = torch.full((B, Np), NEG_INF, **i32)
+    qcol = qlen.long().clamp(max=Np - 1)
+    fin = (qlen + tlen).long()
+
+    def shift1(x, fill):  # y[:, i] = x[:, i - 1], y[:, 0] = fill
+        return torch.cat([torch.full((B, 1), fill, **i32), x[:, :-1]], 1)
+
+    H1 = sH = E1 = F1 = torch.full((B, Np), NEG_INF, **i32)
+    SH1 = sSH = SE1 = SF1 = BV = BK = BS = torch.zeros((B, Np), **i32)
+    valid_i = (iarr >= 1) & (iarr <= ql)
+    i0 = iarr == 0
     score = torch.zeros(B, **i32)
     ptrs = []
     for k in range(K):
         j = k - iarr
         W = torch.where(j < 0, 0, tkc.gather(1, j.clamp(min=0).expand(B, -1)))
         s = tabf[qrow + W]
-        sH1 = torch.cat([neg_col, H1[:, :-1]], 1)
+        sH1 = shift1(H1, NEG_INF)
         d = sH + s
-        e_ext, e_opn = E1 + e, H1 + oe
-        f_ext, f_opn = torch.cat([neg_col, F1[:, :-1]], 1) + e, sH1 + oe
-        En = torch.maximum(e_ext, e_opn)
-        Fn = torch.maximum(f_ext, f_opn)
-        best = torch.maximum(torch.maximum(d, Fn), En)
-        ptr = torch.where(d == best, PTR_DIAG, torch.where(Fn == best, PTR_UP, PTR_LEFT))
+        if affine:
+            e_ext, e_opn = E1 + e, H1 + oe
+            f_ext, f_opn = shift1(F1, NEG_INF) + e, sH1 + oe
+            ext_e, ext_f = e_ext >= e_opn, f_ext >= f_opn
+            En = torch.maximum(e_ext, e_opn)
+            Fn = torch.maximum(f_ext, f_opn)
+            best = torch.maximum(torch.maximum(d, Fn), En)
+            ptr = torch.where(d == best, PTR_DIAG, torch.where(Fn == best, PTR_UP, PTR_LEFT))
+        else:
+            u, l = sH1 + e, H1 + e
+            best = torch.maximum(torch.maximum(d, u), l)
+            ptr = torch.where(d == best, PTR_DIAG, torch.where(u == best, PTR_UP, PTR_LEFT))
         Hn = best
-        if k == 0:  # the origin
-            Hn = torch.where(iarr == 0, 0, Hn).to(torch.int32)
-            ptr = torch.where(iarr == 0, PTR_STOP, ptr)
-        dkj = k - 2 * iarr
-        oob = (dkj < dlo) | (dkj > dhi)
-        Hn = torch.where(oob, NEG_INF, Hn)
-        En = torch.where(oob, NEG_INF, En)
-        Fn = torch.where(oob, NEG_INF, Fn)
-        score = torch.where(fin == k, Hn[rows, qcol], score)
+        if local:
+            stop = best <= 0
+            Hn = torch.where(stop, 0, Hn).to(torch.int32)
+            ptr = torch.where(stop, PTR_STOP, ptr)
+        # boundaries: i == 0 is cell (0, k), i == k cell (k, 0)
+        bmask = i0 | (iarr == k)
+        if not affine:
+            if local:
+                Hn = torch.where(bmask, 0, Hn).to(torch.int32)
+                ptr = torch.where(bmask, PTR_STOP, ptr)
+            else:
+                Hn = torch.where(bmask, k * e, Hn).to(torch.int32)
+                bptr = PTR_STOP if k == 0 else torch.where(i0, PTR_LEFT, PTR_UP)
+                ptr = torch.where(bmask, bptr, ptr)
+        else:
+            if k == 0:  # the origin
+                Hn = torch.where(i0, 0, Hn).to(torch.int32)
+                ptr = torch.where(i0, PTR_STOP, ptr)
+            if local:
+                Hn = torch.where(bmask, 0, Hn).to(torch.int32)
+                ptr = torch.where(bmask, PTR_STOP, ptr)
+                # E of column 0 is -inf, as in the oracle (the module
+                # docstring: the TPU kernel reads the j < 0 slots here)
+                En = torch.where(iarr == k, NEG_INF, En).to(torch.int32)
+        if track:
+            sSH1 = shift1(SH1, 0)
+            if affine:
+                SEn = torch.where(ext_e, SE1, SH1)
+                SFn = torch.where(ext_f, shift1(SF1, 0), sSH1)
+                SHn = torch.where(ptr == PTR_DIAG, sSH,
+                                  torch.where(ptr == PTR_UP, SFn, SEn))
+                SE1, SF1 = SEn, SFn
+            else:
+                SHn = torch.where(ptr == PTR_DIAG, sSH,
+                                  torch.where(ptr == PTR_UP, sSH1, SH1))
+            SHn = torch.where(ptr == PTR_STOP, (iarr * stride + j).to(torch.int32), SHn)
+            SH1, sSH = SHn, sSH1
+        if band is not None:
+            dkj = k - 2 * iarr
+            oob = (dkj < dlo) | (dkj > dhi)
+            Hn = torch.where(oob, NEG_INF, Hn).to(torch.int32)
+            if affine:
+                En = torch.where(oob, NEG_INF, En).to(torch.int32)
+                Fn = torch.where(oob, NEG_INF, Fn).to(torch.int32)
+        if local:
+            upd = valid_i & (j >= 1) & (j <= tl) & (Hn > BV)
+            BV = torch.where(upd, Hn, BV)
+            BK = torch.where(upd, k, BK).to(torch.int32)
+            if track:
+                BS = torch.where(upd, SHn, BS)
+        else:
+            score = torch.where(fin == k, Hn[rows, qcol], score)
         if want_ptr:
-            ptrs.append((ptr | ((e_ext >= e_opn).long() << _EXT_E_BIT)
-                         | ((f_ext >= f_opn).long() << _EXT_F_BIT)).to(torch.uint8))
-        H1, sH, E1, F1 = Hn, sH1, En, Fn
-    out = {"score": score}
+            byte = ptr.long()
+            if affine:
+                byte = byte | (ext_e.long() << _EXT_E_BIT) | (ext_f.long() << _EXT_F_BIT)
+            ptrs.append(byte.to(torch.uint8))
+        H1, sH = Hn, sH1
+        if affine:
+            E1, F1 = En, Fn
+    out = {"bv": BV, "bk": BK} if local else {"score": score}
+    if track:
+        out["bs"] = BS
     if want_ptr:
         out["ptr"] = torch.stack(ptrs)
     return out
 
 
-def wavefront_far_bytes_ref(qpad, tk, tab, *, K: int, gap_open: int, gap_extend: int):
+def wavefront_far_bytes_ref(qpad, tk, tab, *, K: int, gap_open: int, gap_extend: int,
+                            mode: str = "global", affine: bool = True):
     """Plain PyTorch version of the pointer bytes of the slots whose
-    inputs are all -inf (k - 2i outside [dlo - 1, dhi + 1]): (K, B, Np)
-    uint8, ``(s >= max(e, o + e) ? DIAG : UP) | ext << 2 | ext << 3`` with
-    s the cell's letter score and ext = (e >= o + e); the origin's byte is
-    STOP with the same extend bits.  ``wavefront_fill``'s kernel writes
-    these for every slot, then the band's window over them."""
+    inputs are all -inf (k - 2i outside [dlo - 1, dhi + 1] of a band):
+    (K, B, Np) uint8, the TPU kernel's byte from -inf neighbours, by mode
+    (s the cell's letter score, ext = ``_EXT_BITS`` if affine and
+    e >= o + e, else 0):
+
+    * global affine: ``(s >= max(e, o + e) ? DIAG : UP) | ext``;
+    * global linear: ``s >= e ? DIAG : UP``, but row 0 (i = 0) LEFT and
+      column 0 (i = k) UP, the boundary pointers;
+    * local: ``STOP | ext`` (the best is <= 0);
+
+    and the origin's byte is ``STOP | ext``.  ``wavefront_fill``'s kernel
+    writes these for every slot of a banded fill, then the band's window
+    over them."""
     dev = qpad.device
     B, Np = qpad.shape
     NT = tab.shape[0]
     e, oe = gap_extend, gap_open + gap_extend
-    qrow = qpad.clamp(0, NT - 1).long() * NT
-    tkc = tk.clamp(0, NT - 1).long()
-    j = torch.arange(K, device=dev)[:, None] - torch.arange(Np, device=dev)[None, :]
-    W = torch.where(j[None] < 0, 0, tkc[:, j.clamp(min=0)])  # (B, K, Np)
-    s = tab.flatten().long()[qrow[:, None, :] + W]
-    ext = _EXT_BITS if e >= oe else 0
-    byte = torch.where(s >= max(e, oe), PTR_DIAG, PTR_UP) | ext
+    ext = _EXT_BITS if affine and e >= oe else 0
+    if mode == "local":
+        byte = torch.full((B, K, Np), PTR_STOP | ext, dtype=torch.long, device=dev)
+    else:
+        qrow = qpad.clamp(0, NT - 1).long() * NT
+        tkc = tk.clamp(0, NT - 1).long()
+        j = torch.arange(K, device=dev)[:, None] - torch.arange(Np, device=dev)[None, :]
+        W = torch.where(j[None] < 0, 0, tkc[:, j.clamp(min=0)])  # (B, K, Np)
+        s = tab.flatten().long()[qrow[:, None, :] + W]
+        byte = torch.where(s >= (max(e, oe) if affine else e), PTR_DIAG, PTR_UP) | ext
+        if not affine:
+            byte[:, :, 0] = PTR_LEFT
+            kk = torch.arange(min(K, Np), device=dev)
+            byte[:, kk, kk] = PTR_UP
     byte[:, 0, 0] = PTR_STOP | ext
     return byte.permute(1, 0, 2).to(torch.uint8).contiguous()
 
 
-def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: int,
-                   gap_extend: int, want_ptr: bool, span: int | None = None):
+def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int | None, gap_open: int,
+                   gap_extend: int, want_ptr: bool, mode: str = "global",
+                   affine: bool = True, stride: int | None = None,
+                   span: int | None = None):
     """Fill diagonals [0, K) of every pair; see the module docstring.  A
     CPU tensor runs ``wavefront_fill_ref``; a CUDA tensor the kernel.
-    ``span``: at least the largest |tlen - qlen| of the batch (None: read
-    from the device)."""
+    ``stride``: the start cells' packing (local score-only).  ``span``: at
+    least the largest |tlen - qlen| of the batch (None: read from the
+    device when there is a band)."""
     qpad, tk, tab = qpad.contiguous(), tk.contiguous(), tab.contiguous()
     qlen, tlen = qlen.to(torch.int32).contiguous(), tlen.to(torch.int32).contiguous()
-    _check(qpad, tk, qlen, tlen, tab, K)
+    _check(qpad, tk, qlen, tlen, tab, K, mode, want_ptr, stride)
     kw = dict(K=K, band=band, gap_open=gap_open, gap_extend=gap_extend,
-              want_ptr=want_ptr)
+              want_ptr=want_ptr, mode=mode, affine=affine, stride=stride)
     if qpad.device.type == "cpu":
         return wavefront_fill_ref(qpad, tk, qlen, tlen, tab, **kw)
     if qpad.device.type != "cuda":
@@ -217,27 +352,36 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int, gap_open: in
     dev = qpad.device
     B, Np = qpad.shape
     NT = tab.shape[0]
-    out = {"score": torch.zeros(B, dtype=torch.int32, device=dev)}
+    local = mode == "local"
+    track = local and not want_ptr
+    zeros = lambda: torch.zeros((B, Np), dtype=torch.int32, device=dev)  # noqa: E731
+    out = ({"bv": zeros(), "bk": zeros()} if local
+           else {"score": torch.zeros(B, dtype=torch.int32, device=dev)})
+    if track:
+        out["bs"] = zeros()
     ptr = rows = None
     if want_ptr:
         ptr = out["ptr"] = torch.empty((K, B, Np), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
-    if span is None:  # the ring follows the widest window: one host read
+    if band is not None and span is None:  # the ring follows the widest window
         span = int((tlen.long() - qlen.long()).abs().max())
-    R, rows_in_smem = window_ring(window_width(span, band, Np), NT)
+    nrows = window_rows(mode, affine, want_ptr)
+    R, rows_in_smem = window_ring(window_width(span, band, Np), NT, nrows)
     if not rows_in_smem:
-        rows = torch.empty((B, 6, R), dtype=torch.int32, device=dev)
+        rows = torch.empty((B, nrows, R), dtype=torch.int32, device=dev)
+    ptr_of = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
     launch(
         "wavefront_fill", dev, "seqalib_wavefront_fill", qpad.data_ptr(), Np,
         tk.data_ptr(), tk.shape[1], qlen.data_ptr(), tlen.data_ptr(), tab.data_ptr(),
-        NT, B, K, band, gap_open, gap_extend, out["score"].data_ptr(),
-        ptr.data_ptr() if ptr is not None else None, R,
-        rows.data_ptr() if rows is not None else None,
+        NT, B, K, 0 if band is None else band, gap_open, gap_extend, int(local),
+        int(affine), int(band is not None), stride or 0, ptr_of(out.get("score")),
+        ptr_of(out.get("bv")), ptr_of(out.get("bk")), ptr_of(out.get("bs")), ptr_of(ptr),
+        R, ptr_of(rows),
     )
-    # one count per call: with pointers the call launches the far pass,
-    # then the window kernel
-    launches["wavefront_fill/" + ("ptr" if want_ptr else "score")] += 1
+    # one count per call: a banded call with pointers launches the far
+    # pass, then the window kernel
+    launches[launch_key(mode, affine, want_ptr)] += 1
     return out
 
 
@@ -293,8 +437,8 @@ def stage_wavefront(q, t, qlen, tlen, sp: ScoringParams, device):
     return qpad_d.view(B, Np), tk_d.view(B, K), ql_d, tl_d, tab_d.view(NT, NT)
 
 
-def wavefront_launch(q, t, qlen, tlen, sp: ScoringParams, *, band: int, want_tb: bool,
-                     device):
+def wavefront_launch(q, t, qlen, tlen, sp: ScoringParams, *, band: int | None,
+                     want_tb: bool, device, affine: bool = True):
     """The launch half of ``wavefront_bucket`` (same arguments): the
     letters' one copy (``stage_wavefront``), the fill, with ``want_tb`` the
     walk (``wavefront_walk``), and the copy of the small results (score,
@@ -302,24 +446,51 @@ def wavefront_launch(q, t, qlen, tlen, sp: ScoringParams, *, band: int, want_tb:
     the host behind an event, all enqueued with no device-to-host sync on a
     CUDA device: the ring's span comes from the host lengths.  The pointer
     stream is dropped once the walk is queued; only the text rows wait for
-    the finalize.  Returns the finalize callable, which waits for that copy
-    only, decodes the CIGARs from the text rows' used tail
+    the finalize.  A batch whose stream (K x B x Np bytes) exceeds
+    ``ptr_cap_bytes()`` is launched in parts under that budget, one after
+    another on the stream.  Returns the finalize callable, which waits for
+    those copies only, decodes the CIGARs from the text rows' used tail
     (``cigars_from_text``, which raises for a start cell outside the
     stream) and returns ``wavefront_bucket``'s dict.  On the CPU everything
     runs here and the callable only returns the result."""
+    q, t = np.asarray(q), np.asarray(t)
     qlen = np.asarray(qlen).astype(np.int64)
     tlen = np.asarray(tlen).astype(np.int64)
-    B = len(qlen)
+    B, _, _, Np, K = _geometry(q, t)
+    step = max(1, ptr_cap_bytes() // (K * Np)) if want_tb else max(B, 1)
     device = torch.device(device)
+    parts = [_launch_part(q[lo: lo + step], t[lo: lo + step], qlen[lo: lo + step],
+                          tlen[lo: lo + step], sp, band=band, want_tb=want_tb,
+                          device=device, affine=affine)
+             for lo in range(0, max(B, 1), step)]
+
+    def finish():
+        outs = [f() for f in parts]
+        if len(outs) == 1:
+            return outs[0]
+        return {k: (sum((o[k] for o in outs), []) if k == "cigars"
+                    else np.concatenate([o[k] for o in outs])) for k in outs[0]}
+
+    if device.type == "cpu":
+        out = finish()
+        return lambda: out
+    return finish
+
+
+def _launch_part(q, t, qlen, tlen, sp: ScoringParams, *, band: int | None, want_tb: bool,
+                 device, affine: bool):
+    """``wavefront_launch`` of one part of a batch."""
+    B = len(qlen)
     qpad, tk, ql, tl, tab = stage_wavefront(q, t, qlen, tlen, sp, device)
     span = int(np.abs(tlen - qlen).max(initial=0))
     res = wavefront_fill(qpad, tk, ql, tl, tab, K=tk.shape[1], band=band,
                          gap_open=sp.gap_open, gap_extend=sp.gap_extend, want_ptr=want_tb,
-                         span=span)
+                         affine=affine, span=span)
     copy = {"score": res.pop("score")}
     text = None
     if want_tb:
-        text, copy["nchar"], copy["state"] = wavefront_walk(res.pop("ptr"), ql, tl)
+        text, copy["nchar"], copy["state"] = wavefront_walk(res.pop("ptr"), ql, tl,
+                                                            affine=affine)
     wait = to_host(copy)
 
     def finish():
@@ -335,9 +506,6 @@ def wavefront_launch(q, t, qlen, tlen, sp: ScoringParams, *, band: int, want_tb:
         out["ts"] = host["state"][1].copy()
         return out
 
-    if device.type == "cpu":
-        out = finish()
-        return lambda: out
     return finish
 
 

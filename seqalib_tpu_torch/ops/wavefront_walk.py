@@ -2,12 +2,15 @@
 CIGARs (a kernel of the port with no Pallas counterpart: it takes the place
 of the JAX wide-table route's host walks, ``native.walk_to_cigars`` and
 ``wavefront_pallas._host_traceback_affine``, and of the XLA route's
-``wavefront_xla._global_walk``).
+``wavefront_xla._global_walk``, both its branches).
 
 ``wavefront_walk(P, i, j)`` walks every pair's pointer stream ``P`` (K, B,
 Np) uint8, ``P[k, b, i]`` the byte of cell (i, j = k - i) (the layout of
 ``ops.wavefront.wavefront_fill``), from cell (i[b], j[b]) in state H
 through the affine H/E/F state machine, until a STOP pointer in state H.
+With ``affine=False`` it walks a linear-gap stream: only the byte's two
+pointer bits (``p & 3``), no E/F state, as the JAX package's
+``_host_traceback_linear`` and the linear branch of ``_global_walk``.
 The stream holds the bytes of row 0 and column 0, so a walk ends at (0, 0)
 with no implicit boundary run.  Returns ``(text, nchar, state)`` as
 ``strip_walk`` does, so that ``strip_walk.cigars_from_text`` decodes both:
@@ -66,10 +69,12 @@ def _outside(P, i, j):
     return (i < 0) | (j < 0) | (i >= Np) | (i + j >= K)
 
 
-def wavefront_walk_ref(P, i, j):
+def wavefront_walk_ref(P, i, j, *, affine: bool = True):
     """Plain version: the lockstep walk of the JAX package's
-    ``_host_traceback_affine`` (vectorized over pairs, in NumPy), its op
-    rows encoded with ``op_rows_to_cigars`` and packed at the rows' ends."""
+    ``_host_traceback_affine`` (``affine=False``: of
+    ``_host_traceback_linear``, the byte's two pointer bits), vectorized
+    over pairs in NumPy, its op rows encoded with ``op_rows_to_cigars``
+    and packed at the rows' ends."""
     K, B, Np = P.shape
     dev = P.device
     Ph = P.cpu().numpy()
@@ -84,6 +89,8 @@ def wavefront_walk_ref(P, i, j):
     ops = []
     while live.any():
         byte = Ph[np.maximum(ci + cj, 0), barr, np.maximum(ci, 0)].astype(np.int64)
+        if not affine:
+            byte &= 3
         ph = byte & 3
         in_h = st == ST_H
         stop = live & in_h & (ph == PTR_STOP)
@@ -117,9 +124,10 @@ def wavefront_walk_ref(P, i, j):
             torch.from_numpy(state).to(dev))
 
 
-def wavefront_walk(P, i, j):
+def wavefront_walk(P, i, j, *, affine: bool = True):
     """Walk every pair; see the module docstring.  A CPU tensor runs
-    ``wavefront_walk_ref``; a CUDA tensor the kernel."""
+    ``wavefront_walk_ref``; a CUDA tensor the kernel.  Counts under
+    ``wavefront_walk``, linear under ``wavefront_walk/linear``."""
     P = P.contiguous()
     i, j = i.to(torch.int32).contiguous(), j.to(torch.int32).contiguous()
     _check(P, i, j)
@@ -128,7 +136,7 @@ def wavefront_walk(P, i, j):
         bad = _outside(P, i, j).nonzero()
         if len(bad):
             raise _bad_start(int(bad[0, 0]))
-        return wavefront_walk_ref(P, i, j)
+        return wavefront_walk_ref(P, i, j, affine=affine)
     if P.device.type != "cuda":
         raise ValueError(f"wavefront_walk: unsupported device {P.device}")
     if P.data_ptr() % 16 or Np % 16:
@@ -144,6 +152,6 @@ def wavefront_walk(P, i, j):
         return text, nchar, out
     launch("wavefront_walk", P.device, "seqalib_wavefront_walk", P.data_ptr(), K, B, Np,
            i.data_ptr(), j.data_ptr(), text.data_ptr(), W, nchar.data_ptr(),
-           out.data_ptr())
-    launches["wavefront_walk"] += 1
+           out.data_ptr(), int(not affine))
+    launches["wavefront_walk" if affine else "wavefront_walk/linear"] += 1
     return text, nchar, out

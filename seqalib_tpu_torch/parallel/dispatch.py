@@ -1,17 +1,21 @@
 """Batched alignment dispatcher (counterpart of
 ``seqalib_tpu/parallel/dispatch.py::dispatch_batch`` / ``run_bucket``).
 
-Three routes:
+Three routes, chosen as the JAX package chooses them:
 
 * banded (``band=`` with ``mode="global"``, scalar scoring or a table that
-  ``banded_matrix_supported`` accepts): pairs are grouped by their length
-  delta quantized to the band, ``(len(t) - len(q)) // band``, and each
-  group is aligned by ``models.banded.banded_align_batch``;
+  ``banded_matrix_supported`` accepts, under ``backend="strip"`` or
+  ``"pallas"``): pairs are grouped by their length delta quantized to the
+  band, ``(len(t) - len(q)) // band``, and each group is aligned by
+  ``models.banded.banded_align_batch``;
 * length buckets: pairs are sorted into (Lq, Lt) buckets (``bucket_len``),
   each bucket is padded and aligned by ``strip_bucket``, or, for a band
-  with a wider table, by the full-matrix ``wavefront_bucket``.  Every
-  bucket is launched (``run_bucket(launch_only=True)``: ``strip_launch``
-  or ``wavefront_launch``, no device-to-host sync) before any is
+  with a wider table, by the full-matrix ``wavefront_bucket``; under
+  ``backend="xla"`` every bucket, banded or not, goes to the full-matrix
+  wavefront route (``ops.wavefront_xla``).  Every bucket is launched
+  (``run_bucket(launch_only=True)``: ``strip_launch``, ``wavefront_launch``
+  or ``xla_launch``; the first two make no device-to-host sync, the
+  local ``xla_launch`` makes none before its finalize) before any is
   finalized and turned into ``AlignResult``s.
 
 With ``mesh=`` (a pair mesh, ``parallel.dist.make_pair_mesh``) each
@@ -39,6 +43,7 @@ import numpy as np
 from ..models.banded import banded_align_batch, banded_matrix_supported
 from ..ops.strip import strip_launch
 from ..ops.wavefront import wavefront_launch
+from ..ops.wavefront_xla import xla_launch
 from ..scoring import tables_from_params
 from ..types import AlignResult, ScoringParams
 from .band_pipeline import Mesh
@@ -74,16 +79,22 @@ def _pad_stack(seqs: List[np.ndarray], L: int) -> np.ndarray:
 
 def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str, band: Optional[int],
                traceback: bool, device, launch_only: bool = False,
-               mesh: Optional[Mesh] = None):
+               mesh: Optional[Mesh] = None, backend: str = "strip"):
     """Align one padded bucket (B, Lq) x (B, Lt) on ``device``: the strip
-    engine, or with ``band`` the banded full-matrix wavefront.  With
-    ``mesh`` the bucket is sharded over its devices instead (``device`` is
-    not used).
+    engine, or with ``band`` the banded full-matrix wavefront; with
+    ``backend="xla"`` the full-matrix wavefront route (``xla_launch``).
+    With ``mesh`` the bucket is sharded over its devices instead
+    (``device`` is not used), on the strip and banded wavefront routes
+    whatever the backend.
 
     ``launch_only``: return a 0-arg finalize callable instead of the
     result dict.  The device work is left in flight (``strip_launch``,
     ``wavefront_launch``: no device-to-host sync) so that the caller can
     prepare the next bucket meanwhile."""
+    if backend == "xla" and mesh is None:
+        finish = xla_launch(q, t, qlen, tlen, sp, mode=mode, band=band, want_tb=traceback,
+                            device=device)
+        return finish if launch_only else finish()
     if band is not None:
         if mode != "global":
             raise ValueError("banded local alignment is out of contract")
@@ -146,10 +157,13 @@ def dispatch_batch(
     traceback: bool = True,
     device="cuda",
     mesh: Optional[Mesh] = None,
+    backend: str = "strip",
 ) -> List[AlignResult]:
     """Align all pairs on ``device``, or sharded over ``mesh``; results in
-    input order."""
-    if (band is not None and mode == "global"
+    input order.  ``backend``: ``"strip"`` and ``"pallas"`` take the strip
+    and banded routes, ``"xla"`` the full-matrix wavefront (under a mesh,
+    the strip and banded routes, as ``"strip"``)."""
+    if (band is not None and mode == "global" and (backend != "xla" or mesh is not None)
             and (sp.matrix is None or banded_matrix_supported(sp.substitution_matrix()))):
         return dispatch_banded(qs, ts, sp, band, traceback, device, mesh=mesh)
     # a band with a wider table: the length buckets, as in the JAX package
@@ -164,7 +178,8 @@ def dispatch_batch(
         qlen = np.array([len(qs[i]) for i in idxs], np.int32)
         tlen = np.array([len(ts[i]) for i in idxs], np.int32)
         pending.append((idxs, run_bucket(qb, tb, qlen, tlen, sp, mode, band, traceback,
-                                         device, launch_only=True, mesh=mesh)))
+                                         device, launch_only=True, mesh=mesh,
+                                         backend=backend)))
 
     results: List[AlignResult] = [None] * len(qs)  # type: ignore[list-item]
     for idxs, finish in pending:

@@ -221,8 +221,9 @@ class AlignConfig:
           (cells with j - i outside [min(0, m-n) - w, max(0, m-n) + w]
           are -inf; global mode only).
     traceback: if False, only scores (+ coords for local) are computed.
-    backend: "oracle" (NumPy contract) or the strip route, named "strip"
-             here and "xla" or "pallas" in the JAX package.
+    backend: "oracle" (NumPy contract), the strip route ("strip" here,
+             "pallas" in the JAX package) or the full-matrix wavefront
+             route ("xla", as in the JAX package).
     """
 
     mode: str = "global"

@@ -1227,3 +1227,146 @@ def test_pair_mesh_over_two_cards():
         for q, t, r in zip(qs, ts, got):
             assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode=mode, band=band))
     assert torch.cuda.current_device() == 0
+
+
+# every mode of kernel 7: (mode, affine, want_ptr, band); band None is unbanded
+WF_MODES = [(mode, affine, ptr, band) for mode in ("global", "local")
+            for affine in (True, False) for ptr in (True, False) for band in (None, 12)]
+
+
+def _mode_id(m):
+    mode, affine, ptr, band = m
+    return f"{mode}-{'affine' if affine else 'linear'}-{'ptr' if ptr else 'score'}-" \
+           f"{'band' if band is not None else 'full'}"
+
+
+@pytest.mark.parametrize("rows_in", ["shared", "global"])
+@pytest.mark.parametrize("scoring", ["profile", "scalar"])
+@pytest.mark.parametrize("wf_mode", WF_MODES, ids=_mode_id)
+def test_wavefront_fill_every_mode_matches_plain_version(dev, wf_mode, scoring, rows_in,
+                                                         monkeypatch):
+    """Each mode of ``wavefront_fill`` (global or local, affine or linear,
+    pointers or score-only, band or none) against its plain version, every
+    output exactly, with the window's ring in shared and in global memory."""
+    mode, affine, want_ptr, band = wf_mode
+    if rows_in == "global":
+        monkeypatch.setattr(wf_mod, "SMEM_BYTES", 0)
+    args, kw = _wavefront_args(dev, scoring)
+    kw.update(band=band, mode=mode, affine=affine, want_ptr=want_ptr, stride=321)
+    key = wf_mod.launch_key(mode, affine, want_ptr)
+    before = launches[key]
+    got = wavefront_fill(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    _same(got, wavefront_fill_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("wf_mode", [m for m in WF_MODES if m[3] is None], ids=_mode_id)
+def test_wavefront_fill_unbanded_past_1024_slots_matches_plain_version(dev, wf_mode):
+    """Unbanded fills over Np = 1 152 slots (config 3's bucket of 1 024
+    letters): the window kernel's threads loop past 1 024 slots."""
+    mode, affine, want_ptr, _ = wf_mode
+    sp = ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
+    rng = np.random.default_rng(12)
+    B, n = 3, 1024
+    qlen = np.array([n, 700, 1000])
+    tlen = np.array([n, 1024, 3])
+    q = rng.integers(0, 20, size=(B, n))
+    t = rng.integers(0, 20, size=(B, n))
+    t[:, 100:500] = q[:, 90:490]
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+    assert qpad.shape[1] == 1152
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    args = [as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab)]
+    kw = dict(K=tk.shape[1], band=None, gap_open=sp.gap_open, gap_extend=sp.gap_extend,
+              want_ptr=want_ptr, mode=mode, affine=affine, stride=n + 1)
+    got = wavefront_fill(*args, **kw)
+    torch.cuda.synchronize()
+    _same(got, wavefront_fill_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("scoring", ["dna_linear", "blosum62_affine"])
+def test_wavefront_walk_linear_kernel_matches_plain_version(dev, scoring):
+    """The linear walk (``affine=False``) on the streams of the linear
+    global fill, and on random bytes whose extend bits it must ignore."""
+    sp, alpha = SCORINGS[scoring]
+    sp = scoring_params(sp.match, sp.mismatch, 0, -2, sp.matrix)
+    rng = np.random.default_rng(31)
+    B, n = 17, 200
+    qlen = rng.integers(0, n + 1, size=B)
+    tlen = rng.integers(0, n + 1, size=B)
+    q = rng.integers(0, alpha, size=(B, n))
+    t = rng.integers(0, alpha, size=(B, n))
+    t[:, 5:150] = q[:, 8:153]
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    ql, tl = as_t(qlen), as_t(tlen)
+    ptr = wavefront_fill(as_t(qpad), as_t(tk), ql, tl, as_t(tab), K=tk.shape[1], band=None,
+                         gap_open=0, gap_extend=-2, want_ptr=True, affine=False)["ptr"]
+    noisy = ptr | torch.randint_like(ptr, 0, 4) << 2  # extend bits the walk ignores
+    for P in (ptr, noisy):
+        before = launches["wavefront_walk/linear"]
+        got = wavefront_walk(P, ql, tl, affine=False)
+        assert launches["wavefront_walk/linear"] == before + 1
+        _same_walk_text(got, wavefront_walk_ref(P, ql, tl, affine=False))
+    # the linear walk of the clean stream is the oracle's CIGAR
+    text, nchar, _ = wavefront_walk(ptr, ql, tl, affine=False)
+    cig = sw_mod.cigars_from_text(text, nchar)
+    for b in range(4):
+        want = oracle_fast.align_oracle(q[b, : qlen[b]].astype(np.uint8),
+                                        t[b, : tlen[b]].astype(np.uint8),
+                                        _jax_sp(sp), mode="global")
+        assert cig[b] == want.cigar
+
+
+def _jax_sp(sp):
+    return ScoringParams(match=sp.match, mismatch=sp.mismatch, gap_open=sp.gap_open,
+                         gap_extend=sp.gap_extend, matrix=sp.matrix)
+
+
+@pytest.mark.parametrize("traceback", [True, False])
+@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("scoring", sorted(SCORINGS))
+def test_xla_route_on_cuda_matches_the_cpu_and_the_oracle(dev, scoring, mode, traceback):
+    """``align_batch(backend="xla")`` on the card equals the CPU (the plain
+    versions), and for traceback the oracle, an empty pair included."""
+    sp, alpha = SCORINGS[scoring]
+    rng = np.random.default_rng(8)
+    qs = [rng.integers(0, alpha, int(L)).astype(np.uint8) for L in (90, 150, 0, 300, 31)]
+    ts = [np.concatenate([rng.integers(0, alpha, 7), q[5:], rng.integers(0, alpha, 3)])
+          .astype(np.uint8) for q in qs]
+    kw = dict(scoring=sp, mode=mode, traceback=traceback, backend="xla")
+    got = align_batch(qs, ts, device=dev, **kw)
+    assert [str(r) for r in got] == [str(r) for r in align_batch(qs, ts, device="cpu", **kw)]
+    if traceback:
+        jsp = _jax_sp(sp)
+        for q, t, g in zip(qs, ts, got):
+            assert str(g) == str(oracle_fast.align_oracle(q, t, jsp, mode=mode))
+
+
+@pytest.mark.parametrize("traceback", [True, False])
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_xla_route_launch_half_makes_no_sync(dev, mode, traceback):
+    """The ``"xla"`` route's launch half (``run_bucket(backend="xla",
+    launch_only=True)``) makes no device-to-host sync: the global fill and
+    walk, or the local pass (a); the finalize equals the CPU's."""
+    from seqalib_tpu_torch.parallel import dispatch
+
+    q, t, qlen, tlen, _ = _wide_bucket(np.random.default_rng(46))
+    sp = ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
+    args = (q, t, qlen, tlen, sp, mode, None, traceback)
+    want = dispatch.run_bucket(*args, torch.device("cpu"), backend="xla")
+    dispatch.run_bucket(*args, dev, backend="xla")  # the build, the allocators' blocks
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = dispatch.run_bucket(*args, dev, launch_only=True, backend="xla")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = finish()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if k == "cigars":
+            assert got[k] == want[k]
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -2,7 +2,7 @@
 """Where the time of a warm ``seqalib_tpu_torch.align_batch`` call goes.
 
     python3 tools/profile_port.py [--config 3|1|2|4|5|sp|wide|banded_sp] [--batch B]
-                                  [--calls N] [--device cuda|cpu]
+                                  [--calls N] [--device cuda|cpu] [--backend strip|xla]
 
 Inputs are those of ``chip_smoke.py`` (seed 0): config 3 is B=512
 BLOSUM62 o=-10 e=-1 local pairs of 1024 x 1024 with full CIGARs, config 1
@@ -29,7 +29,9 @@ full-matrix wavefront route.  ``banded_sp`` is banded sequence
 parallelism over a mesh of 4 entries naming the device: first
 ``align_score_banded_sp`` on B=16 config-4 pairs of 100 kb at band 256 (two
 relay groups), then ``align_banded_sp`` on the first of them.  For each
-run, after two warm-up calls the script
+run, after two warm-up calls the script (``--backend xla``: configs 1-4 and
+``wide`` through ``align_batch(backend="xla")``, the full-matrix wavefront
+route of ``ops/wavefront_xla.py``)
 
 1. times N calls by the host clock (median, all values printed);
 2. runs N calls under ``torch.profiler`` and prints each device op's total
@@ -251,6 +253,7 @@ def main() -> int:
                     "config 5: reads, default 1000)")
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", choices=("strip", "xla"), default="strip")
     args = ap.parse_args()
     if args.batch is None:
         args.batch = {"4": 64, "wide": 64, "banded_sp": 16, "5": 1000}.get(args.config, 512)
@@ -295,9 +298,9 @@ def main() -> int:
                 ("banded_sp_align", lambda: st.align_banded_sp(qs[0], ts[0], sp, band, mesh))]
     else:
         tb = args.config != "2"
-        runs = [(f"config {args.config} B={args.batch}",
+        runs = [(f"config {args.config} B={args.batch} backend={args.backend}",
                  lambda: st.align_batch(qs, ts, scoring=sp, mode=mode, band=band,
-                                        traceback=tb, device=dev))]
+                                        traceback=tb, backend=args.backend, device=dev))]
     summary = [profile(label, run, args.calls, dev) for label, run in runs]
     print(json.dumps({"config": args.config, "batch": args.batch, "runs": summary}))
     return 0

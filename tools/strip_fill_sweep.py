@@ -114,11 +114,8 @@ ABLATIONS = {
                      "      const int d = Hdiag + srow[0];"),
     "x_no_best": ("strip_fill.cu", "      if (MODE != kGlobal && H > sbest) {",
                   "      if (MODE != kGlobal && false) {"),
-    "x_far_only": ("wavefront_fill.cu", "    return launch_window<true>(a, s);",
-                   "    return 0;"),
-    "x_no_far": ("wavefront_fill.cu",
-                 "  if (ptr) {  // the far bytes first; the window kernel overwrites its own\n",
-                 "  if (ptr) {\n    return launch_window<true>(a, s);\n"),
+    "x_far_only": ("wavefront_fill.cu", "  return run_window(a, s);\n}", "  return 0;\n}"),
+    "x_no_far": ("wavefront_fill.cu", "  if (ptr && banded) {", "  if (false) {"),
 }
 
 
