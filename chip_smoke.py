@@ -130,10 +130,14 @@ Phases (any failure raises and exits non-zero):
 The kernel phase also holds every kernel call of phase 11's buckets
 (``run_bucket(backend="xla")`` on config 1's, with CIGARs and
 score-only, config 3's and config 2's fullest) against its plain version
-and times it: the new keys ``wavefront_fill/lin_ptr``, ``lin_score``,
+and times it: the keys ``wavefront_fill/lin_ptr``, ``lin_score``,
 ``local``, ``local_lin`` and ``wavefront_walk/linear``, and config 3's
-window fill and walk of pass (c); the edge checks hold the modes no path
-launches (local with pointers, local with a band, linear with a band).
+window fill and walk of pass (c), each unbanded score-only fill's time
+printed beside the window kernel's earlier figure; the edge checks hold
+the modes no path launches (local with pointers, local with a band,
+linear with a band; timed, with their bounds), the unbanded global affine
+score-only fill at config 3's pairs (timed, with its bound) and the four
+unbanded score-only instances on a ragged batch (``WF_STRIP_QLENS``).
 It prints the warps per pair of each ``strip_fill`` key, the
 window's ring of each ``wavefront_fill`` key and, under ``torch.profiler``,
 the device time of the two kernels a ``wavefront_fill/ptr`` call launches
@@ -215,7 +219,10 @@ OPS_PER_CELL = {"strip_fill/local": 11, "strip_fill/emode": 10, "strip_fill/gmod
                 # move; local start propagation a select per start row (H, and
                 # affine E and F)
                 "wavefront_fill/lin_score": 5, "wavefront_fill/lin_ptr": 7,
-                "wavefront_fill/local": 14, "wavefront_fill/local_lin": 8}
+                "wavefront_fill/local": 14, "wavefront_fill/local_lin": 8,
+                # local with pointers: the zero clamp and the best compare
+                # beside the pointer's compares (no start propagation)
+                "wavefront_fill/local_ptr": 15, "wavefront_fill/local_lin_ptr": 9}
 # the SP phase (6) and the wide-table phase (7)
 SP_N, SP_M, SP_SUBS, SP_C, SP_LONG, SP_CUT_ROWS = 10_240, 8_192, 150, 256, 16_384, 2048
 SP_ORACLE_N = 1536  # align_sp held to the oracle, str(AlignResult), on meshes of 1 and 4
@@ -248,6 +255,16 @@ STRIP_EDGE_QLENS = (1, 31, 33, 257, 1000, 1029, 700)
 STRIP_EDGE_TLENS = (900, 1029, 1000, 17, 1029, 640, 20)
 WAVEFRONT_EDGES = (("band over the slots", 400, 7), ("delta past the band", 8, 41),
                    ("delta past the band, negative", 8, -41))
+# the strip kernel (kernel 7's unbanded score-only fills) on a ragged batch:
+# query lengths around the strips (32 rows) and the 8 warps' rounds (256
+# rows), targets up to 6 000 letters (the wrap row past the shared budget)
+WF_STRIP_QLENS = (1, 31, 32, 33, 255, 256, 257, 289, 700, 1029, 600)
+WF_STRIP_TLENS = (900, 1029, 6000, 17, 1029, 640, 20, 3, 1500, 1029, 0)
+# the times of the unbanded score-only fills under the window kernel they
+# ran on before the strip kernel (a thread per slot, every slot), on an
+# H100 80GB HBM3 at 700 W, printed beside this run's times
+WINDOW_KERNEL_MS = {"wavefront_fill/local": 14.1766, "wavefront_fill/local_lin": 1.1307,
+                    "wavefront_fill/lin_score": 0.4460}
 # kernel 7's modes no path launches, held in the edge checks: (mode, affine,
 # pointers, band)
 UNREACHED_MODES = (("local", True, True, None), ("local", False, True, None),
@@ -645,9 +662,19 @@ def layout(key, args, kw):
         return (f"B {q.shape[0]}, Nq {q.shape[1]}, {W} warps per pair, {nbytes} B shared "
                 f"(letters {'shared' if letters else 'global'}, wrap row "
                 f"{'shared' if row else 'global'})")
-    from seqalib_tpu_torch.ops.wavefront import window_ring, window_rows, window_width
+    from seqalib_tpu_torch.ops.wavefront import (fill_kernel, strip_columns, window_ring,
+                                                 window_rows, window_width,
+                                                 wavefront_strip_geometry)
 
     qpad, tk, qlen, tlen, tab = args
+    if fill_kernel(kw["band"], kw["want_ptr"]) == "strip":
+        cols = strip_columns(kw["K"], qpad.shape[1], kw.get("span"))
+        W, nbytes, letters, row = wavefront_strip_geometry(
+            qpad.shape[1], tab.shape[0], cols, kw.get("mode", "global"), kw.get("affine", True))
+        return (f"B {qpad.shape[0]}, Np {qpad.shape[1]}, K {kw['K']}: strip kernel, {W} warps "
+                f"per pair, {cols} target columns, {nbytes} B shared (letters "
+                f"{'shared' if letters else 'global'}, wrap row "
+                f"{'shared' if row else 'global'})")
     span = int((tlen.long() - qlen.long()).abs().max())
     width = window_width(span, kw["band"], qpad.shape[1])
     rows = window_rows(kw.get("mode", "global"), kw.get("affine", True), kw["want_ptr"])
@@ -658,13 +685,16 @@ def layout(key, args, kw):
             f"ring R={R} x {rows} rows ({'shared' if rows_in_smem else 'global'})")
 
 
-def edge_checks(sp3, sp7, dev):
+def edge_checks(q3, t3, sp3, sp7, dev):
     """The redesigned fills on shapes the paths do not reach, held exactly
     against their plain versions: ``strip_fill/local`` on a ragged batch
     (query lengths around the strips and the warps' rounds, a target shorter
     than a strip), ``wavefront_fill/ptr`` with a band wider than the slots
-    and with deltas past the band."""
+    and with deltas past the band, the unbanded global affine score-only
+    fill at config 3's pairs (timed, with its bound), and the strip
+    kernel's four instances on a ragged batch (``WF_STRIP_QLENS``)."""
     import torch
+    from seqalib_tpu_torch import ScoringParams
     from seqalib_tpu_torch.ops.strip import prep_strip
     from seqalib_tpu_torch.ops.strip_fill import strip_fill, strip_fill_ref
     from seqalib_tpu_torch.ops.wavefront import (wavefront_fill, wavefront_fill_ref,
@@ -706,6 +736,39 @@ def edge_checks(sp3, sp7, dev):
             raise AssertionError(f"wavefront_fill/ptr, {name}: differs by {err}")
         say(f"[edge] wavefront_fill/ptr, {name}: every byte equal to the plain version; "
             f"{layout('wavefront_fill/ptr', args, kw)}")
+    # the unbanded global affine score-only fill (the strip kernel) at
+    # config 3's pairs in global mode, as the "xla" route launches it
+    qpad, tk, tab = wavefront_inputs(q3, t3, np.full(len(q3), q3.shape[1]),
+                                     np.full(len(t3), t3.shape[1]), sp3)
+    args = (as_t(qpad), as_t(tk), as_t(np.full(len(q3), q3.shape[1])),
+            as_t(np.full(len(t3), t3.shape[1])), as_t(tab))
+    kw = dict(K=tk.shape[1], band=None, gap_open=sp3.gap_open, gap_extend=sp3.gap_extend,
+              want_ptr=False, span=0)
+    entry = kernel_entry("wavefront_fill/score", wavefront_fill, wavefront_fill_ref, args, kw,
+                         label=" (unbanded, config 3's pairs in global mode)")
+    say(f"[edge] wavefront_fill/score unbanded: {entry['ms']:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} (not measured before)")
+    # the strip kernel's four instances on a ragged batch
+    qlen, tlen = np.array(WF_STRIP_QLENS), np.array(WF_STRIP_TLENS)
+    q = rng.integers(0, 20, size=(len(qlen), int(qlen.max())))
+    t = rng.integers(0, 20, size=(len(qlen), int(tlen.max())))
+    t[:, 100:900] = q[:, 95:895]
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp3)
+    args = (as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab))
+    for mode, affine in (("local", True), ("local", False), ("global", True),
+                         ("global", False)):
+        sp = sp3 if affine else ScoringParams(gap_open=0, gap_extend=-1, matrix=sp3.matrix)
+        kw = dict(K=tk.shape[1], band=None, gap_open=sp.gap_open, gap_extend=sp.gap_extend,
+                  want_ptr=False, mode=mode, affine=affine, stride=t.shape[1] + 1,
+                  span=int(np.abs(tlen - qlen).max()))
+        key = _key("wavefront_fill", args, kw)
+        got = wavefront_fill(*args, **kw)
+        err = max_abs_err(got, wavefront_fill_ref(*args, **{k: v for k, v in kw.items()
+                                                              if k != "span"}))
+        if err:
+            raise AssertionError(f"{key}, ragged strip batch: differs by {err}")
+        say(f"[edge] {key} on query lengths {qlen.tolist()}, target lengths {tlen.tolist()}: "
+            f"every output equal to the plain version; {layout(key, args, kw)}")
     # the modes of kernel 7 that no path launches: local with pointers,
     # local with a band, linear with a band
     qlen = rng.integers(200, 301, size=4)
@@ -723,8 +786,10 @@ def edge_checks(sp3, sp7, dev):
         err = max_abs_err(got, wavefront_fill_ref(*args, **kw))
         if err:
             raise AssertionError(f"{key}, band {band}: differs by {err}")
+        b_ms, b_by = bound(key, args, kw, got)
+        ms = time_ms(lambda: wavefront_fill(*args, **kw), 5)
         say(f"[edge] {key} (affine {affine}), band {band}: every output equal to the plain "
-            f"version; {layout(key, args, kw)}")
+            f"version; {ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}; {layout(key, args, kw)}")
 
 
 def kernel_phase3(q, t, sp, dev):
@@ -1002,6 +1067,10 @@ def kernel_phase_xla(q1, t1, sp1, q3, t3, sp3, dev):
             entry = kernel_entry(key, fn, plain, a, kw, label=f" (xla, {label})")
             if KERNELS.get(key, ("", "", ""))[2].startswith("xla"):
                 per_kernel.setdefault(key, entry)
+            if key in WINDOW_KERNEL_MS:
+                say(f"[kernel] {key} (xla, {label}): strip kernel {entry['ms']:.4f} ms against "
+                    f"the window kernel's {WINDOW_KERNEL_MS[key]:.4f} ms before, bound "
+                    f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}")
     return per_kernel
 
 
@@ -1936,7 +2005,7 @@ def main() -> int:
     per_kernel.update(kernel_phase_wide(qs7, ts7, sp7, dev))
     per_kernel.update(kernel_phase_xla(q1, t1, sp1, q3, t3, sp3, dev))
     per_kernel.update(kernel_phase_banded_sp(qsb, tsb, sp4, dev))
-    edge_checks(sp3, sp7, dev)
+    edge_checks(q3, t3, sp3, sp7, dev)
     n_checks = 100_000
     t0 = time.perf_counter()
     for _ in range(n_checks):

@@ -35,6 +35,26 @@ __device__ __forceinline__ int ihat(int k, int dhi) {
   return max(0, floordiv2(k - dhi + 1));
 }
 
+// ---- shared by the two strip fills (strip_fill.cu, wavefront_fill.cu):
+// the counters a warp publishes its finished columns on ------------------
+
+__device__ __forceinline__ unsigned ld_acquire_cta(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.cta.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_cta(unsigned* p, unsigned v) {
+  asm volatile("st.release.cta.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// spin until the counter has reached `want` (the counters wrap around
+// 2^32; a difference is what is compared)
+__device__ __forceinline__ void wait_for(const unsigned* cnt, unsigned want) {
+  while ((int)(ld_acquire_cta(cnt) - want) < 0) {
+  }
+}
+
 // ---- shared by the two walks that write CIGAR text (strip_walk.cu,
 // wavefront_walk.cu) ------------------------------------------------------
 

@@ -103,23 +103,6 @@ struct FillArgs {
   int32_t* bk;           // (B,) key of the best cell (0 in kGlobal)
 };
 
-__device__ __forceinline__ unsigned ld_acquire_cta(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.cta.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release_cta(unsigned* p, unsigned v) {
-  asm volatile("st.release.cta.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// spin until the counter has reached `want` (the counters wrap around
-// 2^32; a difference is what is compared)
-__device__ __forceinline__ void wait_for(const unsigned* cnt, unsigned want) {
-  while ((int)(ld_acquire_cta(cnt) - want) < 0) {
-  }
-}
-
 template <int MODE, bool AFFINE, bool WANT_PTR>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     strip_fill_kernel(const FillArgs a) {

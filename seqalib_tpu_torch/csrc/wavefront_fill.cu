@@ -9,46 +9,78 @@
 // band mask) and backend="xla" (ops/wavefront_xla.py: unbanded global and
 // local fills, linear or affine, and global banded ones).
 // ops/wavefront.py's docstring states the layout, the inputs, the outputs
-// and the one departure from the TPU kernel (E of column 0 is -inf in
-// local affine mode, as in the oracle).
+// and the departures from the TPU kernel.
 // Tie-breaks are the oracle's: DIAG > UP(F) > LEFT(E), extend >= open.
 //
-// Bound on the H100: the chain of K = n + m + 1 anti-diagonals of each
-// pair (one barrier each), and in pointer mode the K x B x Np bytes of the
-// pointer stream.
-// The TPU kernel computes every slot of every diagonal; the first port did
-// too, one CTA of up to 1024 threads per pair, a barrier and global letter
-// loads per diagonal (~0.97 us each at the wide-table shape, where only
-// ~66 of 1024 slots lie in the band).
+// Bound on the H100: the cells' integer operations (5-15 a cell by mode,
+// chip_smoke.py's OPS_PER_CELL) along each pair's chain of anti-diagonals,
+// and in pointer mode the K x B x Np bytes of the pointer stream.  The TPU
+// kernel computes every slot of every diagonal (a TPU works on whole
+// vectors); a kernel here computes only what an output reads.  Four
+// kernels, by mode (ops/wavefront.py::fill_kernel):
 //
-// Design.  A slot i of diagonal k (cell (i, k - i)) reads, from the
-// diagonals before, only slots whose d = k - 2i differs from its own by at
-// most one; with a band, every slot with d outside [dlo, dhi] is masked to
-// -inf.  So a slot with d outside [dlo - 1, dhi + 1] has only -inf inputs,
-// and its pointer byte depends on its letters alone (the far rule of each
-// mode, ops/wavefront.py::wavefront_far_bytes_ref; global affine:
-//   (s >= max(e, o + e) ? DIAG : UP) | (e >= o + e) << 2 | (e >= o + e) << 3).
-// Two kernels therefore write a banded fill's output, one after the other
-// on the caller's stream:
-// - wf_far_kernel, pointer mode with a band only: that byte for every
-//   (k, b, i), no DP state; a CTA stages a rule table (one byte per letter
-//   pair) and the target letters of its tile of diagonals and slots in
-//   shared memory, each thread keeps 16 slots' query rows in registers and
-//   stores 16 bytes at a time.  It moves the stream's bytes (151 MB at the
-//   wide-table shape, K 2049 x B 64 x Np 1152).
-// - wf_window_kernel<LOCAL, AFFINE, BANDED, PTR>, one CTA per pair: only
-//   the slots i in [lo(k), hi(k)], d in [dlo - 1, dhi + 1] (about band +
-//   |delta| / 2 + 2 of them), or every slot with no band (then there is no
-//   far pass: the window writes every byte), carry state; it writes their
-//   bytes and captures H(qlen, tlen), or in local mode updates each valid
-//   cell's slot best (bv, bk, bs in global memory, one owner per slot and
-//   diagonal).  One thread per window slot (at most 1024, looping past
-//   that); the slot rows sit in a ring of R >= window + 2 slots indexed by
-//   i mod R (rows read at slot i - 1 double buffered, the others in
-//   place: 3 linear, 6 affine, twice that for the start cells of local
-//   score-only), in shared memory while it fits, else in the global
-//   scratch `rows`; one barrier per diagonal.  Any band (up to every
-//   slot) and any delta fit: the ring grows with the window, never capped.
+// - wf_strip_kernel<LOCAL, AFFINE>: every unbanded score-only fill (the
+//   "xla" route's local pass (a), its global score-only calls).  No output
+//   reads a slot outside the valid box: the per-row bests are taken over
+//   1 <= i <= qlen, 1 <= j <= tlen, i + j < K, the score at (qlen, tlen).
+//   So it computes the box alone, rows 1 .. min(qlen, Np - 1) and columns
+//   0 .. min(tlen, K - 1), with strip_fill.cu's design: one CTA of W warps
+//   per pair (ops/wavefront.py::wavefront_strip_warps), warp w running
+//   strips w, w + W, ... of 32 rows, a lane per row; at step k lane p
+//   computes cell (i0 + p + 1, k - p), its up and diagonal neighbours (H,
+//   F and in local mode their start cells) from lane p - 1 by shuffles,
+//   its left one in its own registers; lane 0 reads the row above from a
+//   ring of kStripRing columns in shared memory that the warp above's lane
+//   31 writes and publishes with st.release / ld.acquire counters (round r,
+//   column c is counter r * S + c: a ring slot reused across rounds cannot
+//   race); warp W - 1 hands its bottom row to warp 0 of the next round
+//   through a wrap row (shared memory while it fits, else the global
+//   scratch `rows`).  State and the row's best, its first k and its start
+//   stay in registers; a row's bests are written once, when its strip
+//   ends.  Boundaries are the window kernel's: local edges 0 (a STOP
+//   starting at the cell), global linear k * e, global affine a gap's
+//   o + e + (x - 1) * max(e, o + e) (the TPU kernel derives column 0 from
+//   the slots with j < 0, which agree while they stay below it:
+//   ops/wavefront.py); E of column 0 is -inf.  The window kernel it replaces for
+//   these modes (a thread per slot of all Np, a barrier and global letter
+//   loads per diagonal, the bests read and written in global memory) took
+//   14.18 ms for config 3's pass (a) on an H100 80GB HBM3 at 700 W; this
+//   design 1.09 ms against its 0.449 ms bound: a strip's steps form a
+//   chain, local affine mode issues ~40 instructions a step (17 global
+//   affine), and the start propagation (two more shuffles and their
+//   selects) takes about a quarter of its time, the hand-off between warps
+//   another.  The start cell and the best are chosen by selects: as a
+//   branch they made the compiler check every shuffle for divergence
+//   (1.29 ms).
+// - wf_far_kernel, pointer mode with a band only: the pointer byte of every
+//   slot whose inputs are all -inf (d = k - 2i outside [dlo - 1, dhi + 1]
+//   of a band) depends on its letters alone (the far rule of each mode,
+//   ops/wavefront.py::wavefront_far_bytes_ref; global affine:
+//     (s >= max(e, o + e) ? DIAG : UP) | (e >= o + e) << 2 | (e >= o + e) << 3),
+//   written for every (k, b, i) with no DP state; a CTA stages a rule table
+//   (one byte per letter pair) and the target letters of its tile of
+//   diagonals and slots in shared memory, each thread keeps 16 slots' query
+//   rows in registers and stores 16 bytes at a time.  It moves the stream's
+//   bytes (151 MB at the wide-table shape, K 2049 x B 64 x Np 1152).
+// - wf_band_kernel<PTR>, the banded global affine window (the wide-table
+//   route): wf_window_kernel's design and loop for that mode, taking an
+//   argument struct of only the fields it reads (BandArgs: 2.4% / 6.8%
+//   faster, pointers / score-only, than the same loop given WfArgs).
+// - wf_window_kernel<LOCAL, AFFINE, BANDED, PTR>, every other mode (pointers
+//   with no band, a band in local or linear mode), one CTA per pair: only
+//   the slots i in [lo(k), hi(k)], d
+//   in [dlo - 1, dhi + 1] (about band + |delta| / 2 + 2 of them), or every
+//   slot with no band (then there is no far pass: the window writes every
+//   byte), carry state; it writes their bytes and captures H(qlen, tlen),
+//   or in local mode updates each valid cell's slot best (bv, bk, bs in
+//   global memory, one owner per slot and diagonal).  One thread per
+//   window slot (at most 1024, looping past that); the slot rows sit in a
+//   ring of R >= window + 2 slots indexed by i mod R (rows read at slot
+//   i - 1 double buffered, the others in place: 3 linear, 6 affine, twice
+//   that for the start cells of banded local score-only), in shared memory
+//   while it fits, else in the global scratch `rows`; one barrier per
+//   diagonal.  Any band (up to every slot) and any delta fit: the ring
+//   grows with the window, never capped.
 // Letters are scored from a shared-memory table whose sentinel entries
 // score as the TPU kernel's route scored them.
 #include <cuda_runtime.h>
@@ -177,7 +209,8 @@ __global__ void __launch_bounds__(kFarThreads) wf_far_kernel(const WfArgs a, int
 // the pair's band: dlo <= j - i <= dhi
 struct Band {
   int qlen, tlen, dlo, dhi, fin;
-  __device__ Band(const WfArgs& a, int b) {
+  template <class Args>
+  __device__ Band(const Args& a, int b) {
     qlen = a.qlen[b];
     tlen = a.tlen[b];
     const int delta = tlen - qlen;
@@ -335,10 +368,386 @@ __global__ void __launch_bounds__(1024) wf_window_kernel(const WfArgs a) {
   }
 }
 
+// ---- the banded global affine window (the wide-table route) --------------
+
+// Its own kernel argument, only the fields it reads: passed the whole
+// WfArgs (every mode's fields), the same loop ran 2.4% (pointers) and 6.8%
+// (score-only) slower on an H100 80GB HBM3 at 700 W, in turns.
+struct BandArgs {
+  const int32_t* qpad;  // (B, Np) query letters, slot i at [i]
+  int Np;
+  const int32_t* tk;  // (B, Kw) target letters, column j at [j]
+  int Kw;
+  const int32_t* qlen;  // (B,)
+  const int32_t* tlen;
+  const int32_t* table;  // (NT, NT)
+  int NT;
+  int B;
+  int K;  // diagonals [0, K)
+  int band;
+  int gap_open;
+  int gap_extend;
+  int32_t* score;  // (B,) out: H(qlen, tlen); zeroed by the wrapper
+  uint8_t* ptr;    // (K, B, Np) or null
+  int R;           // ring slots of the window, a power of 2
+  int32_t* rows;   // (B, 6, R) scratch of the ring, or null (shared)
+};
+
+// one cell of slot i on diagonal k from its inputs; returns H, sets E, F
+// and the pointer byte (taken before the mask, as the TPU kernel's)
+struct BandCell {
+  int H, E, F, p;
+  __device__ __forceinline__ BandCell(int k, int i, const Band& bd, int sc, int Hd, int Hl,
+                                      int El, int Hu, int Fu, int e, int oe) {
+    bool ext_e, ext_f;
+    E = __vibmax_s32(El + e, Hl + oe, &ext_e);
+    F = __vibmax_s32(Fu + e, Hu + oe, &ext_f);
+    const int d = Hd + sc;
+    const int best = __vimax3_s32(d, F, E);
+    H = best;
+    p = d == best ? kPtrDiag : (F == best ? kPtrUp : kPtrLeft);
+    if (k == 0 && i == 0) {
+      H = 0;
+      p = kPtrStop;
+    }
+    p |= (ext_e ? 4 : 0) | (ext_f ? 8 : 0);
+    const int dkj = k - 2 * i;
+    if (dkj < bd.dlo || dkj > bd.dhi) H = E = F = kNegInf;
+  }
+};
+
+template <bool PTR>
+__global__ void __launch_bounds__(1024) wf_band_kernel(const BandArgs a) {
+  extern __shared__ int32_t smem[];
+  const int NT = a.NT;
+  const int Np = a.Np;
+  const int R = a.R;
+  const int b = blockIdx.x;
+  const int nthr = blockDim.x;
+  const unsigned last = (unsigned)(NT - 1);
+  int32_t* tab = smem;
+  int32_t* st = a.rows ? a.rows + (size_t)b * 6 * R : tab + NT * NT;
+  int32_t* Hb = st;          // 2 rows: H of the diagonals, alternating
+  int32_t* Fb = st + 2 * R;  // 2 rows: F likewise
+  int32_t* Er = st + 4 * R;  // E of the previous diagonal (own slot)
+  int32_t* Ur = st + 5 * R;  // H(k - 2) at slot i - 1 (own slot)
+  for (int x = threadIdx.x; x < NT * NT; x += nthr) tab[x] = a.table[x];
+  __syncthreads();
+
+  const Band bd(a, b);
+  const int e = a.gap_extend;
+  const int oe = a.gap_open + a.gap_extend;
+  const int32_t* qb = a.qpad + (size_t)b * Np;
+  const int32_t* tb = a.tk + (size_t)b * a.Kw;
+  int plo = 0, phi = -1;  // the previous diagonal's window
+  for (int k = 0; k < a.K; ++k) {
+    const int ilo = bd.lo(k);
+    const int ihi = min(Np - 1, bd.hi(k));
+    const int cur = k & 1;
+    const int32_t* H1 = Hb + (cur ^ 1) * R;
+    const int32_t* F1 = Fb + (cur ^ 1) * R;
+    int32_t* Hn = Hb + cur * R;
+    int32_t* Fn = Fb + cur * R;
+    uint8_t* out = PTR ? a.ptr + ((size_t)k * a.B + b) * Np : nullptr;
+    for (int i = ilo + threadIdx.x; i <= ihi; i += nthr) {
+      const int r = i & (R - 1);
+      const int rd = (i - 1) & (R - 1);
+      const bool in1 = i >= plo && i <= phi;          // slot i on k - 1
+      const bool in0 = i - 1 >= plo && i - 1 <= phi;  // slot i - 1 on k - 1
+      const int j = k - i;
+      const unsigned qc = min((unsigned)__ldg(qb + i), last);
+      const unsigned tc = j < 0 ? 0u : min((unsigned)__ldg(tb + j), last);
+      const int Hu = in0 ? H1[rd] : kNegInf;
+      const int Fu = in0 ? F1[rd] : kNegInf;
+      const BandCell c(k, i, bd, tab[qc * NT + tc], in1 ? Ur[r] : kNegInf,
+                       in1 ? H1[r] : kNegInf, in1 ? Er[r] : kNegInf, Hu, Fu, e, oe);
+      Hn[r] = c.H;
+      Fn[r] = c.F;
+      Er[r] = c.E;
+      Ur[r] = Hu;
+      if (PTR) out[i] = (uint8_t)c.p;
+      if (k == bd.fin && i == bd.qlen) a.score[b] = c.H;
+    }
+    plo = ilo;
+    phi = ihi;
+    __syncthreads();  // the diagonal is complete before the next reads it
+  }
+}
+
+// ---- the unbanded score-only fills: pipelined strip warps ----------------
+
+constexpr int kStripMaxWarps = 16;  // ops/wavefront.py: STRIP_MAX_WARPS
+constexpr int kStripRing = 256;     // ops/wavefront.py: STRIP_RING, a power of 2, >= 96
+
+// what lane 0 of a strip reads of the row above, at one column: H, F and,
+// in local mode, their start cells
+struct Up {
+  int H, F, SH, SF;
+};
+
+// a column of a strip's bottom row as the strip below reads it: 8 bytes
+// (H and F; local linear H and its start), 16 in local affine mode
+template <bool LOCAL, bool AFFINE>
+struct StripCol {
+  using T = int2;
+  static __device__ __forceinline__ T pack(int H, int F, int SH, int) {
+    return make_int2(H, LOCAL ? SH : F);
+  }
+  static __device__ __forceinline__ Up unpack(T v) {
+    return LOCAL ? Up{v.x, kNegInf, v.y, 0} : Up{v.x, v.y, 0, 0};
+  }
+};
+template <>
+struct StripCol<true, true> {
+  using T = int4;
+  static __device__ __forceinline__ T pack(int H, int F, int SH, int SF) {
+    return make_int4(H, F, SH, SF);
+  }
+  static __device__ __forceinline__ Up unpack(T v) { return Up{v.x, v.y, v.z, v.w}; }
+};
+
+// H of the global boundary cell (x, 0) or (0, x): the gaps of x letters
+template <bool AFFINE>
+__device__ __forceinline__ int boundary(int x, int e, int oe) {
+  return AFFINE ? (x == 0 ? 0 : oe + (x - 1) * max(e, oe)) : x * e;
+}
+
+// cols: the columns [0, cols) the letters and the wrap row hold; the
+// kernel computes columns up to min(tlen, K - 1, cols - 1)
+template <bool LOCAL, bool AFFINE>
+__global__ void __launch_bounds__(kStripMaxWarps * 32)
+    wf_strip_kernel(const WfArgs a, int cols, int stage_letters) {
+  using Col = StripCol<LOCAL, AFFINE>;
+  using T = typename Col::T;
+  constexpr int kWords = sizeof(T) / 4;
+  extern __shared__ __align__(16) int32_t smem[];
+  const int W = blockDim.x >> 5;
+  const int NT = a.NT;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  // shared layout: rings, [wrap row], table, counters, [letters]
+  T* ring = reinterpret_cast<T*>(smem);  // (W - 1) x kStripRing
+  int32_t* p32 = smem + kWords * (W - 1) * kStripRing;
+  T* full;
+  if (a.rows == nullptr) {
+    full = reinterpret_cast<T*>(p32);
+    p32 += kWords * cols;
+  } else {
+    full = reinterpret_cast<T*>(a.rows) + (size_t)b * cols;
+  }
+  int32_t* tab = p32;
+  p32 += NT * NT;
+  unsigned* cnt = reinterpret_cast<unsigned*>(p32);
+  p32 += kStripMaxWarps;
+  const int32_t* tb = a.tk + (size_t)b * a.Kw;
+  const int32_t* tl = stage_letters ? p32 : tb;
+
+  const int qlen = a.qlen[b];
+  const int tlen = a.tlen[b];
+  const int e = a.gap_extend;
+  const int oe = a.gap_open + a.gap_extend;
+  const unsigned last = (unsigned)(NT - 1);
+  // the columns computed, and the rows: every cell with j >= 1 and
+  // i + j < K lies in [1, n] x [1, m]
+  const int m = min(min(tlen, a.K - 1), cols - 1);
+  const int n = min(min(qlen, a.Np - 1), a.K - 2);
+  for (int x = tid; x < NT * NT; x += blockDim.x) tab[x] = a.table[x];
+  if (stage_letters) {
+    for (int x = tid; x <= m; x += blockDim.x) p32[x] = tb[x];
+  }
+  if (tid < kStripMaxWarps) cnt[tid] = 0;
+  // DP row 0 for warp 0's first strip: local H = 0 (a STOP: its start is
+  // the cell), global the boundary; F is -inf on row 0
+  for (int j = tid; j <= m; j += blockDim.x) {
+    full[j] = Col::pack(LOCAL ? 0 : boundary<AFFINE>(j, e, oe), kNegInf, j, 0);
+  }
+  if (!LOCAL && tid == 0 && (qlen == 0 || tlen == 0) && qlen + tlen < a.K && qlen < a.Np) {
+    a.score[b] = boundary<AFFINE>(qlen + tlen, e, oe);  // a cell of row 0 or column 0
+  }
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int nstrips = m > 0 && n > 0 ? (n + 31) >> 5 : 0;
+  const unsigned mp1 = (unsigned)m + 1;
+  // a round's share of the counters: columns [0, m] rounded up to whole
+  // rings, so that counter value x of a ring's stream sits in slot x mod kStripRing
+  const unsigned rstride = (mp1 + kStripRing - 1) & ~(unsigned)(kStripRing - 1);
+  const int32_t* qb = a.qpad + (size_t)b * a.Np;
+  // the row above comes from warp w - 1's ring, or (warp 0) the wrap row;
+  // the bottom row goes to this warp's ring, or (warp W - 1) the wrap row
+  const T* src = w == 0 ? full : ring + (w - 1) * kStripRing;
+  const unsigned smask = w == 0 ? ~0u : (unsigned)(kStripRing - 1);
+  T* dst = w == W - 1 ? full : ring + w * kStripRing;
+  const unsigned dmask = w == W - 1 ? ~0u : (unsigned)(kStripRing - 1);
+  const unsigned* up_cnt = cnt + (w == 0 ? W - 1 : w - 1);
+  const unsigned* down_cnt = cnt + (w + 1 < W ? w + 1 : w);
+
+  unsigned round = 0;
+  for (int s = w; s < nstrips; s += W, ++round) {
+    const int i = (s << 5) + lane + 1;
+    const bool row_ok = i <= n;
+    const int32_t* srow = tab + (row_ok ? min((unsigned)qb[i], last) : last) * NT;
+    const int hcol = LOCAL ? 0 : boundary<AFFINE>(i, e, oe);  // H(i, 0)
+    // at step k lane p holds cell (i, k - p), i + j = k + kbase: a STOP
+    // starts at sbase + k, a best's diagonal is kbase + k
+    const int kbase = (s << 5) + 1;
+    const int sbase = i * a.stride - lane;
+    const int mrow = min(m, a.K - 1 - i);             // this lane's last column
+    const int mfast = min(m, a.K - 2 - (s << 5));     // every lane's last column
+    const bool down = s + 1 < nstrips;  // a strip below reads this bottom row
+    const bool put = down && lane == 31;
+    // ring slots are reused: wait on the warp below (not for the wrap row)
+    const bool backpressure = down && w + 1 < W;
+    const unsigned mine = round * rstride;  // this strip's column 0 in counter units
+    const unsigned above = w == 0 ? mine - rstride : mine;  // the strip above's
+    int H = hcol, E = kNegInf, F = kNegInf;  // of (i, j - 1)
+    int Hd = 0;                              // H(i - 1, j - 1)
+    int SH = 0, SE = 0, SF = 0;              // local: start cells of H, E, F of (i, j - 1)
+    int SHd = 0;                             // local: start cell of H(i - 1, j - 1)
+    int bv = 0, bk = 0, bs = 0;              // local: the row's best, its k, its start
+
+    // one cell (i, k - lane) of the valid columns at step k: neighbours
+    // above, letter t
+    auto cell = [&](int k, Up u, unsigned t) {
+      const int d = Hd + srow[min(t, last)];
+      int up, left;
+      bool ext_e = false, ext_f = false;
+      if (AFFINE) {
+        E = __vibmax_s32(E + e, H + oe, &ext_e);
+        F = __vibmax_s32(u.F + e, u.H + oe, &ext_f);
+        up = F;
+        left = E;
+      } else {
+        up = u.H + e;
+        left = H + e;
+      }
+      const int best = __vimax3_s32(d, up, left);
+      if (LOCAL) {
+        // the start follows the pointer (DIAG > UP > LEFT), a gap's
+        // start its extend bit; a STOP starts at the cell
+        const int se = AFFINE && ext_e ? SE : SH;
+        const int sf = AFFINE && ext_f ? u.SF : u.SH;
+        // as selects: a branch here costs every shuffle a divergence check
+        int sh = up == best ? sf : se;
+        sh = d == best ? SHd : sh;
+        sh = best <= 0 ? sbase + k : sh;
+        SE = se;
+        SF = sf;
+        SH = sh;
+        H = max(best, 0);
+        // strict: the first k reaching the best; rows past n update too
+        // and are never written
+        const bool upd = H > bv;
+        bv = upd ? H : bv;
+        bk = upd ? kbase + k : bk;
+        bs = upd ? sh : bs;
+      } else {
+        H = best;
+      }
+      Hd = u.H;
+      SHd = u.SH;
+    };
+    auto from_above = [&]() {
+      return Up{__shfl_up_sync(kFull, H, 1), AFFINE ? __shfl_up_sync(kFull, F, 1) : 0,
+                LOCAL ? __shfl_up_sync(kFull, SH, 1) : 0,
+                LOCAL && AFFINE ? __shfl_up_sync(kFull, SF, 1) : 0};
+    };
+
+    for (int c0 = 0; c0 < m + 32; c0 += 32) {
+      // the row above's columns [c0, c0 + 32) are published
+      wait_for(up_cnt, above + min((unsigned)c0 + 32, mp1));
+      // lane 31 writes columns up to c0: the warp below has read c0 - kStripRing
+      if (backpressure) wait_for(down_cnt, mine + (unsigned)(c0 - kStripRing + 1));
+      if (c0 >= 32 && c0 + 31 <= mfast) {
+        // every lane on a valid column for all 32 steps: no checks
+        const T* sc = src + ((unsigned)c0 & smask);
+        T* d_lo = dst + ((unsigned)(c0 - 32) & dmask) + 1;  // columns c0 - 31 + u
+        T* d_hi = dst + ((unsigned)c0 & dmask);             // column c0
+        const int32_t* tc = tl + (c0 - lane);
+#pragma unroll
+        for (int u = 0; u < 32; ++u) {
+          Up v = from_above();
+          if (lane == 0) v = Col::unpack(sc[u]);
+          cell(c0 + u, v, (unsigned)tc[u]);
+          if (put) {
+            if (u < 31) d_lo[u] = Col::pack(H, F, SH, SF);
+            else *d_hi = Col::pack(H, F, SH, SF);
+          }
+        }
+      } else {
+#pragma unroll 1
+        for (int k = c0; k < c0 + 32; ++k) {
+          const int j = k - lane;
+          Up v = from_above();
+          if (lane == 0 && k <= m) v = Col::unpack(src[(unsigned)k & smask]);
+          if (j >= 1 && j <= mrow) {
+            cell(k, v, (unsigned)tl[j]);
+          } else {
+            Hd = v.H;
+            SHd = v.SH;
+            if (j == 0) {  // column 0: the boundary, E = -inf (the oracle's)
+              H = hcol;
+              E = kNegInf;
+              F = kNegInf;
+              SH = sbase + k;
+            }
+          }
+          if (put && j >= 0 && j <= m) dst[(unsigned)j & dmask] = Col::pack(H, F, SH, SF);
+        }
+      }
+      // lane 31 has finished columns [0, c0]: publish them (its own stores
+      // are ordered before the release)
+      if (lane == 31) st_release_cta(cnt + w, mine + min((unsigned)c0 + 1, mp1));
+    }
+    // the strip is done: the whole round's share, so that the warp above may
+    // reuse every ring slot of it
+    if (lane == 31) st_release_cta(cnt + w, mine + rstride);
+    if (LOCAL) {
+      if (row_ok) {  // written once; a row that never beat 0 writes the zeros
+        const size_t at = (size_t)b * a.Np + i;
+        a.bv[at] = bv;
+        a.bk[at] = bk;
+        a.bs[at] = bs;
+      }
+    } else if (row_ok && i == qlen && tlen <= mrow) {
+      a.score[b] = H;  // H(qlen, tlen): the lane's last column is tlen
+    }
+  }
+}
+
 int set_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
+}
+
+// the strip kernel's launch: ops/wavefront.py::wavefront_strip_geometry
+struct StripLaunch {
+  int warps, cols, stage_letters, smem;
+};
+
+template <bool LOCAL, bool AFFINE>
+int launch_strip(const WfArgs& a, const StripLaunch& sl, cudaStream_t stream) {
+  auto kernel = wf_strip_kernel<LOCAL, AFFINE>;
+  const int rc = set_smem((const void*)kernel, (size_t)sl.smem);
+  if (rc) return rc;
+  kernel<<<a.B, sl.warps * 32, sl.smem, stream>>>(a, sl.cols, sl.stage_letters);
+  return (int)cudaGetLastError();
+}
+
+template <bool PTR>
+int launch_band(const WfArgs& w, cudaStream_t stream) {
+  const BandArgs a{w.qpad, w.Np, w.tk,       w.Kw,         w.qlen,  w.tlen, w.table, w.NT, w.B,
+                   w.K,    w.band, w.gap_open, w.gap_extend, w.score, w.ptr,  w.R,     w.rows};
+  const size_t smem = (size_t)a.NT * a.NT * sizeof(int32_t) +
+                      (a.rows ? 0 : 6 * (size_t)a.R * sizeof(int32_t));
+  const int rc = set_smem((const void*)wf_band_kernel<PTR>, smem);
+  if (rc) return rc;
+  // one thread per window slot, at most 1024
+  const int threads = min(1024, (min(a.R, a.Np) + 31) / 32 * 32);
+  wf_band_kernel<PTR><<<a.B, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <bool LOCAL, bool AFFINE, bool BANDED, bool PTR>
@@ -355,36 +764,53 @@ int launch_window(const WfArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the window kernel's instance for the mode flags, chosen one flag at a time
+// the kernel for the mode flags (local, affine, banded, pointers), chosen
+// one flag at a time: the strip kernel with no band and no pointers, the
+// band kernel for the banded global affine window, else the window kernel
 template <bool... F>
-int run_window(const WfArgs& a, cudaStream_t stream) {
+int run_fill(const WfArgs& a, const StripLaunch& sl, cudaStream_t stream) {
   constexpr int n = sizeof...(F);
   if constexpr (n == 4) {
-    return launch_window<F...>(a, stream);
+    constexpr bool flags[] = {F...};
+    if constexpr (!flags[2] && !flags[3]) {  // no band, no pointers
+      return launch_strip<flags[0], flags[1]>(a, sl, stream);
+    } else if constexpr (!flags[0] && flags[1] && flags[2]) {
+      return launch_band<flags[3]>(a, stream);
+    } else {
+      return launch_window<F...>(a, stream);
+    }
   } else {
     const bool flag = n == 0 ? a.local : n == 1 ? a.affine : n == 2 ? a.banded : a.ptr != nullptr;
-    return flag ? run_window<F..., true>(a, stream) : run_window<F..., false>(a, stream);
+    return flag ? run_fill<F..., true>(a, sl, stream) : run_fill<F..., false>(a, sl, stream);
   }
 }
 
 }  // namespace
 
-// R: the window's ring, a power of 2 >= the widest window + 2; rows: its
-// global scratch, or null (shared memory); ops/wavefront.py::window_ring
-// picks them.  Local mode writes bv, bk (and bs score-only), global mode
-// score; the wrapper zeroes them.
+// Window kernels (a band or pointers): R, the window's ring, a power of 2
+// >= the widest window + 2; rows: its global scratch, or null (shared
+// memory); ops/wavefront.py::window_ring picks them.  The strip kernel (no
+// band, score-only): warps per pair, cols columns of letters and wrap row,
+// letters staged or not, smem_bytes of dynamic shared memory, rows the
+// wrap row's global scratch (B, cols, 16 or 8 bytes) or null;
+// ops/wavefront.py::wavefront_strip_geometry picks them.  Local mode writes
+// bv, bk (and bs score-only), global mode score; the wrapper zeroes them.
 extern "C" int seqalib_wavefront_fill(
     const int32_t* qpad, int Np, const int32_t* tk, int Kw,
     const int32_t* qlen, const int32_t* tlen, const int32_t* table, int NT,
     int B, int K, int band, int gap_open, int gap_extend, int local, int affine,
     int banded, int stride, int32_t* score, int32_t* bv, int32_t* bk, int32_t* bs,
-    uint8_t* ptr, int R, int32_t* rows, void* stream) {
-  if (Np < 1 || K < 1 || K > Kw || R < 2 || (R & (R - 1)) != 0 ||
-      (local ? !bv || !bk || (!ptr && !bs) : !score) || (!banded && R < Np + 2))
+    uint8_t* ptr, int R, int32_t* rows, int warps, int cols, int stage_letters,
+    int smem_bytes, void* stream) {
+  const bool strip = !banded && !ptr;
+  if (Np < 1 || K < 1 || K > Kw || (local ? !bv || !bk || (!ptr && !bs) : !score) ||
+      (strip ? warps < 1 || warps > kStripMaxWarps || cols < 1 || cols > Kw
+             : R < 2 || (R & (R - 1)) != 0 || (!banded && R < Np + 2)))
     return (int)cudaErrorInvalidValue;
   const WfArgs a{qpad,       Np,    tk,     Kw,     qlen,   tlen,  table, NT,  B,
                  K,          band,  gap_open, gap_extend, local, affine, banded,
                  stride,     score, bv,     bk,     bs,     ptr,   R,     rows};
+  const StripLaunch sl{warps, cols, stage_letters, smem_bytes};
   cudaStream_t s = (cudaStream_t)stream;
   if (ptr && banded) {  // the far bytes first; the window kernel overwrites its own
     // G runs of kFarRun slots side by side: the slots of a diagonal, at
@@ -398,5 +824,5 @@ extern "C" int seqalib_wavefront_fill(
     const int rc = (int)cudaGetLastError();
     if (rc) return rc;
   }
-  return run_window(a, s);
+  return run_fill(a, sl, s);
 }

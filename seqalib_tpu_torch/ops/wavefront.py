@@ -46,11 +46,16 @@ the start cell propagated to that best, packed ``i * stride + j``
 (``stride`` = the padded target width + 1, the JAX kernel's ``m + 1``).
 With ``want_ptr`` also ``ptr`` (K, B, Np) uint8, ``ptr[k, b, i]`` =
 ``PTR_*`` of cell (i, k - i), affine ``| ext_e << 2 | ext_f << 3``, taken
-before the band mask.  Kernel: ``csrc/wavefront_fill.cu``.  A banded
-window kernel's ring follows the widest window, so the wrapper needs the
-largest |tlen - qlen| of the batch: from the caller's ``span=`` (the
-bucket has the lengths on the host), else read back from the device (a
-device-to-host sync).
+before the band mask.  Kernels: ``csrc/wavefront_fill.cu``, by mode
+(``fill_kernel``).  An unbanded score-only fill runs the strip kernel:
+pipelined strip warps per pair over the valid cells only (no output reads
+another slot), sized by ``wavefront_strip_geometry``, its target columns
+cut to Np + ``span`` when the caller passes one (``strip_columns``).  Every
+other mode runs the window kernel (after the far pass when banded with
+pointers); a banded window kernel's ring follows the widest window, so the
+wrapper needs the largest |tlen - qlen| of the batch: from the caller's
+``span=`` (the bucket has the lengths on the host), else read back from
+the device (a device-to-host sync).
 
 One departure from the TPU kernel, in local affine mode: the TPU kernel
 computes E of column 0 from the slots with j < 0, which score target
@@ -60,6 +65,15 @@ DNA query of 30 A's against ACCGTT: 21 against the oracle's 4).  The port
 sets E of column 0 to -inf, as the oracle does, after its pointer byte is
 taken; where the junk stays below -gap_extend every output is the TPU
 kernel's.
+
+A second one, on the card only, in global affine mode with no band and no
+pointers: the TPU kernel (and ``wavefront_fill_ref``) computes the cells
+of column 0 from the slots with j < 0, whose H stays near -2^30 in global
+mode; the strip kernel, which computes no such slot, gives column 0 the
+oracle's boundary o + e + (i - 1) * max(e, o + e).  The two agree wherever
+that junk stays below the boundary values, which only letter scores
+summing towards 2^30 along a query can break
+(``tests/test_torch_kernels_cuda.py`` holds a pair scoring 1.54e9).
 """
 
 from __future__ import annotations
@@ -81,6 +95,14 @@ MAX_TABLE = 66  # the kernel keeps the score table in shared memory
 # slots) stay in shared memory beside the table while they fit in this
 # many bytes, else in a global scratch buffer
 SMEM_BYTES = 200 * 1024
+# the strip kernel (unbanded score-only fills): warps per pair at most
+# (csrc/wavefront_fill.cu: kStripMaxWarps), columns of a ring between
+# warps (kStripRing), and the shared memory a CTA may take before the
+# target letters, then the wrap row, go to global memory: four CTAs of
+# this size fit on an H100 SM (227 KB)
+STRIP_MAX_WARPS = 16
+STRIP_RING = 256
+STRIP_SMEM_BUDGET = 56 * 1024
 _EXT_E_BIT = 2
 _EXT_F_BIT = 3
 _EXT_BITS = (1 << _EXT_E_BIT) | (1 << _EXT_F_BIT)  # both extend bits
@@ -144,6 +166,48 @@ def window_ring(width: int, NT: int, rows: int = 6) -> tuple[int, bool]:
     R >= width + 2 slots, a power of 2."""
     R = 1 << (width + 1).bit_length()
     return R, 4 * (NT * NT + rows * R) <= SMEM_BYTES
+
+
+def fill_kernel(band: int | None, want_ptr: bool) -> str:
+    """The kernel a ``wavefront_fill`` call on the card launches:
+    ``"strip"`` (pipelined strip warps over the valid cells) for an
+    unbanded score-only fill, else ``"window"`` (a thread per slot of the
+    band's window, or of every slot for an unbanded fill with pointers)."""
+    return "strip" if band is None and not want_ptr else "window"
+
+
+def wavefront_strip_warps(Np: int) -> int:
+    """Warps per pair of the strip kernel for ``Np`` slots: one per
+    32-row strip of rows 1 .. Np - 1, at most 8."""
+    return max(1, min(8, -(-(Np - 1) // 32)))
+
+
+def wavefront_strip_geometry(Np: int, NT: int, cols: int, mode: str,
+                             affine: bool) -> tuple[int, int, bool, bool]:
+    """(warps, shared-memory bytes, letters in shared memory, wrap row in
+    shared memory) of the strip kernel over ``Np`` slots, an (NT, NT) table
+    and ``cols`` target columns (letters and the wrap row hold columns
+    [0, cols)).  Always in shared memory: the (warps - 1) rings of
+    STRIP_RING columns (16 bytes a column in local affine mode: H, F and
+    their start cells; 8 otherwise), the table and the counters; the target
+    letters (4 bytes a column), then the wrap row (a ring's column size a
+    column), while they fit in STRIP_SMEM_BUDGET, else they are read from
+    and kept in global memory."""
+    warps = wavefront_strip_warps(Np)
+    col = 16 if mode == "local" and affine else 8
+    base = col * (warps - 1) * STRIP_RING + 4 * (NT * NT + STRIP_MAX_WARPS)
+    letters = base + 4 * cols <= STRIP_SMEM_BUDGET
+    if letters:
+        base += 4 * cols
+    row = base + col * cols <= STRIP_SMEM_BUDGET
+    return warps, base + col * cols * row, letters, row
+
+
+def strip_columns(K: int, Np: int, span: int | None) -> int:
+    """Target columns the strip kernel keeps: [0, K), cut to [0, Np + span)
+    when ``span`` bounds |tlen - qlen| (tlen <= qlen + span <= Np - 1 +
+    span)."""
+    return K if span is None else max(1, min(K, Np + span))
 
 
 def _check(qpad, tk, qlen, tlen, tab, K, mode, want_ptr, stride):
@@ -337,7 +401,8 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int | None, gap_o
     CPU tensor runs ``wavefront_fill_ref``; a CUDA tensor the kernel.
     ``stride``: the start cells' packing (local score-only).  ``span``: at
     least the largest |tlen - qlen| of the batch (None: read from the
-    device when there is a band)."""
+    device when there is a band; with none it bounds the strip kernel's
+    target columns, ``strip_columns``)."""
     qpad, tk, tab = qpad.contiguous(), tk.contiguous(), tab.contiguous()
     qlen, tlen = qlen.to(torch.int32).contiguous(), tlen.to(torch.int32).contiguous()
     _check(qpad, tk, qlen, tlen, tab, K, mode, want_ptr, stride)
@@ -364,12 +429,21 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int | None, gap_o
         ptr = out["ptr"] = torch.empty((K, B, Np), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
-    if band is not None and span is None:  # the ring follows the widest window
-        span = int((tlen.long() - qlen.long()).abs().max())
-    nrows = window_rows(mode, affine, want_ptr)
-    R, rows_in_smem = window_ring(window_width(span, band, Np), NT, nrows)
-    if not rows_in_smem:
-        rows = torch.empty((B, nrows, R), dtype=torch.int32, device=dev)
+    R = warps = cols = smem = 0
+    letters = False
+    if fill_kernel(band, want_ptr) == "strip":
+        cols = strip_columns(K, Np, span)
+        warps, smem, letters, row_in_smem = wavefront_strip_geometry(Np, NT, cols, mode, affine)
+        if not row_in_smem:  # the wrap row, a column of 16 or 8 bytes
+            rows = torch.empty((B, cols, 4 if local and affine else 2), dtype=torch.int32,
+                               device=dev)
+    else:
+        if band is not None and span is None:  # the ring follows the widest window
+            span = int((tlen.long() - qlen.long()).abs().max())
+        nrows = window_rows(mode, affine, want_ptr)
+        R, rows_in_smem = window_ring(window_width(span, band, Np), NT, nrows)
+        if not rows_in_smem:
+            rows = torch.empty((B, nrows, R), dtype=torch.int32, device=dev)
     ptr_of = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
     launch(
         "wavefront_fill", dev, "seqalib_wavefront_fill", qpad.data_ptr(), Np,
@@ -377,7 +451,7 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int | None, gap_o
         NT, B, K, 0 if band is None else band, gap_open, gap_extend, int(local),
         int(affine), int(band is not None), stride or 0, ptr_of(out.get("score")),
         ptr_of(out.get("bv")), ptr_of(out.get("bk")), ptr_of(out.get("bs")), ptr_of(ptr),
-        R, ptr_of(rows),
+        R, ptr_of(rows), warps, cols, int(letters), smem,
     )
     # one count per call: a banded call with pointers launches the far
     # pass, then the window kernel

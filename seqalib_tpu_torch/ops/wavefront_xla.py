@@ -102,7 +102,8 @@ def xla_launch(q, t, qlen, tlen, sp: ScoringParams, *, mode: str, band: int | No
     qpad, tk, ql, tl, tab = stage_wavefront(q, t, qlen, tlen, sp, device)
     res = wavefront_fill(qpad, tk, ql, tl, tab, K=K, band=None, gap_open=sp.gap_open,
                          gap_extend=sp.gap_extend, want_ptr=False, mode="local",
-                         affine=affine, stride=m + 1)
+                         affine=affine, stride=m + 1,
+                         span=int(np.abs(tlen - qlen).max(initial=0)))
     score, qe, te = local_end(res["bv"], res["bk"], n + 1)
     wait = to_host({"score": score, "qe": qe, "te": te})
 

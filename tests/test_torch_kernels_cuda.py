@@ -1370,3 +1370,181 @@ def test_xla_route_launch_half_makes_no_sync(dev, mode, traceback):
             assert got[k] == want[k]
         else:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# the strip kernel (unbanded score-only fills): its four instances, as
+# (mode, affine)
+STRIP_INSTANCES = [("local", True), ("local", False), ("global", True), ("global", False)]
+# name -> (query lengths, target lengths, letters' width n x m, K less than
+# n + m + 1 by, warps forced or None, scoring): each case is one edge of
+# the kernel's geometry
+STRIP_CASES = {
+    "lengths_0_and_1": ([0, 1, 1, 0, 40, 1, 0], [0, 1, 0, 1, 1, 37, 50], 40, 50, 0, None,
+                        "blosum62"),
+    "rows_past_the_last_strip": ([70, 69], [90, 33], 90, 90, 0, None, "blosum62"),
+    "ragged": ([300, 31, 33, 257, 64, 200, 7], [290, 299, 17, 300, 64, 5, 250], 300, 300, 0,
+               None, "blosum62"),
+    "rounds_over_1024_slots": ([1100, 1000, 1037], [1100, 1093, 3], 1100, 1100, 0, None,
+                               "blosum62"),
+    "k_below_n_plus_m_plus_1": ([200, 150, 90], [180, 200, 60], 200, 200, 137, None,
+                                "blosum62"),
+    "one_warp": ([200, 97], [180, 120], 200, 200, 0, 1, "blosum62"),
+    "sixteen_warps": ([700, 520], [640, 700], 700, 700, 0, 16, "blosum62"),
+    "every_cell_at_most_0": ([150, 90], [140, 120], 150, 150, 0, None, "negative"),
+    "equal_maxima": ([120, 77, 50], [140, 91, 33], 120, 140, 0, None, "repeat"),
+}
+
+
+def _strip_scoring(name, affine):
+    """(scoring, alphabet): BLOSUM62 o=-10 e=-1; DNA with every cell <= 0;
+    a DNA match of 2 against repeats (equal maxima along a row and across
+    rows); linear gaps (o = 0) unless ``affine``."""
+    go = -10 if name == "blosum62" else -5
+    if name == "blosum62":
+        sp = scoring_params(0, 0, go if affine else 0, -1, BLOSUM62)
+        return sp, 20
+    match = -1 if name == "negative" else 2
+    return scoring_params(match, -3, go if affine else 0, -2, None), 4
+
+
+def _strip_args(dev, case, affine, seed=3):
+    ql, tl, n, m, cut, _, scoring = STRIP_CASES[case]
+    sp, alpha = _strip_scoring(scoring, affine)
+    rng = np.random.default_rng(seed)
+    qlen, tlen = np.array(ql), np.array(tl)
+    q = rng.integers(0, alpha, size=(len(ql), n))
+    t = rng.integers(0, alpha, size=(len(ql), m))
+    L = min(n, m) // 2
+    t[:, 3: 3 + L] = q[:, 1: 1 + L]
+    if scoring == "repeat":
+        q = np.tile([0, 1], (len(ql), n // 2))
+        t = np.tile([0, 1], (len(ql), m // 2))
+        q[1], t[1] = 2, 2
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    args = [as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab)]
+    return args, dict(K=tk.shape[1] - cut, band=None, gap_open=sp.gap_open,
+                      gap_extend=sp.gap_extend, want_ptr=False, stride=m + 1)
+
+
+@pytest.mark.parametrize("memory", ["shared", "global"])
+@pytest.mark.parametrize("instance", STRIP_INSTANCES, ids=lambda x: f"{x[0]}-{x[1]}")
+@pytest.mark.parametrize("case", sorted(STRIP_CASES))
+def test_wavefront_strip_kernel_matches_plain_version(dev, case, instance, memory,
+                                                      monkeypatch):
+    """Each instance of the strip kernel against ``wavefront_fill_ref``,
+    every output exactly (the per-row bests, their first k and start, or
+    H(qlen, tlen)), with the letters and the wrap row in shared memory and
+    forced to global memory, and its key's launch count."""
+    mode, affine = instance
+    warps = STRIP_CASES[case][5]
+    if warps is not None:
+        monkeypatch.setattr(wf_mod, "wavefront_strip_warps", lambda Np, w=warps: w)
+    if memory == "global":
+        monkeypatch.setattr(wf_mod, "STRIP_SMEM_BUDGET", 0)
+    args, kw = _strip_args(dev, case, affine)
+    kw.update(mode=mode, affine=affine)
+    Np = args[0].shape[1]
+    if case == "rounds_over_1024_slots":
+        assert Np > 1024 and -(-1100 // 32) > wf_mod.wavefront_strip_warps(Np)
+    # shared: the columns cut to the lengths' span, as the routes pass it
+    span = None if memory == "global" else int((args[3] - args[2]).abs().max())
+    if memory == "global":
+        cols = wf_mod.strip_columns(kw["K"], Np, span)
+        assert wf_mod.wavefront_strip_geometry(Np, args[4].shape[0], cols, mode,
+                                               affine)[2:] == (False, False)
+    key = wf_mod.launch_key(mode, affine, False)
+    before = launches[key]
+    got = wavefront_fill(*args, span=span, **kw)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    _same(got, wavefront_fill_ref(*args, **kw))
+    if mode == "local" and STRIP_CASES[case][6] == "negative":
+        assert not got["bv"].any()
+
+
+@pytest.mark.parametrize("span", [None, 0, 40])
+def test_wavefront_strip_kernel_on_a_long_global_affine_pair_with_large_scores(dev, span):
+    """Global affine score-only on pairs of 3 000 letters with a table of
+    BLOSUM62 x 90 000 (H(qlen, tlen) about 1.54e9 of int32's 2.1e9, against
+    the TPU kernel's -2^30 for -inf): equal to the plain version, whose
+    slots with j < 0 stay below the boundary values here; ``span`` cuts the
+    target columns the kernel keeps (``strip_columns``)."""
+    sp = scoring_params(0, 0, -20_000, -3_000, BLOSUM62.astype(np.int64) * 90_000)
+    rng = np.random.default_rng(17)
+    n = 3000
+    q = rng.integers(0, 20, size=(2, n))
+    t = q.copy()
+    t[:, 500:510] = rng.integers(0, 20, size=(2, 10))
+    qlen, tlen = np.array([n, n - 11]), np.array([n, n - 40])
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    args = [as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab)]
+    kw = dict(K=tk.shape[1], band=None, gap_open=sp.gap_open, gap_extend=sp.gap_extend,
+              want_ptr=False)
+    got = wavefront_fill(*args, span=span, **kw)
+    want = wavefront_fill_ref(*args, **kw)
+    _same(got, want)
+    assert int(want["score"].min()) > 1.5e9
+
+
+# one call of each flag set under one torch.profiler session, in a process
+# of its own: after a first session in a test process a second has shown
+# no device events
+_KERNELS_LAUNCHED = r"""
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from seqalib_tpu_torch import BLOSUM62
+from seqalib_tpu_torch.ops.wavefront import wavefront_fill, wavefront_inputs
+from seqalib_tpu_torch.scoring import scoring_params
+sp = scoring_params(0, 0, -20, -2, 2 * BLOSUM62)
+rng = np.random.default_rng(5)
+qlen = rng.integers(0, 300, size=9)
+tlen = np.clip(qlen + rng.integers(-9, 10, size=9), 0, None)
+q, t = rng.integers(0, 20, size=(9, 320)), rng.integers(0, 20, size=(9, 320))
+qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+args = [torch.as_tensor(np.asarray(x), dtype=torch.int32, device="cuda")
+        for x in (qpad, tk, qlen, tlen, tab)]
+calls = [dict(K=tk.shape[1], band=band, gap_open=-20, gap_extend=-2, want_ptr=ptr, mode=mode,
+              affine=affine, stride=321) for mode, affine, ptr, band in json.loads(sys.argv[2])]
+for kw in calls:  # the build, the allocator's blocks
+    wavefront_fill(*args, **kw)
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    for kw in calls:
+        wavefront_fill(*args, **kw)
+        torch.cuda.synchronize()
+ev = sorted((e.time_range.start, e.name) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "wf_" in e.name)
+print(json.dumps([n for _, n in ev]))
+"""
+
+
+def test_wavefront_fill_launches_the_strip_kernel_for_unbanded_score_only(dev):
+    """Under ``torch.profiler``, one call of each flag set in turn: an
+    unbanded score-only call launches ``wf_strip_kernel`` alone, a banded
+    global affine call ``wf_band_kernel``, every other call the window
+    kernel (after the far pass when banded with pointers)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _KERNELS_LAUNCHED, str(root),
+                          json.dumps(WF_MODES)], capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    short = [next(k for k in ("wf_strip_kernel", "wf_band_kernel", "wf_window_kernel",
+                              "wf_far_kernel") if k in n) for n in names]
+    want = []
+    for mode, affine, want_ptr, band in WF_MODES:
+        strip = band is None and not want_ptr
+        assert (wf_mod.fill_kernel(band, want_ptr) == "strip") == strip
+        banded_global_affine = mode == "global" and affine and band is not None
+        want += (["wf_far_kernel"] if want_ptr and band is not None else []) + [
+            "wf_strip_kernel" if strip else
+            "wf_band_kernel" if banded_global_affine else "wf_window_kernel"]
+    assert short == want

@@ -37,9 +37,11 @@ from seqalib_tpu.types import BLOSUM62
 from seqalib_tpu.types import ScoringParams as JaxScoringParams
 from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops.wavefront_xla import local_end
-from seqalib_tpu_torch.ops.wavefront import (launch_key, wavefront_far_bytes_ref,
-                                             wavefront_fill, wavefront_fill_ref,
-                                             wavefront_inputs, window_rows)
+from seqalib_tpu_torch.ops import wavefront as wf_mod
+from seqalib_tpu_torch.ops.wavefront import (fill_kernel, launch_key, strip_columns,
+                                             wavefront_far_bytes_ref, wavefront_fill,
+                                             wavefront_fill_ref, wavefront_inputs,
+                                             wavefront_strip_geometry, window_rows)
 from seqalib_tpu_torch.scoring import scoring_params
 from seqalib_tpu_torch.types import encode_dna
 
@@ -256,6 +258,48 @@ def test_launch_keys_and_ring_rows():
     assert all(launch_key(*m[:3]) in launches for m in ROUTE_MODES + OTHER_MODES)
     assert [window_rows(*m[:3]) for m in ROUTE_MODES] == [3, 3, 6, 6, 12, 6]
     assert window_rows("local", True, True) == 6
+
+
+@pytest.mark.parametrize("mode,affine,want_ptr,band", ROUTE_MODES + OTHER_MODES,
+                         ids=lambda x: str(x))
+def test_the_kernel_each_flag_set_launches(mode, affine, want_ptr, band):
+    """On the card an unbanded score-only fill runs the strip kernel, every
+    other flag set (a band or pointers) the window kernels."""
+    want = "strip" if band is None and not want_ptr else "window"
+    assert fill_kernel(band, want_ptr) == want
+
+
+@pytest.mark.parametrize("Np,NT,cols,mode,affine,budget,want", [
+    # config 3's pass (a): every piece in shared memory, 16-byte columns
+    (1152, 23, 1152, "local", True, None, (8, 53892, True, True)),
+    # the columns past the budget: the wrap row goes to global memory
+    (1152, 23, 2049, "local", True, None, (8, 39048, True, False)),
+    (1152, 23, 1152, "local", True, 0, (8, 30852, False, False)),
+    # config 2's fullest bucket and config 1: 8-byte columns
+    (768, 7, 1368, "local", False, None, (8, 31012, True, True)),
+    (384, 7, 384, "global", False, None, (8, 19204, True, True)),
+    (384, 23, 384, "global", True, None, (8, 21124, True, True)),
+    # a warp per 32 rows below 8 strips, one warp for rows 1 .. 32
+    (128, 7, 200, "global", True, None, (4, 8804, True, True)),
+    (33, 7, 50, "local", True, None, (1, 1260, True, True)),
+])
+def test_strip_geometry(Np, NT, cols, mode, affine, budget, want, monkeypatch):
+    """(warps, shared bytes, letters shared, wrap row shared) of the strip
+    kernel: (warps - 1) rings of 256 columns, the table and 16 counters,
+    then the letters (4 bytes a column) and the wrap row (16 or 8) while
+    they fit in STRIP_SMEM_BUDGET."""
+    if budget is not None:
+        monkeypatch.setattr(wf_mod, "STRIP_SMEM_BUDGET", budget)
+    assert wavefront_strip_geometry(Np, NT, cols, mode, affine) == want
+
+
+@pytest.mark.parametrize("K,Np,span,want", [(2049, 1152, None, 2049), (2049, 1152, 0, 1152),
+                                            (1409, 768, 600, 1368), (100, 1152, 5, 100),
+                                            (3, 128, 0, 3)])
+def test_strip_columns_follow_the_span(K, Np, span, want):
+    """The strip kernel's target columns: K, cut to Np + span when the
+    caller bounds |tlen - qlen| (a query of at most Np - 1 letters)."""
+    assert strip_columns(K, Np, span) == want
 
 
 def test_local_score_only_needs_a_stride():

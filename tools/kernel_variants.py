@@ -17,7 +17,8 @@ from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+if str(Path(__file__).resolve().parents[1]) not in sys.path:  # a caller may put another tree first
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from seqalib_tpu_torch import _build  # noqa: E402
 

@@ -4,8 +4,10 @@ warps per pair, and the wavefront fill, at the main paths' shapes; count
 the instructions a step issues from the SASS.
 
     python3 tools/strip_fill_sweep.py [--calls 5] [--warps 1,2,4,8]
+                                      [--strip-warps 4,8,16]
                                       [--sass-only] [--sass-dump PATH]
                                       [--ablate] [--variant NAME=FILE.cu ...]
+                                      [--parent DIR] [--rounds 5] [--shapes PREFIX]
 
 Shapes (seed 0): config 3's pass 1 (``local``, B=512 BLOSUM62 pairs of
 1024 x 1024, o=-10, e=-1) and its slices of B=1 and B=64, its pass-3
@@ -15,19 +17,37 @@ of 256 x 256, linear gaps).  Each call is timed with CUDA events over
 ``--calls`` calls after a warm-up, the warps per pair forced by patching
 ``strip_warps`` (the kernel takes 1 to 8), and every output is held equal
 to the wrapper's default choice.  The wavefront part times
-``wavefront_fill`` at the wide-table shapes (B=64 protein pairs of 1 000
-letters, band 64, 2 x BLOSUM62 o=-20 e=-2), pointer and score-only, with
-its µs per anti-diagonal.  The SASS part disassembles the built library
-(``cuobjdump -sass``) and, for each ``strip_fill_kernel`` instance, counts
-the instructions one step of its unrolled 32-step chunk issues (the
-converged path) and their opcodes.  The card's name and power limit come
-first; the last line is a JSON summary.  ``--sass-dump PATH`` writes the
-whole SASS of those kernels to PATH.  ``--ablate`` times, beside the
-shipped kernels, variants with one piece of the work removed (values not
-kept): ``no_letters`` (every cell scores the table's first entry: no
-letter loads), ``no_best`` (no best-cell tracking), ``far_only`` (the
-wavefront's window kernel not launched in pointer mode) and ``no_far``
-(its far pass not launched).  ``--variant NAME=FILE``: another
+``wavefront_fill`` at its paths' shapes, with its µs per anti-diagonal:
+the wide-table route's banded fills (B=64 protein pairs of 1 000 letters,
+band 64, 2 x BLOSUM62 o=-20 e=-2), pointer and score-only, and the
+``"xla"`` route's unbanded score-only fills (the strip kernel) as
+``run_bucket(backend="xla")`` makes them: config 3's pass (a) (``local``),
+config 3's pairs in global mode (unbanded ``score``), config 2's fullest
+bucket (``local_lin``) and all 16 of its buckets one after another, and
+config 1 (``lin_score``); each strip shape also at the warps per pair of
+``--strip-warps`` (patching ``wavefront_strip_warps``; the kernel takes 1
+to 16).  The SASS part disassembles the built library (``cuobjdump
+-sass``) and, for each ``strip_fill_kernel`` and ``wf_strip_kernel``
+instance, counts the instructions one step of its unrolled 32-step chunk
+issues (the converged path) and their opcodes.  The card's name and power
+limit come first; the last line is a JSON summary.  ``--sass-dump PATH``
+writes the whole SASS of those kernels to PATH.  ``--ablate`` times,
+beside the shipped kernels, variants with one piece of the work removed
+(values not kept): ``no_letters`` (every cell scores the table's first
+entry: no letter loads), ``no_best`` (no best-cell tracking), ``far_only``
+(the wavefront's window kernel not launched in pointer mode), ``no_far``
+(its far pass not launched), and in the strip kernel ``wf_no_best`` (no
+row bests), ``wf_no_start`` (no start propagation: no start cells
+computed, shuffled or handed on) and ``wf_no_handoff`` (no ring hand-off
+between warps: no waits, lane 0 reads nothing, lane 31 stores nothing).
+``--parent DIR``: the wavefront shapes of this tree and of the tree at DIR
+(e.g. ``git archive`` of the parent commit unpacked under ``_checkout/``)
+in two worker processes, each importing its own package and building its
+own kernels, taking turns for ``--rounds`` rounds (this tree first on even
+rounds); each shape's calls are made by that tree's own wrappers and
+routes from the same seeded inputs.  ``--shapes PREFIX``: only the wavefront
+shapes whose names start with PREFIX (e.g. ``wide``, for a tree without
+the ``"xla"`` route).  ``--variant NAME=FILE``: another
 ``strip_fill.cu`` or ``wavefront_fill.cu`` (by FILE's name) with the same
 C interface, built by its own ``nvcc`` and timed after the shipped one at
 the default warps (every output held equal to the shipped kernel's, unless
@@ -48,6 +68,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+if "--worker" in sys.argv:  # a worker imports the package of the tree it serves
+    sys.path.insert(0, sys.argv[sys.argv.index("--worker") + 1])
 
 import chip_smoke  # noqa: E402
 from kernel_variants import build_variants, card_line, time_ms  # noqa: E402
@@ -92,30 +114,109 @@ def strip_calls(dev):
     return out
 
 
-def wavefront_calls(dev):
-    rng = np.random.default_rng(0)
-    qs, ts = chip_smoke.wide_pairs(rng)
-    sp = ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * BLOSUM62)
+def capture(run, mod, name="wavefront_fill"):
+    """(args, kwargs) of every call ``run()`` makes to ``mod.name`` (a
+    tree's own wrapper, whatever its launch keys)."""
+    got, fn = [], getattr(mod, name)
+
+    def wrapped(*a, **k):
+        got.append((a, k))
+        return fn(*a, **k)
+
+    setattr(mod, name, wrapped)
+    try:
+        run()
+    finally:
+        setattr(mod, name, fn)
+    return got
+
+
+def wavefront_calls(dev, cs=None, only=""):
+    """{shape name: [(args, kwargs), ...]} of ``wavefront_fill`` at the
+    paths' shapes (see the module docstring) whose names start with
+    ``only``, made by this process's package; ``cs``: the ``chip_smoke``
+    module to record with."""
+    cs = cs or chip_smoke
     import seqalib_tpu_torch as st
+    from seqalib_tpu_torch import cli
+    from seqalib_tpu_torch.ops import wavefront as wf
+    from seqalib_tpu_torch.parallel import dispatch
 
+    targets = [(wf, "wavefront_fill", wf.wavefront_fill_ref)]
+    rng = np.random.default_rng(0)
+    qs, ts = cs.wide_pairs(rng)
+    sp = st.ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * st.BLOSUM62)
     out = {}
-    for tb in (True, False):
-        calls, _ = chip_smoke.record(lambda: st.align_batch(
-            qs, ts, scoring=sp, mode="global", band=chip_smoke.BAND7, traceback=tb,
-            device=dev), [(wf_mod, "wavefront_fill", wf_mod.wavefront_fill_ref)])
+    for tb in (True, False) if "wide".startswith(only[:4]) else ():
+        calls = capture(lambda: st.align_batch(qs, ts, scoring=sp, mode="global",
+                                               band=cs.BAND7, traceback=tb, device=dev), wf)
+        out[f"wide wavefront_fill/{'ptr' if tb else 'score'}"] = calls[:1]
+    if not "xla".startswith(only[:3]):
+        return {k: v for k, v in out.items() if k.startswith(only)}
+    from seqalib_tpu_torch.ops import wavefront_xla as xla
+
+    targets.append((xla, "wavefront_fill", wf.wavefront_fill_ref))
+    rng = np.random.default_rng(cs.SEED)  # chip_smoke's config 3 and config 1 pairs
+    q3 = rng.integers(0, 20, size=(cs.B3, 1024)).astype(np.uint8)
+    t3 = rng.integers(0, 20, size=(cs.B3, 1024)).astype(np.uint8)
+    q1 = rng.integers(0, 4, size=(cs.B3, 256)).astype(np.uint8)
+    t1 = rng.integers(0, 4, size=(cs.B3, 256)).astype(np.uint8)
+    sp3 = st.ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
+    full = lambda x: np.full(len(x), x.shape[1])  # noqa: E731
+    q2, t2, ql2, tl2, sp2 = cs.config2_bucket(dev)
+    for name, args in (("xla config 3", (q3, t3, full(q3), full(t3), sp3, "local", None, True)),
+                       ("xla config 3 global", (q3, t3, full(q3), full(t3), sp3, "global",
+                                                None, False)),
+                       ("xla config 2 fullest bucket", (q2, t2, ql2, tl2, sp2, "local", None,
+                                                        False)),
+                       ("xla config 1", (q1, t1, full(q1), full(t1), st.ScoringParams.linear(),
+                                         "global", None, False))):
+        calls, _ = cs.record(lambda: dispatch.run_bucket(*args, dev, backend="xla"), targets)
         for key, (_, _, a, k, _) in calls.items():
-            out[key] = (a, k)
-    return out
+            if k["band"] is None and not k["want_ptr"]:
+                out[f"{name} {key}"] = [(a, k)]
+    a2 = argparse.Namespace(pairs=cs.BENCH_PAIRS, backend="xla", device=dev)
+    sp2, qs2, ts2 = cli._bench_setup(a2, 2, np.random.default_rng(0))[:3]
+    calls, _ = cs.record(lambda: st.align_batch(qs2, ts2, scoring=sp2, mode="local",
+                                                traceback=False, backend="xla", device=dev),
+                         targets, every=True)
+    out["xla config 2, every bucket"] = [(a, k) for a, k in
+                                         ((c[2], c[3]) for c in calls.values())]
+    return {k: v for k, v in out.items() if k.startswith(only)}
 
 
-# ablation -> (source, text replaced, replacement): one piece of work removed
+def run_shape(calls):
+    from seqalib_tpu_torch.ops import wavefront as wf
+
+    for a, k in calls:
+        wf.wavefront_fill(*a, **k)
+
+
+# ablation -> (source, [(text replaced, replacement), ...]): one piece of
+# work removed
 ABLATIONS = {
-    "x_no_letters": ("strip_fill.cu", "      const int d = Hdiag + srow[min(t, sent)];",
-                     "      const int d = Hdiag + srow[0];"),
-    "x_no_best": ("strip_fill.cu", "      if (MODE != kGlobal && H > sbest) {",
-                  "      if (MODE != kGlobal && false) {"),
-    "x_far_only": ("wavefront_fill.cu", "  return run_window(a, s);\n}", "  return 0;\n}"),
-    "x_no_far": ("wavefront_fill.cu", "  if (ptr && banded) {", "  if (false) {"),
+    "x_no_letters": ("strip_fill.cu", [("      const int d = Hdiag + srow[min(t, sent)];",
+                                        "      const int d = Hdiag + srow[0];")]),
+    "x_no_best": ("strip_fill.cu", [("      if (MODE != kGlobal && H > sbest) {",
+                                     "      if (MODE != kGlobal && false) {")]),
+    "x_far_only": ("wavefront_fill.cu", [("  return run_fill(a, sl, s);\n}", "  return 0;\n}")]),
+    "x_no_far": ("wavefront_fill.cu", [("  if (ptr && banded) {", "  if (false) {")]),
+    "x_wf_no_best": ("wavefront_fill.cu", [("        const bool upd = H > bv;",
+                                            "        const bool upd = false;")]),
+    "x_wf_no_start": ("wavefront_fill.cu", [
+        ("        int sh = up == best ? sf : se;\n        sh = d == best ? SHd : sh;\n"
+         "        sh = best <= 0 ? sbase + k : sh;", "        const int sh = 0;"),
+        ("        const int se = AFFINE && ext_e ? SE : SH;", "        const int se = 0;"),
+        ("        const int sf = AFFINE && ext_f ? u.SF : u.SH;", "        const int sf = 0;"),
+        ("                LOCAL ? __shfl_up_sync(kFull, SH, 1) : 0,\n"
+         "                LOCAL && AFFINE ? __shfl_up_sync(kFull, SF, 1) : 0};", "0, 0};")]),
+    "x_wf_no_handoff": ("wavefront_fill.cu", [
+        ("      wait_for(up_cnt, above + min((unsigned)c0 + 32, mp1));\n", ""),
+        ("      if (backpressure) wait_for(down_cnt, mine + (unsigned)(c0 - kStripRing + 1));\n",
+         ""),
+        ("          if (lane == 0) v = Col::unpack(sc[u]);\n", ""),
+        ("          if (put) {\n            if (u < 31) d_lo[u] = Col::pack(H, F, SH, SF);\n"
+         "            else *d_hi = Col::pack(H, F, SH, SF);\n          }\n", "")]),
 }
 
 
@@ -126,10 +227,12 @@ def variant_sources(specs, ablate):
     for spec in specs:
         name, path = spec.split("=", 1)
         out[name] = {Path(path).name: Path(path).read_text()}
-    for name, (src, old, new) in (ABLATIONS.items() if ablate else ()):
+    for name, (src, edits) in (ABLATIONS.items() if ablate else ()):
         text = (_build.CSRC / src).read_text()
-        assert old in text, name
-        out[name] = {src: text.replace(old, new)}
+        for old, new in edits:
+            assert old in text, (name, old)
+            text = text.replace(old, new)
+        out[name] = {src: text}
     return out
 
 
@@ -142,7 +245,8 @@ def time_variants(sources, calls, dev, rows):
     shapes = {"strip_fill.cu": [(f"strip {n}", sf_mod.strip_fill, a, k)
                                 for n, (a, k) in strip_calls(dev).items()],
               "wavefront_fill.cu": [(f"wavefront {n}", wf_mod.wavefront_fill, a, k)
-                                    for n, (a, k) in wavefront_calls(dev).items()]}
+                                    for n, calls in wavefront_calls(dev).items()
+                                    for a, k in calls[:1]]}
     order = [("shipped", shipped, None)] + [(n, lib, f) for n, (lib, f) in libs.items()]
     order.append(("shipped", shipped, None))
     for src, cases in shapes.items():
@@ -190,12 +294,86 @@ def sweep_strip(warps, calls, dev, rows):
             rows.append(dict(shape=name, B=a[0].shape[0], warps=W, ms=ms))
 
 
-def sweep_wavefront(calls, dev, rows):
-    for key, (a, k) in wavefront_calls(dev).items():
-        ms = time_ms(lambda: wf_mod.wavefront_fill(*a, **k), calls)
-        print(f"[wavefront] {key}: {ms:.4f} ms, {ms * 1e3 / k['K']:.4f} µs per diagonal",
-              flush=True)
-        rows.append(dict(key=key, ms=ms, K=k["K"]))
+def sweep_wavefront(calls, dev, rows, strip_warps, only=""):
+    """Each wavefront shape at the default warps per pair and, for the
+    strip kernel's shapes, at each of ``strip_warps`` (every output held
+    equal to the default's)."""
+    default = wf_mod.wavefront_strip_warps
+    for name, shape in wavefront_calls(dev, only=only).items():
+        a, k = shape[0]
+        strip = wf_mod.fill_kernel(k["band"], k["want_ptr"]) == "strip"
+        want = wf_mod.wavefront_fill(*a, **k)
+        for W in [None] + (strip_warps if strip else []):
+            if W is not None:
+                wf_mod.wavefront_strip_warps = lambda Np, W=W: W
+            try:
+                if not same(wf_mod.wavefront_fill(*a, **k), want):
+                    raise AssertionError(f"{name}: {W} warps differ from the default")
+                ms = time_ms(lambda: run_shape(shape), calls)
+                lay = chip_smoke.layout("wavefront_fill/x", a, k) if len(shape) == 1 else ""
+            finally:
+                wf_mod.wavefront_strip_warps = default
+            print(f"[wavefront] {name} ({len(shape)} call{'s' * (len(shape) > 1)}): {ms:.4f} ms, "
+                  f"{ms * 1e3 / k['K']:.4f} µs per diagonal"
+                  + (f"; {W} warps forced" if W else " (default)") + (f"; {lay}" if lay else ""),
+                  flush=True)
+            rows.append(dict(shape=name, ms=ms, K=k["K"], warps=W, calls=len(shape)))
+
+
+def parent_worker(root: str, only: str) -> int:
+    """Serve timings of this tree's wavefront shapes made by the package
+    at ``root``: a line "NAME<tab>CALLS" answers with the ms of one run of
+    that shape's calls."""
+    import importlib.util
+
+    sys.path.insert(0, root)
+    import seqalib_tpu_torch as st
+
+    if not Path(st.__file__).resolve().is_relative_to(Path(root).resolve()):
+        raise RuntimeError(f"imported {st.__file__}, not the tree at {root}")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_inputs", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from seqalib_tpu_torch import _build as build
+
+    build.lib()
+    shapes = wavefront_calls(torch.device("cuda"), cs, only)
+    print(json.dumps(list(shapes)), flush=True)
+    for line in sys.stdin:
+        name, calls = line.rstrip("\n").split("\t")
+        print(json.dumps(time_ms(lambda: run_shape(shapes[name]), int(calls))), flush=True)
+    return 0
+
+
+def parent_turns(parent, calls, rounds, rows, only):
+    """This tree's and the parent's wavefront shapes in turns."""
+    here = str(Path(__file__).resolve().parents[1])
+    trees = {"change": here, "parent": str(Path(parent).resolve())}
+    procs = {n: subprocess.Popen([sys.executable, __file__, "--worker", r, "--shapes", only],
+                                 stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+             for n, r in trees.items()}
+    try:
+        names = {n: json.loads(p.stdout.readline()) for n, p in procs.items()}
+        for name in names["change"]:
+            if name not in names["parent"]:
+                continue
+            got = {n: [] for n in trees}
+            for r in range(rounds):
+                for n in (list(trees) if r % 2 == 0 else list(trees)[::-1]):
+                    procs[n].stdin.write(f"{name}\t{calls}\n")
+                    procs[n].stdin.flush()
+                    got[n].append(json.loads(procs[n].stdout.readline()))
+            ch, pa = got["change"], got["parent"]
+            print(f"[turns] {name}: change {min(ch):.4f}-{max(ch):.4f} ms, parent "
+                  f"{min(pa):.4f}-{max(pa):.4f} ms; change faster in "
+                  f"{sum(x < y for x, y in zip(ch, pa))} of {rounds} rounds", flush=True)
+            rows.append(dict(shape=name, change_ms=ch, parent_ms=pa))
+    finally:
+        for p in procs.values():
+            p.stdin.close()
+        for p in procs.values():
+            p.wait(timeout=120)
 
 
 def steady_steps(ops, per_step_shuffles):
@@ -247,6 +425,11 @@ def sass_counts(rows, dump=None):
             tag = (f"strip_fill {MODES[m.group(1)]} affine={m.group(2)} "
                    f"ptr={m.group(3)}")
             per, mix = steady_steps(ops, 1 + int(m.group(2)))
+        m = re.search(r"wf_strip_kernelILb(\d)ELb(\d)E", name)
+        if m:  # shuffles a step: H, then F (affine), SH (local), SF (both)
+            local, affine = int(m.group(1)), int(m.group(2))
+            tag = f"wf_strip {'local' if local else 'global'} affine={affine}"
+            per, mix = steady_steps(ops, 1 + affine + local + local * affine)
         print(f"[sass] {tag}: {len(ops)} instructions"
               + (f"; {per:.1f} a step: {mix}" if per else ""), flush=True)
         rows.append(dict(kernel=tag, total=len(ops), per_step=per, mix=mix))
@@ -260,22 +443,33 @@ def main() -> int:
     ap.add_argument("--sass-dump")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--strip-warps", default="4,8,16")
+    ap.add_argument("--parent")
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--shapes", default="")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.worker:
+        return parent_worker(args.worker, args.shapes)
     if not torch.cuda.is_available():
         print("strip_fill_sweep: needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     print(card_line(), flush=True)
     _build.lib()
-    sass, strip_rows, wf_rows, var_rows = [], [], [], []
+    sass, strip_rows, wf_rows, var_rows, turn_rows = [], [], [], [], []
     sass_counts(sass, args.sass_dump)
-    if args.variant or args.ablate:
+    if args.parent:
+        parent_turns(args.parent, args.calls, args.rounds, turn_rows, args.shapes)
+    elif args.variant or args.ablate:
         time_variants(variant_sources(args.variant, args.ablate), args.calls, dev, var_rows)
     elif not args.sass_only:
         sweep_strip([int(w) for w in args.warps.split(",")], args.calls, dev, strip_rows)
-        sweep_wavefront(args.calls, dev, wf_rows)
+        sweep_wavefront(args.calls, dev, wf_rows,
+                        [int(w) for w in args.strip_warps.split(",") if w], args.shapes)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "strip": strip_rows,
-                      "wavefront": wf_rows, "variants": var_rows, "sass": sass}))
+                      "wavefront": wf_rows, "variants": var_rows, "turns": turn_rows,
+                      "sass": sass}))
     return 0
 
 
