@@ -112,8 +112,12 @@ Phases (any failure raises and exits non-zero):
    shards written without one; two processes of the package's worker
    (``python -m seqalib_tpu_torch.parallel.dist_check``, gloo through a
    ``FileStore``, both on the card, a shard each) on config 3's pairs, each
-   rank's results hashing to one process's; ``dryrun_multichip(4,
-   device="cuda")``, and ``dryrun_multichip(n + 1)`` raising on n cards;
+   rank's results hashing to one process's; ``backend="xla"`` on the mesh
+   of 4 (its full-matrix wavefront sharded, as in the JAX package): config
+   3 (timed in turns with ``mesh=None``; passes (a) and (c) launched once a
+   shard) and phase 7's batch under BLOSUM62 o=-10 e=-1 at band 64;
+   ``dryrun_multichip(4, device="cuda")``, and ``dryrun_multichip(n + 1)``
+   raising on n cards;
 11. ``backend="xla"``, the JAX package's default backend (its full-matrix
    anti-diagonal wavefront: kernel 7's unbanded global and local modes,
    linear and affine, and its banded global mode; the walk, linear and
@@ -132,12 +136,17 @@ The kernel phase also holds every kernel call of phase 11's buckets
 score-only, config 3's and config 2's fullest) against its plain version
 and times it: the keys ``wavefront_fill/lin_ptr``, ``lin_score``,
 ``local``, ``local_lin`` and ``wavefront_walk/linear``, and config 3's
-window fill and walk of pass (c), each unbanded score-only fill's time
-printed beside the window kernel's earlier figure; the edge checks hold
+pointer strip kernel's fill and the walk of pass (c), each unbanded fill's
+time (score-only, and the pointer fills ``lin_ptr`` and unbanded ``ptr``,
+the latter listed as ``wavefront_fill/ptr (unbanded)``) printed beside the
+window kernel's earlier figure; the edge checks hold
 the modes no path launches (local with pointers, local with a band,
 linear with a band; timed, with their bounds), the unbanded global affine
-score-only fill at config 3's pairs (timed, with its bound) and the four
-unbanded score-only instances on a ragged batch (``WF_STRIP_QLENS``).
+score-only fill at config 3's pairs (timed, with its bound), the four
+unbanded score-only instances on a ragged batch (``WF_STRIP_QLENS``) and
+the pointer strip kernel's two instances on another (``WF_PTR_QLENS``:
+slots no multiple of 32, 8 warps' rounds, empty queries and targets, the
+wrap rows in global memory, K cut below the slots), every byte and score.
 It prints the warps per pair of each ``strip_fill`` key, the
 window's ring of each ``wavefront_fill`` key and, under ``torch.profiler``,
 the device time of the two kernels a ``wavefront_fill/ptr`` call launches
@@ -260,11 +269,21 @@ WAVEFRONT_EDGES = (("band over the slots", 400, 7), ("delta past the band", 8, 4
 # rows), targets up to 6 000 letters (the wrap row past the shared budget)
 WF_STRIP_QLENS = (1, 31, 32, 33, 255, 256, 257, 289, 700, 1029, 600)
 WF_STRIP_TLENS = (900, 1029, 6000, 17, 1029, 640, 20, 3, 1500, 1029, 0)
-# the times of the unbanded score-only fills under the window kernel they
-# ran on before the strip kernel (a thread per slot, every slot), on an
-# H100 80GB HBM3 at 700 W, printed beside this run's times
+# the times of the unbanded fills under the window kernel they ran on before
+# the strip kernels (a thread per slot, every slot), on an H100 80GB HBM3 at
+# 700 W, printed beside this run's times: the score-only fills', and the
+# global fills with pointers (config 3's pass (c), config 1 with CIGARs)
 WINDOW_KERNEL_MS = {"wavefront_fill/local": 14.1766, "wavefront_fill/local_lin": 1.1307,
-                    "wavefront_fill/lin_score": 0.4460}
+                    "wavefront_fill/lin_score": 0.4460, "wavefront_fill/ptr": 1.374,
+                    "wavefront_fill/lin_ptr": 0.5341}
+# the pointer strip kernel (kernel 7's unbanded global fills with pointers)
+# on a ragged batch: query lengths around the strips and the 8 warps'
+# rounds, an empty query and an empty target, the slots cut to a width
+# that is no multiple of 32, targets up to 6 000 letters (the wrap rows
+# past the shared budget), and K cut below the slots
+WF_PTR_QLENS = (0, 31, 32, 33, 255, 256, 257, 300, 700, 1029, 600, 5)
+WF_PTR_TLENS = (900, 0, 6000, 17, 1029, 640, 20, 3, 1500, 1029, 0, 40)
+WF_PTR_NP, WF_PTR_K_CUT = 1050, 700
 # kernel 7's modes no path launches, held in the edge checks: (mode, affine,
 # pointers, band)
 UNREACHED_MODES = (("local", True, True, None), ("local", False, True, None),
@@ -274,7 +293,7 @@ STRIP = "seqalib_tpu/ops/strip_pallas.py"
 BANDED = "seqalib_tpu/ops/banded_pallas.py"
 SPTILE = "seqalib_tpu/ops/sp_tile_pallas.py"
 WAVEFRONT = "seqalib_tpu/ops/wavefront_pallas.py"
-KERNELS = {  # launch-counter key -> (CUDA source, replaced Pallas kernel, path)
+KERNELS = {  # name -> (CUDA source, replaced Pallas kernel, path[, launch-counter key])
     "row_window": ("row_window.cu", f"{STRIP}:157", "config3"),
     "strip_fill/local": ("strip_fill.cu", f"{STRIP}:230", "config3"),
     "strip_fill/emode": ("strip_fill.cu", f"{STRIP}:230", "config3_strip"),
@@ -293,6 +312,10 @@ KERNELS = {  # launch-counter key -> (CUDA source, replaced Pallas kernel, path)
     "sp_tile/ptr_batch": ("sp_tile.cu", f"{SPTILE}:52", "sp_align"),
     "sp_tile/run_local": ("sp_tile.cu", f"{SPTILE}:52", "sp_local"),
     "wavefront_fill/ptr": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide"),
+    # the unbanded global fill with pointers (the pointer strip kernel),
+    # counted under the same key on the "xla" route's config 3 (pass c)
+    "wavefront_fill/ptr (unbanded)": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "xla_config3",
+                                      "wavefront_fill/ptr"),
     "wavefront_fill/score": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide_score"),
     # a kernel of the port alone: it replaces the host walk of the JAX
     # route (native.walk_to_cigars, then _host_traceback_affine)
@@ -620,7 +643,7 @@ def kernel_entry(key, fn, plain, args, kw, label=""):
         say(f"[kernel] {key}{label}: {walk_report(lambda: fn(*args, **kw), out, key)}; "
             f"wrapper {stats['ms']:.4f} ms")
     if key == "wavefront_fill/ptr" and kw["band"] is not None:
-        split = kernel_split(lambda: fn(*args, **kw), ("wf_far_kernel", "wf_window_kernel"))
+        split = kernel_split(lambda: fn(*args, **kw), ("wf_far_kernel", "wf_band_kernel"))
         say(f"[kernel] {key}: 2 kernels per call, the far pass then the window: "
             + ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f} ms'}"
                         for k, v in split.items()))
@@ -664,10 +687,19 @@ def layout(key, args, kw):
                 f"{'shared' if row else 'global'})")
     from seqalib_tpu_torch.ops.wavefront import (fill_kernel, strip_columns, window_ring,
                                                  window_rows, window_width,
-                                                 wavefront_strip_geometry)
+                                                 wavefront_strip_geometry,
+                                                 wavefront_strip_ptr_geometry)
 
     qpad, tk, qlen, tlen, tab = args
-    if fill_kernel(kw["band"], kw["want_ptr"]) == "strip":
+    kernel = fill_kernel(kw["band"], kw["want_ptr"], kw.get("mode", "global"))
+    if kernel == "strip_ptr":
+        W, nbytes, letters, rows = wavefront_strip_ptr_geometry(
+            qpad.shape[1], tab.shape[0], kw["K"], kw.get("affine", True))
+        return (f"B {qpad.shape[0]}, Np {qpad.shape[1]}, K {kw['K']}: pointer strip kernel, "
+                f"{W} warps per pair, {nbytes} B shared (letters "
+                f"{'shared' if letters else 'global'}, wrap rows "
+                f"{'shared' if rows else 'global'})")
+    if kernel == "strip":
         cols = strip_columns(kw["K"], qpad.shape[1], kw.get("span"))
         W, nbytes, letters, row = wavefront_strip_geometry(
             qpad.shape[1], tab.shape[0], cols, kw.get("mode", "global"), kw.get("affine", True))
@@ -769,6 +801,28 @@ def edge_checks(q3, t3, sp3, sp7, dev):
             raise AssertionError(f"{key}, ragged strip batch: differs by {err}")
         say(f"[edge] {key} on query lengths {qlen.tolist()}, target lengths {tlen.tolist()}: "
             f"every output equal to the plain version; {layout(key, args, kw)}")
+    # the pointer strip kernel's two instances on a ragged batch: its slots
+    # cut to WF_PTR_NP (no multiple of 32), every K and K cut below Np
+    qlen, tlen = np.array(WF_PTR_QLENS), np.array(WF_PTR_TLENS)
+    q = rng.integers(0, 20, size=(len(qlen), int(qlen.max())))
+    t = rng.integers(0, 20, size=(len(qlen), int(tlen.max())))
+    t[:, 100:900] = q[:, 95:895]
+    for affine in (True, False):
+        sp = sp3 if affine else ScoringParams(gap_open=0, gap_extend=-1, matrix=sp3.matrix)
+        qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+        args = (as_t(qpad[:, :WF_PTR_NP]), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab))
+        for K in (tk.shape[1], WF_PTR_K_CUT):
+            kw = dict(K=K, band=None, gap_open=sp.gap_open, gap_extend=sp.gap_extend,
+                      want_ptr=True, affine=affine)
+            key = _key("wavefront_fill", args, kw)
+            got = wavefront_fill(*args, **kw)
+            err = max_abs_err(got, wavefront_fill_ref(*args, **kw))
+            if err:
+                raise AssertionError(f"{key}, ragged pointer strip batch, K {K}: differs by "
+                                     f"{err}")
+            say(f"[edge] {key} on query lengths {qlen.tolist()}, target lengths "
+                f"{tlen.tolist()}, K {K}: every byte and score equal to the plain version; "
+                f"{layout(key, args, kw)}")
     # the modes of kernel 7 that no path launches: local with pointers,
     # local with a band, linear with a band
     qlen = rng.integers(200, 301, size=4)
@@ -1065,7 +1119,9 @@ def kernel_phase_xla(q1, t1, sp1, q3, t3, sp3, dev):
         calls, _ = record(lambda: dispatch.run_bucket(*args, dev, backend="xla"), targets)
         for key, (fn, plain, a, kw, _) in calls.items():
             entry = kernel_entry(key, fn, plain, a, kw, label=f" (xla, {label})")
-            if KERNELS.get(key, ("", "", ""))[2].startswith("xla"):
+            if key == "wavefront_fill/ptr":  # unbanded: the pointer strip kernel
+                per_kernel.setdefault("wavefront_fill/ptr (unbanded)", entry)
+            elif KERNELS.get(key, ("", "", ""))[2].startswith("xla"):
                 per_kernel.setdefault(key, entry)
             if key in WINDOW_KERNEL_MS:
                 say(f"[kernel] {key} (xla, {label}): strip kernel {entry['ms']:.4f} ms against "
@@ -1911,6 +1967,7 @@ def pair_mesh_runs(dev, card, counts, cfg3, cfg1, cfg4, wide, product):
     mesh_equal("3 config-3 pairs on the mesh of 4 (one shard empty)",
                st.align_batch(qs3[:3], ts3[:3], scoring=sp3, mode="local", mesh=four),
                base[:3])
+    xla_mesh_runs(dev, card, four, cfg3, wide)
 
     reads, refs, sp5 = product
     reads = reads[:AVALL_MESH_READS]
@@ -1953,6 +2010,38 @@ def pair_mesh_runs(dev, card, counts, cfg3, cfg1, cfg4, wide, product):
         say(f"[pairmesh] dryrun_multichip({n + 1}) raises on {n} card(s): {e}")
     else:
         raise AssertionError(f"dryrun_multichip({n + 1}) ran on {n} card(s)")
+
+
+def xla_mesh_runs(dev, card, four, cfg3, wide):
+    """``backend="xla"`` on the mesh of 4 naming the card: config 3 (timed in
+    turns with ``mesh=None``; every shard's passes launched) and phase 7's
+    batch under BLOSUM62 o=-10 e=-1 at band 64 (the full-matrix wavefront
+    sharded, where ``"pallas"`` takes the banded route), each result equal
+    to ``mesh=None``'s."""
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch.ops import launches, reset_launches
+
+    q3, t3, sp3 = cfg3
+    qs3, ts3 = list(q3), list(t3)
+    kw3 = dict(scoring=sp3, mode="local", traceback=True, backend="xla")
+    reset_launches()
+    st.align_batch(qs3, ts3, mesh=four, **kw3)
+    fills = launches["wavefront_fill/local"], launches["wavefront_fill/ptr"]
+    if fills != (4, 4):
+        raise AssertionError(f"xla config 3 on the mesh of 4 launched (pass a, pass c) {fills}")
+    turns = runs_in_turns({"mesh=None": lambda: st.align_batch(qs3, ts3, device=dev, **kw3),
+                           "four": lambda: st.align_batch(qs3, ts3, mesh=four, **kw3)})
+    mesh_equal("xla config 3 on the mesh of 4", turns["four"][0], turns["mesh=None"][0])
+    say(f"[pairmesh] backend='xla' config 3 (4 shards, each pass (a) launched before any "
+        f"finalize; (a), (c) a launch a shard) walls in turns: mesh=None "
+        f"{statistics.median(turns['mesh=None'][1])!r} s (reps {turns['mesh=None'][1]}), the "
+        f"mesh of 4 {statistics.median(turns['four'][1])!r} s (reps {turns['four'][1]}) "
+        f"({card})")
+    qs7, ts7, _ = wide
+    kw7 = dict(scoring=sp3, mode="global", band=BAND7, traceback=True, backend="xla")
+    mesh_equal("xla, phase 7's batch at band 64 under BLOSUM62, on the mesh of 4",
+               st.align_batch(qs7, ts7, mesh=four, **kw7),
+               st.align_batch(qs7, ts7, device=dev, **kw7))
 
 
 def main() -> int:
@@ -2067,7 +2156,8 @@ def main() -> int:
     for path, c in counts.items():
         say(f"[launches] {path} (1 warm-up + {REPS} timed calls, or the CLI's run): "
             f"{ {k: v for k, v in c.items() if v} }")
-    missing = [k for k, (_, _, path) in KERNELS.items() if counts[path].get(k, 0) <= 0]
+    missing = [k for k, (_, _, path, *key) in KERNELS.items()
+               if counts[path].get((key or [k])[0], 0) <= 0]
     if missing:
         raise AssertionError(f"a path never launched: {missing}")
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "seqalib_tpu"))
@@ -2076,8 +2166,8 @@ def main() -> int:
 
     kernels = [
         {"name": k, "route": "cuda", "source": f"seqalib_tpu_torch/csrc/{src}",
-         "replaces": rep, "launches": counts[path][k], **per_kernel[k]}
-        for k, (src, rep, path) in KERNELS.items()
+         "replaces": rep, "launches": counts[path][(key or [k])[0]], **per_kernel[k]}
+        for k, (src, rep, path, *key) in KERNELS.items()
     ]
     say(f"[time] total {time.perf_counter() - t_start:.1f} s")
     say(card)

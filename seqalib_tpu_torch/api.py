@@ -3,12 +3,13 @@
 ``align``: one pair.  ``align_batch``: many pairs through the bucketed
 dispatcher.  ``align_all_vs_all``: every query against every reference,
 in chunks, with resume shards.  Same parameters as the JAX package, plus ``device``
-(default ``"cuda"``).  Backends: ``"strip"`` (the default: the CUDA
-kernels on a CUDA device, their plain PyTorch versions on the CPU; with
-``band=`` and ``mode="global"`` the banded long-read path), also named
-``"pallas"`` (the JAX package's name, so that code written for it runs
-here); ``"xla"`` (the JAX package's default backend: its full-matrix
-anti-diagonal wavefront, ``ops/wavefront_xla.py``, on the CUDA kernels of
+(default ``"cuda"``).  Backends: ``"strip"`` (the default of
+``align_batch`` and ``align_all_vs_all``: the CUDA kernels on a CUDA
+device, their plain PyTorch versions on the CPU; with ``band=`` and
+``mode="global"`` the banded long-read path), also named ``"pallas"`` (the
+JAX package's name, so that code written for it runs here); ``"xla"`` (the
+default of ``align``, as in the JAX package: its full-matrix anti-diagonal
+wavefront, ``ops/wavefront_xla.py``, on the CUDA kernels of
 ``csrc/wavefront_fill.cu`` and ``csrc/wavefront_walk.cu``, every bucket,
 banded or not); and ``"oracle"`` (the port's NumPy oracle,
 ``oracle_fast``: bit for bit ``oracle.py``, vectorized over anti-diagonals,
@@ -17,8 +18,9 @@ banded or not); and ``"oracle"`` (the port's NumPy oracle,
 ``mesh=`` (a pair mesh, ``make_pair_mesh``: a sequence of devices, which
 may name one device several times) shards each bucket's pairs over the
 mesh's devices, and over the processes of a ``torch.distributed`` world
-(``parallel/dist.py``); ``device`` is then not used.  Under a mesh,
-``"xla"`` runs the strip and banded routes, as ``"strip"`` does.
+(``parallel/dist.py``); ``device`` is then not used.  Each backend keeps
+its route under a mesh: ``"xla"`` shards the full-matrix wavefront, banded
+or not, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ def align(
     scoring: Optional[ScoringParams] = None,
     mode: str = "global",
     band: Optional[int] = None,
-    backend: str = "strip",
+    backend: str = "xla",
     device="cuda",
 ) -> AlignResult:
     """Align one query/target pair and return score, coords, CIGAR."""

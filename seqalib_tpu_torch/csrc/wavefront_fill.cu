@@ -16,7 +16,7 @@
 // chip_smoke.py's OPS_PER_CELL) along each pair's chain of anti-diagonals,
 // and in pointer mode the K x B x Np bytes of the pointer stream.  The TPU
 // kernel computes every slot of every diagonal (a TPU works on whole
-// vectors); a kernel here computes only what an output reads.  Four
+// vectors); a kernel here computes only what an output reads.  Five
 // kernels, by mode (ops/wavefront.py::fill_kernel):
 //
 // - wf_strip_kernel<LOCAL, AFFINE>: every unbanded score-only fill (the
@@ -52,6 +52,35 @@
 //   another.  The start cell and the best are chosen by selects: as a
 //   branch they made the compiler check every shuffle for divergence
 //   (1.29 ms).
+// - wf_strip_ptr_kernel<AFFINE>: every unbanded global fill with pointers
+//   (the "xla" route's global fills with CIGARs, linear or affine, and its
+//   local pass (c)).  Here every byte of the (K, B, Np) stream is an
+//   output, the slots with j < 0, i > qlen and j > tlen included, and the
+//   slots with j < 0 form a closed DP seeded at -2^30 (target letter 0)
+//   that global affine mode's column 0 reads (its E, extend bit and
+//   diagonal): so it computes every slot of every diagonal, in order, with
+//   the strip design turned to diagonals: one CTA of W <= 8 warps per pair
+//   (ops/wavefront.py::wavefront_strip_ptr_warps), warp w running strips w,
+//   w + W, ... of 32 slots, a lane per slot, all lanes of a strip on one
+//   diagonal at each step (lane p on cell (i0 + p, k - i0 - p)), so that a
+//   strip's 32 bytes of a diagonal are one contiguous store; up and
+//   diagonal neighbours by shuffles, the left one in registers, the slot
+//   above a strip from the strip above through a ring (a wrap row, two in
+//   turns, between rounds), as wf_strip_kernel hands columns over.  Chunks
+//   of 32 diagonals run with no checks where every j < 0 (one letter
+//   score a lane: target letter 0) or every j >= 1 (linear row 0 by a
+//   select on strip 0); column 0, the last partial chunk and the score's
+//   cell take a checked loop; a strip of 32 live slots stores with no
+//   predicate, through a pointer stepped a diagonal at a time, and its
+//   waits pause between polls.  Its boundaries, origin, sentinel letters
+//   and -2^30 seeds are wavefront_fill_ref's, line for line.  The window
+//   kernel it replaces for these modes (a thread per slot, a barrier and
+//   global letter loads per diagonal) took 1.385-1.389 ms for config 3's
+//   pass (c) and 0.522-0.526 ms for config 1 on an H100 80GB HBM3 at 700 W;
+//   this design ~0.41 and ~0.15 ms against bounds of 0.071 and 0.031 (the
+//   stream's bytes): a step issues ~32 instructions affine, ~22 linear,
+//   and without the stream's stores the fill takes ~0.29 / 0.11 ms
+//   (PERF.md).
 // - wf_far_kernel, pointer mode with a band only: the pointer byte of every
 //   slot whose inputs are all -inf (d = k - 2i outside [dlo - 1, dhi + 1]
 //   of a band) depends on its letters alone (the far rule of each mode,
@@ -66,8 +95,9 @@
 //   route): wf_window_kernel's design and loop for that mode, taking an
 //   argument struct of only the fields it reads (BandArgs: 2.4% / 6.8%
 //   faster, pointers / score-only, than the same loop given WfArgs).
-// - wf_window_kernel<LOCAL, AFFINE, BANDED, PTR>, every other mode (pointers
-//   with no band, a band in local or linear mode), one CTA per pair: only
+// - wf_window_kernel<LOCAL, AFFINE, BANDED, PTR>, every other mode (local
+//   pointers with no band, a band in local or linear mode; no entry point
+//   launches them), one CTA per pair: only
 //   the slots i in [lo(k), hi(k)], d
 //   in [dlo - 1, dhi + 1] (about band + |delta| / 2 + 2 of them), or every
 //   slot with no band (then there is no far pass: the window writes every
@@ -86,6 +116,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -716,6 +747,250 @@ __global__ void __launch_bounds__(kStripMaxWarps * 32)
   }
 }
 
+// ---- the unbanded global fills with pointers: pipelined strip warps over
+// every slot ----------------------------------------------------------------
+
+constexpr int kPtrMaxWarps = 8;  // ops/wavefront.py: STRIP_PTR_MAX_WARPS
+
+// what a strip hands the strip below at one diagonal: its last slot's H
+// and, affine, F
+struct HF {
+  int H, F;
+};
+template <bool AFFINE>
+struct PtrCol {
+  using T = int2;
+  static __device__ __forceinline__ T pack(int H, int F) { return make_int2(H, F); }
+  static __device__ __forceinline__ HF unpack(T v) { return HF{v.x, v.y}; }
+};
+template <>
+struct PtrCol<false> {
+  using T = int;
+  static __device__ __forceinline__ T pack(int H, int) { return H; }
+  static __device__ __forceinline__ HF unpack(T v) { return HF{v, kNegInf}; }
+};
+
+// chunks of 32 diagonals of a strip, by what their cells need
+enum ChunkKind { kJunk, kInner, kInnerRow0 };
+
+// wait_for with a pause between polls, so that a waiting warp leaves its
+// issue slots to the warps that compute (on an H100 80GB HBM3 at 700 W:
+// 1.7% faster at config 3's pass (c), 6% at config 1)
+__device__ __forceinline__ void wait_for_pausing(const unsigned* cnt, unsigned want) {
+  while ((int)(ld_acquire_cta(cnt) - want) < 0) __nanosleep(64);
+}
+
+// One CTA of W warps per pair; warp w takes strips w, w + W, ... of 32
+// slots, a lane per slot; a strip runs every diagonal k in [0, K), all
+// its lanes on one diagonal at each step (lane p on cell (i0 + p,
+// k - i0 - p)), so that its 32 pointer bytes of a diagonal are
+// contiguous.  A lane's left neighbour is its own previous cell, its up
+// and diagonal ones lane p - 1's by shuffles; lane 0 reads the slot above
+// from the strip above: its last lane's H (and F) at diagonal x, handed
+// over at index x + 1 of a ring of kStripRing entries in shared memory
+// (index 0 is -inf: diagonal -1), published in chunks of 32 diagonals with
+// st.release / ld.acquire counters (round r, index x is counter
+// r * rstride + x, rstride >= K + 1 a multiple of kStripRing); warp W - 1
+// hands its last lane to warp 0 of the next round through a wrap row of
+// K + 1 entries, two of them used in turns by the rounds (shared memory
+// while they fit, else the global scratch `rows`).  Round 0's warp 0
+// reads the slot above slot 0: -inf.  stage_letters: the target letters
+// in shared memory, else read from tk.
+template <bool AFFINE>
+__global__ void __launch_bounds__(kPtrMaxWarps * 32)
+    wf_strip_ptr_kernel(const WfArgs a, int stage_letters) {
+  using Col = PtrCol<AFFINE>;
+  using T = typename Col::T;
+  constexpr int kWords = sizeof(T) / 4;
+  extern __shared__ __align__(16) int32_t smem[];
+  const int W = blockDim.x >> 5;
+  const int NT = a.NT;
+  const int Np = a.Np;
+  const int K = a.K;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int span = K + 1;  // entries of a wrap row
+  // shared layout: rings, [two wrap rows], table, counters, [letters]
+  T* ring = reinterpret_cast<T*>(smem);  // (W - 1) x kStripRing
+  int32_t* p32 = smem + kWords * (W - 1) * kStripRing;
+  T* wrap;
+  if (a.rows == nullptr) {
+    wrap = reinterpret_cast<T*>(p32);
+    p32 += kWords * 2 * span;
+  } else {
+    wrap = reinterpret_cast<T*>(a.rows) + (size_t)b * 2 * span;
+  }
+  int32_t* tab = p32;
+  p32 += NT * NT;
+  unsigned* cnt = reinterpret_cast<unsigned*>(p32);
+  p32 += kStripMaxWarps;
+  const int32_t* tb = a.tk + (size_t)b * a.Kw;
+  const int32_t* tl = stage_letters ? p32 : tb;
+  for (int x = tid; x < NT * NT; x += blockDim.x) tab[x] = a.table[x];
+  if (stage_letters) {
+    for (int x = tid; x < K; x += blockDim.x) p32[x] = tb[x];
+  }
+  if (tid < kStripMaxWarps) cnt[tid] = 0;
+  // the row round 0's warp 0 reads: the slots above slot 0, -inf
+  for (int x = tid; x < span; x += blockDim.x) wrap[span + x] = Col::pack(kNegInf, kNegInf);
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int nstrips = (Np + 31) >> 5;
+  const int qlen = a.qlen[b];
+  const int fin = qlen + a.tlen[b];
+  const int e = a.gap_extend;
+  const int oe = a.gap_open + a.gap_extend;
+  const unsigned last = (unsigned)(NT - 1);
+  const unsigned rstride = ((unsigned)span + kStripRing - 1) & ~(unsigned)(kStripRing - 1);
+  const size_t dstride = (size_t)a.B * Np;  // stream bytes from one diagonal to the next
+  const int32_t* qb = a.qpad + (size_t)b * Np;
+  const unsigned smask = w == 0 ? ~0u : (unsigned)(kStripRing - 1);
+  const unsigned dmask = w == W - 1 ? ~0u : (unsigned)(kStripRing - 1);
+  const unsigned* up_cnt = cnt + (w == 0 ? W - 1 : w - 1);
+  const unsigned* down_cnt = cnt + (w + 1 < W ? w + 1 : w);
+
+  unsigned round = 0;
+  for (int s = w; s < nstrips; s += W, ++round) {
+    const int i0 = s << 5;
+    const int i = i0 + lane;
+    const bool live = i < Np;  // a slot of the stream
+    const bool all_live = i0 + 32 <= Np;  // every lane's
+    const int32_t* srow = tab + (live ? min((unsigned)qb[i], last) : last) * NT;
+    const int s0 = srow[0];  // a slot with j < 0 scores target letter 0
+    const bool down = s + 1 < nstrips;  // a strip below reads this last lane
+    const bool put = down && lane == 31;
+    // ring entries are reused: wait on the warp below (not for a wrap row)
+    const bool backpressure = down && w + 1 < W;
+    const unsigned mine = round * rstride;  // this strip's diagonal 0 in counter units
+    const unsigned above = w == 0 ? mine - rstride : mine;  // the strip above's
+    // warp 0 reads the wrap row warp W - 1 wrote a round before, which
+    // writes round r's into row r mod 2
+    const T* src = w == 0 ? wrap + ((round + 1) & 1) * span : ring + (w - 1) * kStripRing;
+    T* dst = w == W - 1 ? wrap + (round & 1) * span : ring + w * kStripRing;
+    // the chunk holding H(qlen, tlen), the score, on this strip
+    const int cap_c0 = qlen >= i0 && qlen < i0 + 32 && fin < K ? fin & ~31 : -1;
+    uint8_t* out = a.ptr + (size_t)b * Np + i;
+    int H = kNegInf, E = kNegInf, F = kNegInf;  // of (i, j - 1)
+    int Hd = kNegInf;                           // H(i - 1, j - 1)
+
+    // one cell from its up neighbour v and its letter score sc: H, E, F
+    // and the diagonal neighbour of the next move; returns the pointer byte
+    auto cell = [&](HF v, int sc) {
+      const int d = Hd + sc;
+      int up, left;
+      bool ext_e = false, ext_f = false;
+      if (AFFINE) {
+        E = __vibmax_s32(E + e, H + oe, &ext_e);
+        F = __vibmax_s32(v.F + e, v.H + oe, &ext_f);
+        up = F;
+        left = E;
+      } else {
+        up = v.H + e;
+        left = H + e;
+      }
+      const int best = __vimax3_s32(d, up, left);
+      // as selects: DIAG > UP > LEFT
+      int p = up == best ? kPtrUp : kPtrLeft;
+      p = d == best ? kPtrDiag : p;
+      H = best;
+      Hd = v.H;
+      return p | (ext_e ? 4 : 0) | (ext_f ? 8 : 0);
+    };
+    auto from_above = [&]() {
+      return HF{__shfl_up_sync(kFull, H, 1), AFFINE ? __shfl_up_sync(kFull, F, 1) : kNegInf};
+    };
+    // 32 diagonals from c0 whose cells need no boundary check: kJunk every
+    // j < 0 (target letter 0), kInner every j >= 1, kInnerRow0 that on
+    // strip 0 in linear mode (slot 0 is row 0: H = k * e, LEFT); every:
+    // each lane a slot of the stream.  The stream pointer steps by one
+    // diagonal a step (as u * dstride it took ~5 instructions a step)
+    auto chunk = [&](auto kind, auto every, int c0) {
+      constexpr int KIND = decltype(kind)::value;
+      constexpr bool ALL = decltype(every)::value;
+      const T* sc = src + ((unsigned)c0 & smask);
+      T* d_lo = dst + ((unsigned)(c0 + 1) & dmask);  // indices c0 + 1 + u, u < 31
+      T* d_hi = dst + ((unsigned)(c0 + 32) & dmask);
+      const int32_t* tc = tl + (c0 - i);  // the letter of column c0 + u - i at tc[u]
+      uint8_t* o = out + (size_t)c0 * dstride;
+      const int ke = c0 * e;
+#pragma unroll
+      for (int u = 0; u < 32; ++u) {
+        HF v = from_above();
+        if (lane == 0) v = Col::unpack(sc[u]);
+        const int sc_u = KIND == kJunk ? s0 : srow[min((unsigned)tc[u], last)];
+        int byte = cell(v, sc_u);
+        if constexpr (KIND == kInnerRow0) {
+          H = lane == 0 ? ke + u * e : H;
+          byte = lane == 0 ? kPtrLeft : byte;
+        }
+        if (ALL || live) *o = (uint8_t)byte;
+        o += dstride;
+        if (put) {
+          if (u < 31) d_lo[u] = Col::pack(H, F);
+          else *d_hi = Col::pack(H, F);
+        }
+      }
+    };
+
+    for (int c0 = 0; c0 < K; c0 += 32) {
+      const int c1 = min(c0 + 32, K);
+      // the strip above has handed over indices [c0, c1): its chunk c0
+      wait_for_pausing(up_cnt, above + (unsigned)c1);
+      // lane 31 writes indices up to c0 + 32 over those 256 before, which
+      // the warp below reads through its chunk c0 - 224
+      if (backpressure) wait_for_pausing(down_cnt, mine + (unsigned)(c0 + 64 - kStripRing));
+      if (put && c0 == 0) dst[0] = Col::pack(kNegInf, kNegInf);  // diagonal -1
+      // a strip of 32 live slots stores with no predicate: as a branch it
+      // cost every step a convergence barrier
+      auto run = [&](auto kind) {
+        if (all_live) {
+          chunk(kind, std::true_type{}, c0);
+        } else {
+          chunk(kind, std::false_type{}, c0);
+        }
+      };
+      if (c1 - c0 == 32 && c0 + 32 <= i0) {
+        run(std::integral_constant<int, kJunk>{});
+      } else if (c1 - c0 == 32 && c0 >= i0 + 32 && c0 != cap_c0) {
+        if (!AFFINE && s == 0) {
+          run(std::integral_constant<int, kInnerRow0>{});
+        } else {
+          run(std::integral_constant<int, kInner>{});
+        }
+      } else {  // column 0, the last diagonals, the score's cell: every check
+#pragma unroll 1
+        for (int k = c0; k < c1; ++k) {
+          const int j = k - i;
+          HF v = from_above();
+          if (lane == 0) v = Col::unpack(src[(unsigned)k & smask]);
+          const int sc_k = j < 0 ? s0 : srow[min((unsigned)tl[max(j, 0)], last)];
+          int byte = cell(v, sc_k);
+          if (AFFINE) {
+            if (k == 0 && i == 0) {  // the origin
+              H = 0;
+              byte = kPtrStop | (byte & 12);
+            }
+          } else if (i == 0 || j == 0) {  // row 0 and column 0: k * e
+            H = k * e;
+            byte = k == 0 ? kPtrStop : (i == 0 ? kPtrLeft : kPtrUp);
+          }
+          if (k == fin && i == qlen) a.score[b] = H;
+          if (live) out[(size_t)k * dstride] = (uint8_t)byte;
+          if (put) dst[(unsigned)(k + 1) & dmask] = Col::pack(H, F);
+        }
+      }
+      // lane 31 has handed over indices [0, c1]: publish them (its own
+      // stores are ordered before the release)
+      if (lane == 31) st_release_cta(cnt + w, mine + (unsigned)c1);
+    }
+    // the strip is done: the whole round's share, so that the warp above
+    // may reuse every ring entry of it
+    if (lane == 31) st_release_cta(cnt + w, mine + rstride);
+  }
+}
+
 int set_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -733,6 +1008,15 @@ int launch_strip(const WfArgs& a, const StripLaunch& sl, cudaStream_t stream) {
   const int rc = set_smem((const void*)kernel, (size_t)sl.smem);
   if (rc) return rc;
   kernel<<<a.B, sl.warps * 32, sl.smem, stream>>>(a, sl.cols, sl.stage_letters);
+  return (int)cudaGetLastError();
+}
+
+template <bool AFFINE>
+int launch_strip_ptr(const WfArgs& a, const StripLaunch& sl, cudaStream_t stream) {
+  auto kernel = wf_strip_ptr_kernel<AFFINE>;
+  const int rc = set_smem((const void*)kernel, (size_t)sl.smem);
+  if (rc) return rc;
+  kernel<<<a.B, sl.warps * 32, sl.smem, stream>>>(a, sl.stage_letters);
   return (int)cudaGetLastError();
 }
 
@@ -766,7 +1050,8 @@ int launch_window(const WfArgs& a, cudaStream_t stream) {
 
 // the kernel for the mode flags (local, affine, banded, pointers), chosen
 // one flag at a time: the strip kernel with no band and no pointers, the
-// band kernel for the banded global affine window, else the window kernel
+// pointer strip kernel for global pointers with no band, the band kernel
+// for the banded global affine window, else the window kernel
 template <bool... F>
 int run_fill(const WfArgs& a, const StripLaunch& sl, cudaStream_t stream) {
   constexpr int n = sizeof...(F);
@@ -774,6 +1059,8 @@ int run_fill(const WfArgs& a, const StripLaunch& sl, cudaStream_t stream) {
     constexpr bool flags[] = {F...};
     if constexpr (!flags[2] && !flags[3]) {  // no band, no pointers
       return launch_strip<flags[0], flags[1]>(a, sl, stream);
+    } else if constexpr (!flags[0] && !flags[2]) {  // global, no band, pointers
+      return launch_strip_ptr<flags[1]>(a, sl, stream);
     } else if constexpr (!flags[0] && flags[1] && flags[2]) {
       return launch_band<flags[3]>(a, stream);
     } else {
@@ -787,13 +1074,17 @@ int run_fill(const WfArgs& a, const StripLaunch& sl, cudaStream_t stream) {
 
 }  // namespace
 
-// Window kernels (a band or pointers): R, the window's ring, a power of 2
-// >= the widest window + 2; rows: its global scratch, or null (shared
-// memory); ops/wavefront.py::window_ring picks them.  The strip kernel (no
-// band, score-only): warps per pair, cols columns of letters and wrap row,
-// letters staged or not, smem_bytes of dynamic shared memory, rows the
-// wrap row's global scratch (B, cols, 16 or 8 bytes) or null;
-// ops/wavefront.py::wavefront_strip_geometry picks them.  Local mode writes
+// Window kernels (a band, or local pointers): R, the window's ring, a
+// power of 2 >= the widest window + 2; rows: its global scratch, or null
+// (shared memory); ops/wavefront.py::window_ring picks them.  The strip
+// kernel (no band, score-only): warps per pair, cols columns of letters
+// and wrap row, letters staged or not, smem_bytes of dynamic shared
+// memory, rows the wrap row's global scratch (B, cols, 16 or 8 bytes) or
+// null; ops/wavefront.py::wavefront_strip_geometry picks them.  The
+// pointer strip kernel (global, no band, pointers): warps, letters staged
+// or not, smem_bytes, rows the two wrap rows' global scratch (B, 2,
+// K + 1, 8 or 4 bytes) or null; ops/wavefront.py::
+// wavefront_strip_ptr_geometry picks them.  Local mode writes
 // bv, bk (and bs score-only), global mode score; the wrapper zeroes them.
 extern "C" int seqalib_wavefront_fill(
     const int32_t* qpad, int Np, const int32_t* tk, int Kw,
@@ -803,9 +1094,11 @@ extern "C" int seqalib_wavefront_fill(
     uint8_t* ptr, int R, int32_t* rows, int warps, int cols, int stage_letters,
     int smem_bytes, void* stream) {
   const bool strip = !banded && !ptr;
+  const bool strip_ptr = !banded && ptr && !local;
   if (Np < 1 || K < 1 || K > Kw || (local ? !bv || !bk || (!ptr && !bs) : !score) ||
-      (strip ? warps < 1 || warps > kStripMaxWarps || cols < 1 || cols > Kw
-             : R < 2 || (R & (R - 1)) != 0 || (!banded && R < Np + 2)))
+      (strip       ? warps < 1 || warps > kStripMaxWarps || cols < 1 || cols > Kw
+       : strip_ptr ? warps < 1 || warps > kPtrMaxWarps
+                   : R < 2 || (R & (R - 1)) != 0 || (!banded && R < Np + 2)))
     return (int)cudaErrorInvalidValue;
   const WfArgs a{qpad,       Np,    tk,     Kw,     qlen,   tlen,  table, NT,  B,
                  K,          band,  gap_open, gap_extend, local, affine, banded,

@@ -50,12 +50,18 @@ before the band mask.  Kernels: ``csrc/wavefront_fill.cu``, by mode
 (``fill_kernel``).  An unbanded score-only fill runs the strip kernel:
 pipelined strip warps per pair over the valid cells only (no output reads
 another slot), sized by ``wavefront_strip_geometry``, its target columns
-cut to Np + ``span`` when the caller passes one (``strip_columns``).  Every
-other mode runs the window kernel (after the far pass when banded with
-pointers); a banded window kernel's ring follows the widest window, so the
-wrapper needs the largest |tlen - qlen| of the batch: from the caller's
-``span=`` (the bucket has the lengths on the host), else read back from
-the device (a device-to-host sync).
+cut to Np + ``span`` when the caller passes one (``strip_columns``).  An
+unbanded global fill with pointers runs the pointer strip kernel:
+pipelined strip warps per pair over every slot of every diagonal (every
+byte of the stream is an output, and global affine column 0 reads the
+slots with j < 0), a strip's lanes on one diagonal at each step so that
+its 32 bytes of a diagonal are one store, sized by
+``wavefront_strip_ptr_geometry``.  Every other mode runs the window kernel
+(after the far pass when banded with pointers); a banded window kernel's
+ring follows the widest window, so the wrapper needs the largest
+|tlen - qlen| of the batch: from the caller's ``span=`` (the bucket has
+the lengths on the host), else read back from the device (a device-to-host
+sync).
 
 One departure from the TPU kernel, in local affine mode: the TPU kernel
 computes E of column 0 from the slots with j < 0, which score target
@@ -103,6 +109,10 @@ SMEM_BYTES = 200 * 1024
 STRIP_MAX_WARPS = 16
 STRIP_RING = 256
 STRIP_SMEM_BUDGET = 56 * 1024
+# the pointer strip kernel (unbanded global fills with pointers): warps per
+# pair at most (csrc/wavefront_fill.cu: kPtrMaxWarps); its shared memory
+# follows STRIP_SMEM_BUDGET too
+STRIP_PTR_MAX_WARPS = 8
 _EXT_E_BIT = 2
 _EXT_F_BIT = 3
 _EXT_BITS = (1 << _EXT_E_BIT) | (1 << _EXT_F_BIT)  # both extend bits
@@ -168,12 +178,19 @@ def window_ring(width: int, NT: int, rows: int = 6) -> tuple[int, bool]:
     return R, 4 * (NT * NT + rows * R) <= SMEM_BYTES
 
 
-def fill_kernel(band: int | None, want_ptr: bool) -> str:
+def fill_kernel(band: int | None, want_ptr: bool, mode: str = "global") -> str:
     """The kernel a ``wavefront_fill`` call on the card launches:
     ``"strip"`` (pipelined strip warps over the valid cells) for an
-    unbanded score-only fill, else ``"window"`` (a thread per slot of the
-    band's window, or of every slot for an unbanded fill with pointers)."""
-    return "strip" if band is None and not want_ptr else "window"
+    unbanded score-only fill, ``"strip_ptr"`` (pipelined strip warps over
+    every slot) for an unbanded global fill with pointers, else
+    ``"window"`` (a thread per slot of the band's window, or of every slot
+    for an unbanded local fill with pointers)."""
+    if band is None:
+        if not want_ptr:
+            return "strip"
+        if mode == "global":
+            return "strip_ptr"
+    return "window"
 
 
 def wavefront_strip_warps(Np: int) -> int:
@@ -201,6 +218,33 @@ def wavefront_strip_geometry(Np: int, NT: int, cols: int, mode: str,
         base += 4 * cols
     row = base + col * cols <= STRIP_SMEM_BUDGET
     return warps, base + col * cols * row, letters, row
+
+
+def wavefront_strip_ptr_warps(Np: int) -> int:
+    """Warps per pair of the pointer strip kernel for ``Np`` slots: one per
+    32-slot strip of slots 0 .. Np - 1, at most STRIP_PTR_MAX_WARPS."""
+    return max(1, min(STRIP_PTR_MAX_WARPS, -(-Np // 32)))
+
+
+def wavefront_strip_ptr_geometry(Np: int, NT: int, K: int,
+                                 affine: bool) -> tuple[int, int, bool, bool]:
+    """(warps, shared-memory bytes, letters in shared memory, wrap rows in
+    shared memory) of the pointer strip kernel over ``Np`` slots, an
+    (NT, NT) table and ``K`` diagonals.  Always in shared memory: the
+    (warps - 1) rings of STRIP_RING entries (8 bytes an entry affine: H and
+    F; 4 linear), the table and the counters; the target letters (4 bytes
+    a column, K of them), then the two wrap rows (K + 1 entries each),
+    while they fit in STRIP_SMEM_BUDGET, else they are read from and kept
+    in global memory."""
+    warps = wavefront_strip_ptr_warps(Np)
+    col = 8 if affine else 4
+    base = col * (warps - 1) * STRIP_RING + 4 * (NT * NT + STRIP_MAX_WARPS)
+    letters = base + 4 * K <= STRIP_SMEM_BUDGET
+    if letters:
+        base += 4 * K
+    wrap = 2 * col * (K + 1)
+    rows = base + wrap <= STRIP_SMEM_BUDGET
+    return warps, base + wrap * rows, letters, rows
 
 
 def strip_columns(K: int, Np: int, span: int | None) -> int:
@@ -431,11 +475,17 @@ def wavefront_fill(qpad, tk, qlen, tlen, tab, *, K: int, band: int | None, gap_o
         return out
     R = warps = cols = smem = 0
     letters = False
-    if fill_kernel(band, want_ptr) == "strip":
+    kernel = fill_kernel(band, want_ptr, mode)
+    if kernel == "strip":
         cols = strip_columns(K, Np, span)
         warps, smem, letters, row_in_smem = wavefront_strip_geometry(Np, NT, cols, mode, affine)
         if not row_in_smem:  # the wrap row, a column of 16 or 8 bytes
             rows = torch.empty((B, cols, 4 if local and affine else 2), dtype=torch.int32,
+                               device=dev)
+    elif kernel == "strip_ptr":
+        warps, smem, letters, rows_in_smem = wavefront_strip_ptr_geometry(Np, NT, K, affine)
+        if not rows_in_smem:  # the two wrap rows, an entry of 8 or 4 bytes
+            rows = torch.empty((B, 2, K + 1, 2 if affine else 1), dtype=torch.int32,
                                device=dev)
     else:
         if band is not None and span is None:  # the ring follows the widest window

@@ -19,14 +19,15 @@ Three routes, chosen as the JAX package chooses them:
   finalized and turned into ``AlignResult``s.
 
 With ``mesh=`` (a pair mesh, ``parallel.dist.make_pair_mesh``) each
-bucket is sharded over the mesh's devices (``dist.strip_sharded``,
-``dist.wavefront_sharded``: every shard launched before any is
-finalized), and the banded route splits each delta group over them,
-assigning the parts round robin; its parts run one after another, so it
-gains nothing from several cards.  The mesh comes in as a ``Mesh``
-(``api.py`` normalizes the caller's argument).  Under a
+bucket is sharded over the mesh's devices (``dist.strip_sharded``;
+``dist.wavefront_sharded`` for the wide-table route and for every
+``"xla"`` bucket, banded or not, as in the JAX package: every shard
+launched before any is finalized), and the banded route splits each
+delta group over them, assigning the parts round robin; its parts run one
+after another, so it gains nothing from several cards.  The mesh comes in
+as a ``Mesh`` (``api.py`` normalizes the caller's argument).  Under a
 ``torch.distributed`` world of more than one process the length buckets
-run on both engines; the banded route raises, as the JAX package's cannot
+run on every route; the banded route raises, as the JAX package's cannot
 run there either (it places its parts on devices by index and syncs per
 part).
 
@@ -84,14 +85,16 @@ def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str, band: Optional[in
     engine, or with ``band`` the banded full-matrix wavefront; with
     ``backend="xla"`` the full-matrix wavefront route (``xla_launch``).
     With ``mesh`` the bucket is sharded over its devices instead
-    (``device`` is not used), on the strip and banded wavefront routes
-    whatever the backend.
+    (``device`` is not used), on the same route.
 
     ``launch_only``: return a 0-arg finalize callable instead of the
     result dict.  The device work is left in flight (``strip_launch``,
     ``wavefront_launch``: no device-to-host sync) so that the caller can
     prepare the next bucket meanwhile."""
-    if backend == "xla" and mesh is None:
+    if backend == "xla":
+        if mesh is not None:
+            return wavefront_sharded(mesh, q, t, qlen, tlen, sp, mode=mode, band=band,
+                                     want_tb=traceback, launch_only=launch_only)
         finish = xla_launch(q, t, qlen, tlen, sp, mode=mode, band=band, want_tb=traceback,
                             device=device)
         return finish if launch_only else finish()
@@ -161,9 +164,9 @@ def dispatch_batch(
 ) -> List[AlignResult]:
     """Align all pairs on ``device``, or sharded over ``mesh``; results in
     input order.  ``backend``: ``"strip"`` and ``"pallas"`` take the strip
-    and banded routes, ``"xla"`` the full-matrix wavefront (under a mesh,
-    the strip and banded routes, as ``"strip"``)."""
-    if (band is not None and mode == "global" and (backend != "xla" or mesh is not None)
+    and banded routes, ``"xla"`` the full-matrix wavefront, with a mesh or
+    without."""
+    if (band is not None and mode == "global" and backend != "xla"
             and (sp.matrix is None or banded_matrix_supported(sp.substitution_matrix()))):
         return dispatch_banded(qs, ts, sp, band, traceback, device, mesh=mesh)
     # a band with a wider table: the length buckets, as in the JAX package

@@ -6,8 +6,9 @@ The unit of parallelism is the pair.  A pair mesh is an ordered tuple of
 sequence-parallel paths take; it may name one device several times.  A
 bucket of B pairs is cut into contiguous shards in input order, one per
 mesh entry; each shard runs the strip engine (``ops/strip.py``) or the
-wide-table route (``ops/wavefront.py``) on its own device, and the results
-are joined in shard order.  Every shard is launched before any is
+full-matrix wavefront (``ops/wavefront_xla.py``: the wide-table route and
+``backend="xla"``) on its own device, and the results are joined in shard
+order.  Every shard is launched before any is
 finalized.  The banded route (``dispatch.dispatch_banded``) shards the same
 way but runs its parts one after another, each returning host results
 before the next starts: on a mesh of distinct cards it gains nothing over
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from ..ops.strip import strip_launch
-from ..ops.wavefront import wavefront_launch
+from ..ops.wavefront_xla import xla_launch
 from ..scoring import tables_from_params
 from ..types import ScoringParams
 from .band_pipeline import Mesh, device_mesh
@@ -140,19 +141,26 @@ def strip_sharded(mesh: Mesh, q, t, qlen, tlen, sp: ScoringParams, *, mode: str,
     return finish if launch_only else finish()
 
 
-def wavefront_sharded(mesh: Mesh, q, t, qlen, tlen, sp: ScoringParams, *, band: int,
-                      want_tb: bool, launch_only: bool = False):
-    """The wide-table route (``wavefront_bucket``) of one padded bucket,
-    sharded over ``mesh`` (and over the processes of a ``torch.distributed``
-    world) as ``strip_sharded`` shards (counterpart of
-    ``wavefront_sharded``): each shard runs ``wavefront_launch`` on its own
-    device, every shard is launched before any is finalized, and the launch
-    half makes no device-to-host sync.  Returns the finalize callable with
-    ``launch_only``, else its result, as ``strip_sharded``."""
+def wavefront_sharded(mesh: Mesh, q, t, qlen, tlen, sp: ScoringParams, *,
+                      band: int | None, want_tb: bool, mode: str = "global",
+                      launch_only: bool = False):
+    """The full-matrix wavefront route of one padded bucket (``xla_launch``:
+    the wide-table route, ``wavefront_bucket``, is its global mode with a
+    band), sharded over ``mesh`` (and over the processes of a
+    ``torch.distributed`` world) as ``strip_sharded`` shards (counterpart of
+    ``wavefront_sharded``, which the JAX package runs for every ``"xla"``
+    bucket under a mesh): each shard runs ``xla_launch`` on its own device,
+    in any mode it takes (global, banded or not, linear or affine; local),
+    and every shard is launched before any is finalized.  In global mode
+    the launch half makes no device-to-host sync; in local mode each
+    shard's pass (a) is enqueued first, and the finalizes run passes (b)
+    and (c), which sync on the host, one shard after another.  Returns the
+    finalize callable with ``launch_only``, else its result, as
+    ``strip_sharded``."""
     q, t = np.asarray(q), np.asarray(t)
     qlen, tlen = np.asarray(qlen), np.asarray(tlen)
-    pending = [wavefront_launch(q[lo:hi], t[lo:hi], qlen[lo:hi], tlen[lo:hi], sp, band=band,
-                                want_tb=want_tb, device=dev)
+    pending = [xla_launch(q[lo:hi], t[lo:hi], qlen[lo:hi], tlen[lo:hi], sp, mode=mode,
+                          band=band, want_tb=want_tb, device=dev)
                for dev, lo, hi in my_shards(mesh, len(qlen))]
 
     def finish():

@@ -23,7 +23,8 @@ deletes one shard, and the product run again realigns that chunk alone
 on every rank and equals the first.  With ``--inputs
 FILE.npz`` (arrays ``q``, ``t``, ``qlen``, ``tlen``, ``match``,
 ``mismatch``, ``gap_open``, ``gap_extend``, ``matrix`` (empty for none),
-``mode``, and ``band`` where the batch is banded) it runs that batch
+``mode``, ``band`` where the batch is banded and ``backend`` where it is
+not ``"pallas"``) it runs that batch
 once to warm up and ``--reps`` times timed, and prints the median wall
 (``PAIRMESH-WALL r<rank> <s> <walls>``) and a BLAKE2b hash of the results'
 ``str`` joined by newlines (``PAIRMESH-HASH r<rank> <hex>``).  Either way
@@ -157,11 +158,12 @@ def run_inputs(rank: int, mesh, path: str, reps: int) -> None:
                            matrix=matrix if matrix.size else None)
         mode = str(z["mode"])
         band = int(z["band"]) if "band" in z.files else None
+        backend = str(z["backend"]) if "backend" in z.files else "pallas"
     qs = [q[b, : qlen[b]] for b in range(len(qlen))]
     ts = [t[b, : tlen[b]] for b in range(len(tlen))]
 
     def run():
-        return align_batch(qs, ts, scoring=sp, mode=mode, band=band, backend="pallas",
+        return align_batch(qs, ts, scoring=sp, mode=mode, band=band, backend=backend,
                            mesh=mesh, traceback=True)
 
     res = run()

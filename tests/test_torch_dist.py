@@ -2,9 +2,12 @@
 CPU: ``align_batch`` and ``align_all_vs_all`` with ``mesh=`` against
 ``mesh=None``, the oracle and, on one shared shape, the JAX package's
 sharded ``align_batch`` on the conftest's faked 8-device CPU mesh; the
-banded and wide-table routes under a mesh; an escalation inside a shard;
-resume shards across mesh sizes and packages; the backend names; and the
-route a multi-process world refuses.
+banded and wide-table routes under a mesh; ``backend="xla"`` under a mesh
+(the full-matrix wavefront sharded, banded or not, as in the JAX
+package) against ``mesh=None`` and the JAX package's sharded ``"xla"``
+run; an escalation inside a shard; resume shards across mesh sizes and
+packages; the backend names; and the route a multi-process world
+refuses.
 
 The JAX run compiles once per mode (interpret mode): it is shared through
 a module fixture."""
@@ -91,6 +94,8 @@ def test_sharded_equals_the_jax_packages_sharded_run(shared, mode):
 
 
 def test_backend_names_run_the_strip_route():
+    """Every device backend's name gives the strip route's results, through
+    ``align_batch`` and ``align``; an unknown name raises."""
     qs, ts = _pairs(5, 6, 10, 40)
     want = _strs(st.align_batch(qs, ts, scoring=PDNA, mode="local", device="cpu"))
     for name in ("pallas", "xla"):
@@ -140,6 +145,101 @@ def test_strip_sharded_launches_every_shard_before_finalizing(monkeypatch):
                              mode="global", want_tb=False)
     assert [e[:2] for e in events if e[0] == "launch"] == [("launch", 1), ("launch", 1)]
     assert sorted(one) == sorted(FIELDS)
+
+
+# backend="xla" under a mesh: (mode, scoring, band) cases, on the shared
+# module shape (17 DNA or protein pairs of 17-32 letters, one bucket)
+WIDE = ScoringParams(gap_open=-20, gap_extend=-2, matrix=2 * sa.BLOSUM62)
+XLA_CASES = {
+    "local_affine": ("local", DNA, None),
+    "local_linear": ("local", ScoringParams(match=2, mismatch=-3, gap_open=0, gap_extend=-2),
+                     None),
+    "global_affine": ("global", DNA, None),
+    "global_linear": ("global", ScoringParams.linear(), None),
+    "global_band_scalar": ("global", DNA, 6),
+    "global_band_wide": ("global", WIDE, 6),
+}
+
+
+def _xla_pairs(jsp):
+    alpha = 20 if jsp.matrix is not None and jsp.matrix.shape[0] >= 20 else 4
+    return _pairs(13, 17, 17, 32, alpha=alpha)
+
+
+@pytest.fixture(scope="module")
+def shared_xla():
+    """The JAX package's ``align_batch(backend="xla")`` on its 8-device mesh
+    for each case of ``XLA_CASES`` (one compile per case)."""
+    from seqalib_tpu.parallel.dist import make_pair_mesh as jax_pair_mesh
+
+    jmesh = jax_pair_mesh()
+    out = {}
+    for name, (mode, jsp, band) in XLA_CASES.items():
+        qs, ts = _xla_pairs(jsp)
+        out[name] = _strs(sa.align_batch(qs, ts, scoring=jsp, mode=mode, band=band,
+                                         backend="xla", mesh=jmesh))
+    return out
+
+
+@pytest.mark.parametrize("k", [2, 3, 8])
+@pytest.mark.parametrize("case", sorted(XLA_CASES))
+def test_xla_backend_under_a_mesh_equals_unsharded_and_jax(shared_xla, case, k):
+    mode, jsp, band = XLA_CASES[case]
+    qs, ts = _xla_pairs(jsp)
+    sp = scoring_params(jsp.match, jsp.mismatch, jsp.gap_open, jsp.gap_extend, jsp.matrix)
+    kw = dict(scoring=sp, mode=mode, band=band, backend="xla")
+    got = _strs(st.align_batch(qs, ts, mesh=["cpu"] * k, **kw))
+    assert got == _strs(st.align_batch(qs, ts, device="cpu", **kw))
+    assert got == shared_xla[case]
+    if k == 3:
+        assert got == [str(align_oracle(q, t, sp, mode=mode, band=band))
+                       for q, t in zip(qs, ts)]
+
+
+def test_xla_sharded_launches_every_shard_before_finalizing(monkeypatch):
+    """``backend="xla"`` under a mesh runs ``xla_launch`` on each shard, all
+    of them before any is finalized, in local mode too (pass (a) enqueued
+    at the launch, passes (b) and (c) in the finalizes); a band with a DNA
+    table included, which never reaches the banded route."""
+    events = []
+    real = dist.xla_launch
+
+    def spy(q, t, qlen, tlen, sp, **kw):
+        events.append(("launch", len(qlen), kw["device"], kw["mode"]))
+        finish = real(q, t, qlen, tlen, sp, **kw)
+
+        def traced():
+            events.append(("finish", len(qlen)))
+            return finish()
+        return traced
+
+    def refuse(*a, **k):
+        raise AssertionError("an xla bucket reached the banded route")
+
+    monkeypatch.setattr(dist, "xla_launch", spy)
+    monkeypatch.setattr(st_dispatch, "dispatch_banded", refuse)
+    qs, ts = _pairs(6, 7, 33, 60)  # one (64, 64) bucket
+    mesh = st.make_pair_mesh(["cpu"] * 3)
+    for mode, band in (("local", None), ("global", None), ("global", 5)):
+        events.clear()
+        got = st.align_batch(qs, ts, scoring=PDNA, mode=mode, band=band, backend="xla",
+                             mesh=mesh)
+        assert [e[:2] for e in events] == [("launch", 3), ("launch", 2), ("launch", 2),
+                                           ("finish", 3), ("finish", 2), ("finish", 2)]
+        assert all(e[2] == torch.device("cpu") and e[3] == mode for e in events[:3])
+        assert _strs(got) == [str(align_oracle(q, t, PDNA, mode=mode, band=band))
+                              for q, t in zip(qs, ts)]
+    q = st_dispatch._pad_stack(qs, 64)
+    t = st_dispatch._pad_stack(ts, 64)
+    qlen = np.array([len(x) for x in qs])
+    tlen = np.array([len(x) for x in ts])
+    events.clear()
+    fin = dist.wavefront_sharded(mesh, q, t, qlen, tlen, PDNA, mode="local", band=None,
+                                 want_tb=False, launch_only=True)
+    assert [e[0] for e in events] == ["launch"] * 3
+    out = fin()
+    assert [e[0] for e in events[3:]] == ["finish"] * 3
+    assert sorted(out) == sorted(FIELDS)
 
 
 def test_shard_bounds_and_gather_in_one_process():
@@ -255,6 +355,35 @@ def test_multiprocess_world_refuses_the_banded_and_wide_routes(monkeypatch):
             for b in range(len(got["score"]))] == _strs(want)
     # without a mesh nothing is distributed, and nothing refuses
     st.align_batch(qs, ts, scoring=PDNA, mode="global", band=16, device="cpu")
+
+
+def test_multiprocess_world_runs_xla_with_a_band(monkeypatch):
+    """Under a world of 2, ``backend="xla"`` with a band and a DNA table
+    runs this rank's shards of the full-matrix wavefront and hands them to
+    the gather, where the banded route (``"strip"``, ``"pallas"``) raises; a
+    local ``"xla"`` bucket does the same."""
+    monkeypatch.setattr(dist, "world", lambda: (0, 2))
+    qs, ts = _long_pairs(9, 4)
+    for backend in ("strip", "pallas"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            st.align_batch(qs, ts, scoring=PDNA, mode="global", band=16, backend=backend,
+                           mesh=["cpu"] * 2)
+    gathered = []
+    monkeypatch.setattr(dist, "gather_to_host", lambda out: gathered.append(out) or out)
+    q, t = st_dispatch._pad_stack(qs, 96), st_dispatch._pad_stack(ts, 96)
+    qlen, tlen = np.array([len(x) for x in qs]), np.array([len(x) for x in ts])
+    mesh = dist.make_pair_mesh(["cpu"] * 2)
+    for mode, band in (("global", 16), ("local", None)):
+        # the route align_batch takes: run_bucket(backend="xla") under the mesh
+        got = st_dispatch.run_bucket(q, t, qlen, tlen, PDNA, mode, band, True, None,
+                                     mesh=mesh, backend="xla")
+        # rank 0 of 2 with a mesh of 2: shards 0 and 1 of 4, the first 2 pairs
+        want = st.align_batch(qs[:2], ts[:2], scoring=PDNA, mode=mode, band=band,
+                              backend="xla", device="cpu")
+        assert [f"score={got['score'][b]} q[{got['qs'][b]}:{got['qe'][b]}] "
+                f"t[{got['ts'][b]}:{got['te'][b]}] {got['cigars'][b]}"
+                for b in range(len(got["score"]))] == _strs(want)
+    assert len(gathered) == 2
 
 
 def test_mesh_arguments_are_checked():

@@ -1488,6 +1488,143 @@ def test_wavefront_strip_kernel_on_a_long_global_affine_pair_with_large_scores(d
     assert int(want["score"].min()) > 1.5e9
 
 
+# the pointer strip kernel (unbanded global fills with pointers): name ->
+# (query lengths, target lengths, slots kept (None: wavefront_inputs'),
+# diagonals cut, warps forced (None: the default), scoring)
+PTR_CASES = {
+    "ragged_rounds": ([0, 31, 32, 33, 255, 256, 257, 300, 5], [40, 0, 300, 17, 290, 64, 20, 3, 0],
+                      None, 0, None, "blosum62"),
+    "slots_not_a_multiple_of_32": ([60, 69, 10, 0], [5, 0, 70, 33], 70, 0, None, "blosum62"),
+    "fewer_slots_than_a_strip": ([19, 5, 0], [60, 10, 7], 20, 0, None, "dna"),
+    "k_below_the_slots": ([300, 150, 290], [20, 300, 5], 330, 400, None, "dna"),
+    "k_cut": ([200, 150, 90], [180, 200, 60], None, 137, None, "blosum62"),
+    "one_warp": ([200, 97], [180, 120], None, 0, 1, "dna"),
+    "three_warps": ([500, 320, 7], [480, 500, 9], None, 0, 3, "blosum62"),
+    "long_target": ([300, 60], [6000, 5900], None, 0, None, "dna"),
+}
+
+
+def _ptr_args(dev, case, affine, seed=4):
+    """Inputs of ``PTR_CASES[case]``: BLOSUM62 o=-10 e=-1 or DNA 2/-3 with
+    o=0 e=-2 (every extend bit set), linear gaps (o = 0) unless ``affine``;
+    the sentinel letters past each pair's lengths."""
+    ql, tl, keep, cut, _, scoring = PTR_CASES[case]
+    if scoring == "blosum62":
+        sp, alpha = scoring_params(0, 0, -10 if affine else 0, -1, BLOSUM62), 20
+    else:
+        sp, alpha = scoring_params(2, -3, 0, -2, None), 4
+    rng = np.random.default_rng(seed)
+    qlen, tlen = np.array(ql), np.array(tl)
+    n, m = int(qlen.max()), int(tlen.max())
+    q = rng.integers(0, alpha, size=(len(ql), n))
+    t = rng.integers(0, alpha, size=(len(ql), m))
+    L = min(n, m) // 2
+    t[:, 3: 3 + L] = q[:, 1: 1 + L]
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+    if keep is not None:
+        qpad = np.ascontiguousarray(qpad[:, :keep])
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    args = [as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab)]
+    return args, dict(K=tk.shape[1] - cut, band=None, gap_open=sp.gap_open,
+                      gap_extend=sp.gap_extend, want_ptr=True, affine=affine)
+
+
+@pytest.mark.parametrize("memory", ["shared", "global"])
+@pytest.mark.parametrize("affine", [True, False], ids=["affine", "linear"])
+@pytest.mark.parametrize("case", sorted(PTR_CASES))
+def test_wavefront_strip_ptr_kernel_matches_plain_version(dev, case, affine, memory,
+                                                          monkeypatch):
+    """The pointer strip kernel against ``wavefront_fill_ref``: every byte
+    of the (K, B, Np) stream, the slots with j < 0, i > qlen and j > tlen
+    included, and the score, with the letters and the wrap rows in shared
+    memory and forced to global memory, and its key's launch count."""
+    warps = PTR_CASES[case][4]
+    if warps is not None:
+        monkeypatch.setattr(wf_mod, "wavefront_strip_ptr_warps", lambda Np, w=warps: w)
+    if memory == "global":
+        monkeypatch.setattr(wf_mod, "STRIP_SMEM_BUDGET", 0)
+    args, kw = _ptr_args(dev, case, affine)
+    Np, K = args[0].shape[1], kw["K"]
+    assert wf_mod.fill_kernel(None, True) == "strip_ptr"
+    geometry = wf_mod.wavefront_strip_ptr_geometry(Np, args[4].shape[0], K, affine)
+    if memory == "global":
+        assert geometry[2:] == (False, False)
+    if case == "slots_not_a_multiple_of_32":
+        assert Np % 32
+    if case == "k_below_the_slots":
+        assert K < Np
+    if case == "long_target" and memory == "shared":  # the wrap rows past the budget
+        assert geometry[2:] == (True, False)
+    key = wf_mod.launch_key("global", affine, True)
+    before = launches[key]
+    got = wavefront_fill(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    _same(got, wavefront_fill_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("shape", ["config3_pass_c", "config1"])
+def test_wavefront_strip_ptr_kernel_at_the_paths_shapes(dev, shape):
+    """Config 3's pass-(c) shape (B 512, K 891, Np 512, BLOSUM62 o=-10
+    e=-1, affine) and config 1's (B 512 DNA pairs of 256 x 256, linear
+    gaps: K 513, Np 384), every byte and score equal to the plain
+    version."""
+    rng = np.random.default_rng(21)
+    B = 512
+    if shape == "config3_pass_c":
+        n, alpha, sp, affine = 445, 20, scoring_params(0, 0, -10, -1, BLOSUM62), True
+        qlen = rng.integers(1, n + 1, size=B)
+        tlen = np.clip(qlen + rng.integers(-40, 41, size=B), 0, n)
+        qlen[0] = tlen[0] = n
+    else:
+        n, alpha, sp, affine = 256, 4, scoring_params(1, -1, 0, -1, None), False
+        qlen = tlen = np.full(B, n)
+    q = rng.integers(0, alpha, size=(B, n))
+    t = rng.integers(0, alpha, size=(B, n))
+    t[:, 30:230] = q[:, 25:225]
+    qpad, tk, tab = wavefront_inputs(q, t, qlen, tlen, sp)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    args = [as_t(qpad), as_t(tk), as_t(qlen), as_t(tlen), as_t(tab)]
+    kw = dict(K=tk.shape[1], band=None, gap_open=sp.gap_open, gap_extend=sp.gap_extend,
+              want_ptr=True, affine=affine)
+    assert (kw["K"], qpad.shape[1]) == ((891, 512) if affine else (513, 384))
+    got = wavefront_fill(*args, **kw)
+    _same(got, wavefront_fill_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("affine", [True, False], ids=["affine", "linear"])
+def test_wavefront_strip_ptr_kernel_on_a_stream_cut_into_parts(dev, affine, monkeypatch):
+    """A bucket whose stream exceeds ``ptr_cap_bytes()`` is launched in
+    parts (``wavefront_launch``): each part's call to the pointer strip
+    kernel equals its plain version, and the results equal the uncut
+    bucket's and the oracle's."""
+    sp = scoring_params(0, 0, -10 if affine else 0, -1, BLOSUM62)
+    rng = np.random.default_rng(6)
+    qs = [rng.integers(0, 20, int(L)).astype(np.uint8) for L in rng.integers(40, 61, size=7)]
+    ts = [np.concatenate([q[2:], rng.integers(0, 20, 3)]).astype(np.uint8) for q in qs]
+    kw = dict(scoring=sp, mode="global", backend="xla", device=dev)
+    want = [str(r) for r in align_batch(qs, ts, **kw)]
+    calls = []
+    real = wf_mod.wavefront_fill
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        calls.append((a, k, dict(out)))  # the caller pops the stream off the dict
+        return out
+
+    monkeypatch.setattr(wf_mod, "wavefront_fill", spy)
+    # three pairs' streams of the 64 x 64 bucket: (64 + 64 + 1) x 128 bytes each
+    monkeypatch.setenv("SEQALIB_PTR_HBM_CAP", str(3 * 129 * 128))
+    got = [str(r) for r in align_batch(qs, ts, **kw)]
+    assert got == want
+    assert [len(c[0][2]) for c in calls] == [3, 3, 1]
+    for a, k, out in calls:
+        assert wf_mod.fill_kernel(k["band"], k["want_ptr"]) == "strip_ptr"
+        _same(out, wavefront_fill_ref(*a, **{x: v for x, v in k.items() if x != "span"}))
+    oracle = [str(oracle_fast.align_oracle(q, t, sp, mode="global")) for q, t in zip(qs, ts)]
+    assert got == oracle
+
+
 # one call of each flag set under one torch.profiler session, in a process
 # of its own: after a first session in a test process a second has shown
 # no device events
@@ -1524,9 +1661,10 @@ print(json.dumps([n for _, n in ev]))
 
 def test_wavefront_fill_launches_the_strip_kernel_for_unbanded_score_only(dev):
     """Under ``torch.profiler``, one call of each flag set in turn: an
-    unbanded score-only call launches ``wf_strip_kernel`` alone, a banded
-    global affine call ``wf_band_kernel``, every other call the window
-    kernel (after the far pass when banded with pointers)."""
+    unbanded score-only call launches ``wf_strip_kernel`` alone, an
+    unbanded global call with pointers ``wf_strip_ptr_kernel`` alone, a
+    banded global affine call ``wf_band_kernel``, every other call the
+    window kernel (after the far pass when banded with pointers)."""
     import json
     import subprocess
     import sys
@@ -1537,14 +1675,16 @@ def test_wavefront_fill_launches_the_strip_kernel_for_unbanded_score_only(dev):
                           json.dumps(WF_MODES)], capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     names = json.loads(out.stdout.strip().splitlines()[-1])
-    short = [next(k for k in ("wf_strip_kernel", "wf_band_kernel", "wf_window_kernel",
-                              "wf_far_kernel") if k in n) for n in names]
+    short = [next(k for k in ("wf_strip_kernel", "wf_strip_ptr_kernel", "wf_band_kernel",
+                              "wf_window_kernel", "wf_far_kernel") if k in n) for n in names]
     want = []
     for mode, affine, want_ptr, band in WF_MODES:
         strip = band is None and not want_ptr
-        assert (wf_mod.fill_kernel(band, want_ptr) == "strip") == strip
+        strip_ptr = band is None and want_ptr and mode == "global"
+        assert (wf_mod.fill_kernel(band, want_ptr, mode) == "strip") == strip
+        assert (wf_mod.fill_kernel(band, want_ptr, mode) == "strip_ptr") == strip_ptr
         banded_global_affine = mode == "global" and affine and band is not None
         want += (["wf_far_kernel"] if want_ptr and band is not None else []) + [
-            "wf_strip_kernel" if strip else
+            "wf_strip_kernel" if strip else "wf_strip_ptr_kernel" if strip_ptr else
             "wf_band_kernel" if banded_global_affine else "wf_window_kernel"]
     assert short == want

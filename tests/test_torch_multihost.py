@@ -57,19 +57,21 @@ def _hash(res):
     return hashlib.blake2b("\n".join(map(str, res)).encode(), digest_size=16).hexdigest()
 
 
-def _ranks_return(tmp_path, q, t, qlen, tlen, sp, mode, band=None):
-    """Both ranks align the batch given as a file and return the whole
-    batch: the hash of their results equals one process's, which is
-    returned."""
+def _ranks_return(tmp_path, q, t, qlen, tlen, sp, mode, band=None, backend="pallas"):
+    """Both ranks align the batch given as a file on ``backend`` and return
+    the whole batch: the hash of their results equals one process's, which
+    is returned."""
     B = len(qlen)
     path = str(tmp_path / "batch.npz")
     extra = {} if band is None else {"band": band}
+    if backend != "pallas":
+        extra["backend"] = backend
     np.savez(path, q=q, t=t, qlen=qlen, tlen=tlen, match=sp.match, mismatch=sp.mismatch,
-             gap_open=sp.gap_open, gap_extend=sp.gap_extend, matrix=sp.matrix, mode=mode,
-             **extra)
+             gap_open=sp.gap_open, gap_extend=sp.gap_extend,
+             matrix=np.zeros(0) if sp.matrix is None else sp.matrix, mode=mode, **extra)
     res = st.align_batch([q[b, : qlen[b]] for b in range(B)],
                          [t[b, : tlen[b]] for b in range(B)], scoring=sp, mode=mode,
-                         band=band, device="cpu")
+                         band=band, backend=backend, device="cpu")
     outs = _run_ranks(tmp_path, "--inputs", path, "--reps", "1")
     for r, out in enumerate(outs):
         assert f"PAIRMESH-HASH r{r} {_hash(res)}" in out, out[-2000:]
@@ -111,6 +113,28 @@ def test_two_processes_run_the_wide_table_route(tmp_path):
             for b in range(B)]
     assert list(map(str, res)) == list(map(str, want))
     assert any("I" in r.cigar and "D" in r.cigar for r in res)
+
+
+def test_two_processes_run_xla_with_a_band(tmp_path):
+    """``backend="xla"`` with a band and a DNA table (which ``"pallas"``
+    sends to the banded route, refused in a world of two) in a world of
+    two ranks, four shards of the full-matrix wavefront: every rank returns
+    the one-process batch, equal to the oracle."""
+    from seqalib_tpu_torch.oracle_fast import align_oracle
+
+    rng = np.random.default_rng(8)
+    B, L = 9, 60
+    q = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    t = np.concatenate([q[:, 3:], rng.integers(0, 4, size=(B, 3))], axis=1).astype(np.uint8)
+    t[:, ::7] = rng.integers(0, 4, size=t[:, ::7].shape)
+    qlen = rng.integers(L - 20, L + 1, size=B)
+    tlen = np.clip(qlen + rng.integers(-5, 6, size=B), 0, L)
+    tlen[2] = 0
+    sp = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+    res = _ranks_return(tmp_path, q, t, qlen, tlen, sp, "global", band=6, backend="xla")
+    want = [align_oracle(q[b, : qlen[b]], t[b, : tlen[b]], sp, mode="global", band=6)
+            for b in range(B)]
+    assert list(map(str, res)) == list(map(str, want))
 
 
 def test_worker_defaults_to_the_card(tmp_path, monkeypatch):

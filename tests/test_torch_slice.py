@@ -179,7 +179,8 @@ def test_default_engine_is_banded_with_its_class_a_pin(monkeypatch):
     assert (int(out["qs"][0]), int(out["ts"][0])) == (0, 35)
     assert not out["escalated"][0]
     assert out["cigars"][0] == "7M35D35I7M"
-    res = st.align(q, t, scoring=_port_sp(sp), mode="local", device="cpu")
+    # align's own default is "xla", as in the JAX package: name the strip route
+    res = st.align(q, t, scoring=_port_sp(sp), mode="local", backend="pallas", device="cpu")
     assert (res.query_start, res.target_start) == (0, 35)
 
 
@@ -290,6 +291,29 @@ def test_package_align_batch_default_mode_matches_jax():
     default = [inspect.signature(f).parameters["mode"].default
                for f in (sa_api.align_batch, st_api.align_batch)]
     assert default == ["local", "local"]
+
+
+def test_align_has_the_jax_packages_defaults():
+    """``align`` (the package-level name and ``api.align``) takes the JAX
+    package's parameters and defaults, ``backend="xla"`` included, plus
+    ``device``."""
+    import inspect
+
+    import seqalib_tpu.api as sa_api
+    import seqalib_tpu_torch.api as st_api
+
+    def defaults(f, drop=()):
+        return [(p.name, p.default) for p in inspect.signature(f).parameters.values()
+                if p.name not in drop]
+
+    assert st.align is st_api.align
+    want = defaults(sa.align)
+    assert want == defaults(sa_api.align)
+    assert ("backend", "xla") in want
+    assert defaults(st.align, drop=("device",)) == want
+    assert inspect.signature(st.align).parameters["device"].default == "cuda"
+    q, t = "TTTTACGTACGTTTTT", "GGACGTACGGG"
+    assert str(st.align(q, t, device="cpu")) == str(sa.align(q, t))
 
 
 def test_cuda_device_without_a_card_raises():

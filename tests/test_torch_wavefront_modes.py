@@ -41,7 +41,8 @@ from seqalib_tpu_torch.ops import wavefront as wf_mod
 from seqalib_tpu_torch.ops.wavefront import (fill_kernel, launch_key, strip_columns,
                                              wavefront_far_bytes_ref, wavefront_fill,
                                              wavefront_fill_ref, wavefront_inputs,
-                                             wavefront_strip_geometry, window_rows)
+                                             wavefront_strip_geometry,
+                                             wavefront_strip_ptr_geometry, window_rows)
 from seqalib_tpu_torch.scoring import scoring_params
 from seqalib_tpu_torch.types import encode_dna
 
@@ -263,10 +264,18 @@ def test_launch_keys_and_ring_rows():
 @pytest.mark.parametrize("mode,affine,want_ptr,band", ROUTE_MODES + OTHER_MODES,
                          ids=lambda x: str(x))
 def test_the_kernel_each_flag_set_launches(mode, affine, want_ptr, band):
-    """On the card an unbanded score-only fill runs the strip kernel, every
-    other flag set (a band or pointers) the window kernels."""
-    want = "strip" if band is None and not want_ptr else "window"
-    assert fill_kernel(band, want_ptr) == want
+    """On the card an unbanded score-only fill runs the strip kernel, an
+    unbanded global fill with pointers the pointer strip kernel, every
+    other flag set (a band, or local pointers) the window kernels."""
+    if band is None and not want_ptr:
+        want = "strip"
+    elif band is None and mode == "global":
+        want = "strip_ptr"
+    else:
+        want = "window"
+    assert fill_kernel(band, want_ptr, mode) == want
+    if mode == "global":  # the default mode
+        assert fill_kernel(band, want_ptr) == want
 
 
 @pytest.mark.parametrize("Np,NT,cols,mode,affine,budget,want", [
@@ -291,6 +300,30 @@ def test_strip_geometry(Np, NT, cols, mode, affine, budget, want, monkeypatch):
     if budget is not None:
         monkeypatch.setattr(wf_mod, "STRIP_SMEM_BUDGET", budget)
     assert wavefront_strip_geometry(Np, NT, cols, mode, affine) == want
+
+
+@pytest.mark.parametrize("Np,NT,K,affine,budget,want", [
+    # config 3's pass (c) windows: rings, table, counters, letters, two wrap rows
+    (512, 23, 891, True, None, (8, 34352, True, True)),
+    # config 1 with CIGARs: 4-byte entries
+    (384, 7, 513, False, None, (8, 13592, True, True)),
+    # a long window: the letters fit, the wrap rows go to global memory
+    (512, 23, 3000, True, None, (8, 28516, True, False)),
+    (512, 23, 891, True, 0, (8, 16516, False, False)),
+    # a warp per 32 slots below 8 strips; one warp for 32 slots or fewer
+    (70, 7, 90, True, None, (3, 6172, True, True)),
+    (32, 7, 40, False, None, (1, 748, True, True)),
+])
+def test_strip_ptr_geometry(Np, NT, K, affine, budget, want, monkeypatch):
+    """(warps, shared bytes, letters shared, wrap rows shared) of the
+    pointer strip kernel: (warps - 1) rings of 256 entries (8 bytes affine,
+    4 linear), the table and 16 counters, then the letters (4 bytes a
+    column) and the two wrap rows of K + 1 entries while they fit in
+    STRIP_SMEM_BUDGET; warps = min(8, ceil(Np / 32))."""
+    if budget is not None:
+        monkeypatch.setattr(wf_mod, "STRIP_SMEM_BUDGET", budget)
+    assert wavefront_strip_ptr_geometry(Np, NT, K, affine) == want
+    assert wf_mod.wavefront_strip_ptr_warps(Np) == want[0]
 
 
 @pytest.mark.parametrize("K,Np,span,want", [(2049, 1152, None, 2049), (2049, 1152, 0, 1152),

@@ -40,12 +40,13 @@ from seqalib_tpu.types import ScoringParams as JaxScoringParams
 from seqalib_tpu.utils.cigar import OP_PAD, ops_to_cigar
 from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops import wavefront as wf_mod
+from seqalib_tpu_torch.ops import wavefront_xla as xla_mod
 from seqalib_tpu_torch.ops.strip_walk import BAD_START, cigars_from_text
 from seqalib_tpu_torch.ops.wavefront import (wavefront_fill_ref, wavefront_inputs,
                                              wavefront_launch)
 from seqalib_tpu_torch.ops.wavefront_walk import (text_width, wavefront_walk,
                                                   wavefront_walk_ref)
-from seqalib_tpu_torch.parallel import dispatch, dist
+from seqalib_tpu_torch.parallel import dispatch
 from seqalib_tpu_torch.scoring import scoring_params
 from seqalib_tpu_torch.utils.cigar import op_rows_to_cigars
 
@@ -315,7 +316,8 @@ def test_walk_refuses_bad_arguments():
 
 def test_every_wide_bucket_and_shard_launches_before_any_finalizes(monkeypatch):
     """``dispatch_batch`` launches both wide buckets, and
-    ``wavefront_sharded`` all three shards, before it finalizes any."""
+    ``wavefront_sharded`` all three shards (each through ``xla_launch``'s
+    global mode), before it finalizes any."""
     events = []
     real = wf_mod.wavefront_launch
 
@@ -329,7 +331,7 @@ def test_every_wide_bucket_and_shard_launches_before_any_finalizes(monkeypatch):
         return fin
 
     monkeypatch.setattr(dispatch, "wavefront_launch", spy)
-    monkeypatch.setattr(dist, "wavefront_launch", spy)
+    monkeypatch.setattr(xla_mod, "wavefront_launch", spy)
     sp = scoring_params(0, 0, -20, -2, 2 * BLOSUM62)
     rng = np.random.default_rng(6)
     qs = [rng.integers(0, 20, int(n)).astype(np.uint8) for n in (10, 12, 40, 45, 14)]

@@ -14,7 +14,8 @@ package's ``align_batch(..., backend="xla")`` (its full-matrix wavefront,
   beyond the pass-2 column clamp): this route's reverse extension spans
   every query row, so it returns the oracle's canonical outcome;
 * the dispatch: ``"xla"`` sends every bucket, banded or not, to the route
-  (``run_bucket(backend="xla")``), ``"strip"`` and ``"pallas"`` do not.
+  (``run_bucket(backend="xla")``), under a mesh too (a launch per shard),
+  ``"strip"`` and ``"pallas"`` do not.
 """
 
 import numpy as np
@@ -148,7 +149,10 @@ def test_xla_route_returns_the_canonical_start_of_the_adversarial_ties(tie, want
 def test_dispatch_sends_every_xla_bucket_to_the_route(monkeypatch):
     """``"xla"`` runs ``xla_launch`` for every bucket, a banded one with a
     DNA table included (which ``"strip"`` sends to the banded route); under
-    a mesh ``"xla"`` keeps the strip route."""
+    a mesh ``"xla"`` runs it on every shard (``dist.wavefront_sharded``), as
+    in the JAX package, and returns the strip route's results."""
+    from seqalib_tpu_torch.parallel import dist
+
     seen = []
     real = xla_mod.xla_launch
 
@@ -157,6 +161,7 @@ def test_dispatch_sends_every_xla_bucket_to_the_route(monkeypatch):
         return real(*a, **k)
 
     monkeypatch.setattr(dispatch, "xla_launch", spy)
+    monkeypatch.setattr(dist, "xla_launch", spy)
     jsp, alpha = SCORINGS["dna_affine"]
     qs, ts = _pairs(alpha, 3)
     qs, ts = qs[:5], ts[:5]
@@ -170,7 +175,7 @@ def test_dispatch_sends_every_xla_bucket_to_the_route(monkeypatch):
                        device="cpu")
     got = st.align_batch(qs, ts, scoring=sp, mode="local", backend="xla",
                          mesh=["cpu"] * 2)
-    assert len(seen) == 2
+    assert seen[2:] == [("local", None)] * 2
     want = st.align_batch(qs, ts, scoring=sp, mode="local", backend="strip", device="cpu")
     assert [str(r) for r in got] == [str(r) for r in want]
     with pytest.raises(ValueError, match="out of contract"):

@@ -4,7 +4,7 @@ warps per pair, and the wavefront fill, at the main paths' shapes; count
 the instructions a step issues from the SASS.
 
     python3 tools/strip_fill_sweep.py [--calls 5] [--warps 1,2,4,8]
-                                      [--strip-warps 4,8,16]
+                                      [--strip-warps 4,8,16] [--ptr-warps 4,8]
                                       [--sass-only] [--sass-dump PATH]
                                       [--ablate] [--variant NAME=FILE.cu ...]
                                       [--parent DIR] [--rounds 5] [--shapes PREFIX]
@@ -40,6 +40,13 @@ entry: no letter loads), ``no_best`` (no best-cell tracking), ``far_only``
 row bests), ``wf_no_start`` (no start propagation: no start cells
 computed, shuffled or handed on) and ``wf_no_handoff`` (no ring hand-off
 between warps: no waits, lane 0 reads nothing, lane 31 stores nothing).
+The same part times the ``"xla"`` route's unbanded global fills with
+pointers (the pointer strip kernel): config 3's pass (c) (unbanded
+``ptr``) and config 1 with CIGARs (``lin_ptr``), each also at the warps
+per pair of ``--ptr-warps`` (patching ``wavefront_strip_ptr_warps``; the
+kernel takes 1 to 8), and the SASS part counts one step of each
+``wf_strip_ptr_kernel`` instance too.  ``--ablate`` adds ``x_ptr_no_stream``
+(the pointer strip kernel stores no pointer byte).
 ``--parent DIR``: the wavefront shapes of this tree and of the tree at DIR
 (e.g. ``git archive`` of the parent commit unpacked under ``_checkout/``)
 in two worker processes, each importing its own package and building its
@@ -165,6 +172,9 @@ def wavefront_calls(dev, cs=None, only=""):
     full = lambda x: np.full(len(x), x.shape[1])  # noqa: E731
     q2, t2, ql2, tl2, sp2 = cs.config2_bucket(dev)
     for name, args in (("xla config 3", (q3, t3, full(q3), full(t3), sp3, "local", None, True)),
+                       ("xla config 1 with CIGARs", (q1, t1, full(q1), full(t1),
+                                                     st.ScoringParams.linear(), "global",
+                                                     None, True)),
                        ("xla config 3 global", (q3, t3, full(q3), full(t3), sp3, "global",
                                                 None, False)),
                        ("xla config 2 fullest bucket", (q2, t2, ql2, tl2, sp2, "local", None,
@@ -173,7 +183,7 @@ def wavefront_calls(dev, cs=None, only=""):
                                          "global", None, False))):
         calls, _ = cs.record(lambda: dispatch.run_bucket(*args, dev, backend="xla"), targets)
         for key, (_, _, a, k, _) in calls.items():
-            if k["band"] is None and not k["want_ptr"]:
+            if k["band"] is None:
                 out[f"{name} {key}"] = [(a, k)]
     a2 = argparse.Namespace(pairs=cs.BENCH_PAIRS, backend="xla", device=dev)
     sp2, qs2, ts2 = cli._bench_setup(a2, 2, np.random.default_rng(0))[:3]
@@ -201,6 +211,8 @@ ABLATIONS = {
                                      "      if (MODE != kGlobal && false) {")]),
     "x_far_only": ("wavefront_fill.cu", [("  return run_fill(a, sl, s);\n}", "  return 0;\n}")]),
     "x_no_far": ("wavefront_fill.cu", [("  if (ptr && banded) {", "  if (false) {")]),
+    "x_ptr_no_stream": ("wavefront_fill.cu", [
+        ("        if (ALL || live) *o = (uint8_t)byte;\n", "")]),
     "x_wf_no_best": ("wavefront_fill.cu", [("        const bool upd = H > bv;",
                                             "        const bool upd = false;")]),
     "x_wf_no_start": ("wavefront_fill.cu", [
@@ -294,25 +306,29 @@ def sweep_strip(warps, calls, dev, rows):
             rows.append(dict(shape=name, B=a[0].shape[0], warps=W, ms=ms))
 
 
-def sweep_wavefront(calls, dev, rows, strip_warps, only=""):
+def sweep_wavefront(calls, dev, rows, strip_warps, only="", ptr_warps=()):
     """Each wavefront shape at the default warps per pair and, for the
-    strip kernel's shapes, at each of ``strip_warps`` (every output held
-    equal to the default's)."""
-    default = wf_mod.wavefront_strip_warps
+    strip kernels' shapes, at each of ``strip_warps`` (score-only) or
+    ``ptr_warps`` (pointers) (every output held equal to the default's)."""
     for name, shape in wavefront_calls(dev, only=only).items():
         a, k = shape[0]
-        strip = wf_mod.fill_kernel(k["band"], k["want_ptr"]) == "strip"
+        kernel = wf_mod.fill_kernel(k["band"], k["want_ptr"], k.get("mode", "global"))
+        attr = {"strip": "wavefront_strip_warps",
+                "strip_ptr": "wavefront_strip_ptr_warps"}.get(kernel)
+        default = getattr(wf_mod, attr) if attr else None
         want = wf_mod.wavefront_fill(*a, **k)
-        for W in [None] + (strip_warps if strip else []):
+        forced = {"strip": strip_warps, "strip_ptr": list(ptr_warps)}.get(kernel, [])
+        for W in [None] + forced:
             if W is not None:
-                wf_mod.wavefront_strip_warps = lambda Np, W=W: W
+                setattr(wf_mod, attr, lambda Np, W=W: W)
             try:
                 if not same(wf_mod.wavefront_fill(*a, **k), want):
                     raise AssertionError(f"{name}: {W} warps differ from the default")
                 ms = time_ms(lambda: run_shape(shape), calls)
                 lay = chip_smoke.layout("wavefront_fill/x", a, k) if len(shape) == 1 else ""
             finally:
-                wf_mod.wavefront_strip_warps = default
+                if attr:
+                    setattr(wf_mod, attr, default)
             print(f"[wavefront] {name} ({len(shape)} call{'s' * (len(shape) > 1)}): {ms:.4f} ms, "
                   f"{ms * 1e3 / k['K']:.4f} µs per diagonal"
                   + (f"; {W} warps forced" if W else " (default)") + (f"; {lay}" if lay else ""),
@@ -425,6 +441,11 @@ def sass_counts(rows, dump=None):
             tag = (f"strip_fill {MODES[m.group(1)]} affine={m.group(2)} "
                    f"ptr={m.group(3)}")
             per, mix = steady_steps(ops, 1 + int(m.group(2)))
+        m = re.search(r"wf_strip_ptr_kernelILb(\d)E", name)
+        if m:  # shuffles a step: H, then F (affine)
+            affine = int(m.group(1))
+            tag = f"wf_strip_ptr global affine={affine}"
+            per, mix = steady_steps(ops, 1 + affine)
         m = re.search(r"wf_strip_kernelILb(\d)ELb(\d)E", name)
         if m:  # shuffles a step: H, then F (affine), SH (local), SF (both)
             local, affine = int(m.group(1)), int(m.group(2))
@@ -444,6 +465,7 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--strip-warps", default="4,8,16")
+    ap.add_argument("--ptr-warps", default="4,8")
     ap.add_argument("--parent")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--shapes", default="")
@@ -466,7 +488,8 @@ def main() -> int:
     elif not args.sass_only:
         sweep_strip([int(w) for w in args.warps.split(",")], args.calls, dev, strip_rows)
         sweep_wavefront(args.calls, dev, wf_rows,
-                        [int(w) for w in args.strip_warps.split(",") if w], args.shapes)
+                        [int(w) for w in args.strip_warps.split(",") if w], args.shapes,
+                        [int(w) for w in args.ptr_warps.split(",") if w])
     print(json.dumps({"device": torch.cuda.get_device_name(0), "strip": strip_rows,
                       "wavefront": wf_rows, "variants": var_rows, "turns": turn_rows,
                       "sass": sass}))
