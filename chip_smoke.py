@@ -129,7 +129,22 @@ Phases (any failure raises and exits non-zero):
    pairs equal to the oracle;
 12. every kernel was launched by its path: the launch counts are set to 0
    just before each path's runs (1 warm-up + 3 timed calls; for the CLI's
-   configs, each config's run) and read just after.
+   configs, each config's run) and read just after;
+13. the seeded differential sweep (``seqalib_tpu_torch/sweep.py``, seed
+   ``SEED``): ``SWEEP_DRAWS`` pairs of 1-400 letters (the edge lengths
+   around 32, 64, 128, 256 and 384, pairs of 1 against 400, local pairs of
+   score 0), six scorings (DNA linear and affine, BLOSUM62, 2 x BLOSUM62,
+   BLOSUM62 with gap_open 0, DNA affine scaled near int32's range), both
+   modes, through every route of ``sweep.ROUTES`` on the card
+   (``align_batch`` on the strip route under both pass-2 engines with and
+   without traceback and on ``"xla"``, ``band=`` 1, 3, 16 and 800,
+   ``align``, ``align_all_vs_all``, both SP and both banded-SP entry points
+   on a mesh of 2 naming the card), the launch counts set to 0 just before
+   and read just after (every key but the two wide ``band_fill`` ones
+   launched); every result equal to ``oracle_fast``, the first call of each
+   kernel key the routes launched equal to its plain version, every
+   identity of ``tests/test_torch_properties.py`` (``sweep.identity_checks``)
+   and fault 7's pair on both SP entry points equal to the oracle.
 
 The kernel phase also holds every kernel call of phase 11's buckets
 (``run_bucket(backend="xla")`` on config 1's, with CIGARs and
@@ -257,6 +272,8 @@ SLICE_KERNELS = ("strip_fill/local", "row_window", "band_fill/emode")
 # workers' time limit
 AVALL_MESH_READS = 2000
 TWO_PROCESS_TIMEOUT = 300
+# the sweep phase (13): its draws (sweep.draws), the oracle's worker processes
+SWEEP_DRAWS, SWEEP_PROCESSES = 600, 6
 # the edge checks of the redesigned fills: a ragged strip batch, and
 # wavefront fills of 300-letter pairs with a band over the slots (Np 384)
 # and with deltas past the band
@@ -2044,6 +2061,105 @@ def xla_mesh_runs(dev, card, four, cfg3, wide):
                st.align_batch(qs7, ts7, device=dev, **kw7))
 
 
+# ---- the sweep phase (13) ----------------------------------------------
+
+
+def sweep_targets():
+    """Every kernel wrapper at each call site the public entry points reach,
+    with its plain version: ``record``'s targets."""
+    from seqalib_tpu_torch.models import banded as banded_mod
+    from seqalib_tpu_torch.ops import band_fill as bf_mod
+    from seqalib_tpu_torch.ops import band_walk as bw_mod
+    from seqalib_tpu_torch.ops import row_window as rw_mod
+    from seqalib_tpu_torch.ops import sp_tile as tile_mod
+    from seqalib_tpu_torch.ops import strip as strip_mod
+    from seqalib_tpu_torch.ops import strip_fill as sf_mod
+    from seqalib_tpu_torch.ops import wavefront as wf_mod
+    from seqalib_tpu_torch.ops import wavefront_walk as ww_mod
+    from seqalib_tpu_torch.ops import wavefront_xla as xla_mod
+    from seqalib_tpu_torch.parallel import band_pipeline as bp_mod
+    from seqalib_tpu_torch.parallel import banded_sp as bsp_mod
+
+    return [(strip_mod, "row_window", rw_mod.row_window_ref),
+            (strip_mod, "strip_fill", sf_mod.strip_fill_ref),
+            (strip_mod, "strip_walk", strip_walk_mod().strip_walk_ref),
+            (strip_mod, "band_fill", bf_mod.band_fill_ref),
+            (banded_mod, "band_fill", bf_mod.band_fill_ref),
+            (banded_mod, "band_walk", bw_mod.band_walk_ref),
+            (wf_mod, "wavefront_fill", wf_mod.wavefront_fill_ref),
+            (wf_mod, "wavefront_walk", ww_mod.wavefront_walk_ref),
+            (xla_mod, "wavefront_fill", wf_mod.wavefront_fill_ref),
+            (bp_mod, "sp_tile_run", tile_mod.sp_tile_run_ref),
+            (bp_mod, "sp_tile_ptr", tile_mod.sp_tile_ptr_ref),
+            (bsp_mod, "band_fill", bf_mod.band_fill_ref),
+            (bsp_mod, "band_walk", bw_mod.band_walk_ref)]
+
+
+def sweep_runs(dev):
+    """The seeded differential sweep on the card (``seqalib_tpu_torch/sweep.py``):
+    SWEEP_DRAWS pairs of 1-400 letters, six scorings (one near int32's
+    range), both modes, through every route of ``sweep.ROUTES`` (the
+    launch counts set to 0 just before, read just after), every result
+    equal to ``oracle_fast``; the first call of each kernel key the routes
+    launched held exactly to its plain version (``check_kernel``); every
+    identity of ``tests/test_torch_properties.py``; fault 7's pair on both
+    SP entry points."""
+    import torch
+
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch import sweep
+    from seqalib_tpu_torch.ops import launches, reset_launches
+
+    t0 = time.perf_counter()
+    ds = sweep.draws(SEED, SWEEP_DRAWS)
+    api = sweep.PortAPI(dev)
+    reset_launches()
+    calls, results = record(lambda: [r for name in sweep.ROUTES
+                                     for r in sweep.run_route(api, name, ds)],
+                            sweep_targets())
+    torch.cuda.synchronize()
+    counts = dict(launches)  # the phase's own: its one run of every route
+    t1 = time.perf_counter()
+    oracle = sweep.oracle_results(results, processes=SWEEP_PROCESSES)
+    bad = sweep.check(results, oracle)
+    if bad:
+        raise AssertionError(f"[sweep] {len(bad)} of {len(results)} results differ from the "
+                             "oracle:\n" + "\n".join(bad[:40]))
+    by_route = Counter(r.route for r in results)
+    say(f"[sweep] {len(ds)} draws, {len(results)} results over {len(by_route)} routes, "
+        f"every one equal to the oracle (routes {t1 - t0:.1f} s, oracle "
+        f"{time.perf_counter() - t1:.1f} s): {dict(by_route)}")
+    walks = ("strip_walk", "wavefront_walk", "wavefront_walk/linear")
+    for key, (fn, plain, args, kw, _) in calls.items():
+        pkw = {k: v for k, v in kw.items() if k not in ("err", "span")}
+        stats, _ = check_kernel(f"{key} (sweep)", lambda: fn(*args, **kw),
+                                lambda: plain(*args, **pkw),
+                                walk_view if key in walks else (lambda out: out))
+        if stats["max_abs_err"] != 0:
+            raise AssertionError(f"[sweep] {key}: max_abs_err {stats['max_abs_err']}")
+    say(f"[sweep] the first call of each of {len(calls)} kernel keys equal to its plain "
+        f"version: {sorted(calls)}")
+    say(f"[launches] sweep (one run of every route): "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    missing = [k for k, (_, _, _, *key) in KERNELS.items()
+               if counts.get((key or [k])[0], 0) <= 0
+               and k not in ("band_fill/wide", "band_fill/wide_ptr")]
+    if missing:
+        raise AssertionError(f"[sweep] the routes never launched: {missing}")
+    n = sweep.identity_checks(dev)
+    say(f"[sweep] {n} identities hold on the card")
+    q, t = np.zeros(100, np.int32), np.ones(90, np.int32)
+    s = 1 << 20
+    sp = st.ScoringParams(match=2 * s, mismatch=-3 * s, gap_open=-5 * s, gap_extend=-2 * s)
+    mesh = st.make_band_mesh([dev] * 2)
+    want = st.align(q.astype(np.uint8), t.astype(np.uint8), sp, backend="oracle")
+    got = (st.align_score_sp(q, t, sp, mesh, C=128), str(st.align_sp(q, t, sp, mesh, C=128)))
+    if got != (want.score, str(want)):
+        raise AssertionError(f"[sweep] fault 7's pair: {got} != the oracle's {want}")
+    say(f"[sweep] fault 7's pair on both SP entry points: {got[0]}, {got[1]} (the oracle's)")
+    say(f"[time] sweep phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2152,6 +2268,7 @@ def main() -> int:
     say(f"[time] pair-mesh phase done at {time.perf_counter() - t_start:.1f} s")
     xla_runs(dev, card, counts, (q1, t1, sp1), (q3, t3, sp3), (qs7, ts7), want1, want3)
     say(f"[time] paths done at {time.perf_counter() - t_start:.1f} s")
+    sweep_runs(dev)
 
     for path, c in counts.items():
         say(f"[launches] {path} (1 warm-up + {REPS} timed calls, or the CLI's run): "

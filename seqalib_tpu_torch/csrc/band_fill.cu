@@ -66,6 +66,15 @@ constexpr int kPtr = 1;
 constexpr int kEmode = 2;
 constexpr int kMaxThreads = 512;
 constexpr int kEdge = 4;  // words per warp and buffer: H, E first; H, F last
+// emode's floor for H (ops/band_fill.py EMODE_FLOOR).  emode fills every slot
+// of its window unmasked, cells past the pair included: there H sinks by a
+// gap or a mismatch a diagonal, and at scores near int32's range (|o| + (n +
+// m) max(|e|, |s|) up to 2^29) a window of a few hundred diagonals took it
+// below -2^31, where it wrapped.  Floored, H >= -1.5 * 2^30, so E and F stay
+// above it by at most |o + e| + |e| and a diagonal by |s| (each < 2^29): no
+// sum wraps.  A cell of the pair never comes near the floor (its value is at
+// least -2^29), nor does any cell at the usual scales: no output changes there.
+constexpr int kEmodeFloor = -(1 << 30) - (1 << 29);
 
 struct BandArgs {
   const int32_t* qk;  // (B, q_width) letters, row i at [i]
@@ -286,7 +295,7 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(const BandArgs a
       const bool origin = k_origin && i == 0;
       int H;
       if (MODE == kEmode) {
-        H = origin ? 0 : best;
+        H = origin ? 0 : max(best, kEmodeFloor);
         if (p == Wp - 1) H = E = F = kNegInf;
         if (H > bv[s]) {  // strict: the first maximum of the slot
           bv[s] = H;
@@ -523,7 +532,7 @@ __global__ void __launch_bounds__(kWideThreads) band_fill_wide_kernel(const Band
       const bool origin = k_origin && i == 0;
       int Hn;
       if (MODE == kEmode) {
-        Hn = origin ? 0 : best;
+        Hn = origin ? 0 : max(best, kEmodeFloor);
         if (p == Wp - 1) Hn = E = F = kNegInf;
         if (Hn > bv_row[p]) {  // strict: the first maximum of the slot
           bv_row[p] = Hn;

@@ -73,7 +73,11 @@ namespace {
 
 using namespace seqalib;
 
-constexpr int kSpNeg = -(1 << 28);  // ops/sp_tile.py NEG
+// ops/sp_tile.py NEG: below every real score (global scores down to -2^29).
+// It enters a sum only as el + e (E of the left column) and uf + e (F of the
+// top row), and is max-merged with a real value at once;
+// no cell adds it to itself, so with |o + e| < 2^29 no int32 sum wraps.
+constexpr int kSpNeg = -(1 << 30);
 constexpr int kTileGlobal = 0;
 constexpr int kTileLocal = 1;
 constexpr int kTilePtr = 2;

@@ -39,8 +39,10 @@ Modes, over diagonals ``[k0, k1)``:
 * ``"ptr"``: the same recurrence, emitting each cell's pointer nibble
   ``PTR_* | ext_e << 2 | ext_f << 3``, two diagonals per byte
   (``ptr[(k - k0) // 2, b, p]``, even ``k - k0`` in the low nibble);
-* ``"emode"``: no mask (the slot window is the band); slot ``Wp - 1`` is
-  forced to NEG_INF; BV/BK keep each slot's first maximum and its
+* ``"emode"``: no mask (the slot window is the band); H is floored at
+  ``EMODE_FLOOR`` (cells past the pair sink a gap or a mismatch a
+  diagonal: near int32's range they wrapped on the card); slot ``Wp - 1``
+  is forced to NEG_INF; BV/BK keep each slot's first maximum and its
   diagonal (strict ``>``); with ``tie_safe``, EV[p] keeps
   ``max(cand - smax * i)`` where cand is E at slot 0 once ``k > dhi`` and
   F at slot ``Wp - 2``.
@@ -76,6 +78,10 @@ from . import launches
 MODES = {"fill": 0, "ptr": 1, "emode": 2}
 LANES = 128
 REF_CHUNK = 64  # diagonals whose scores and mask the plain version gathers at once
+# emode's floor for H (csrc/band_fill.cu kEmodeFloor, which says why no int32
+# sum wraps above it); no cell of the pair, and no cell at the usual scales,
+# comes near it
+EMODE_FLOOR = -(1 << 30) - (1 << 29)
 # the kernel keeps the (NT, NT) score table in shared memory: the 63
 # letters strip_fill takes, plus the zero sentinel row and two sentinels
 MAX_TABLE = 66
@@ -235,7 +241,9 @@ def band_fill_ref(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *,
                     ptrs.append((lo | (nib << 4)).to(torch.uint8))
             if emode:
                 edge = p == Wp - 1
-                Hn = best if origin is None else torch.where(origin, 0, best)
+                Hn = best.clamp(min=EMODE_FLOOR)
+                if origin is not None:
+                    Hn = torch.where(origin, 0, Hn)
                 Hn = torch.where(edge, NEG, Hn)
                 En = torch.where(edge, NEG, En)
                 Fn = torch.where(edge, NEG, Fn)

@@ -70,7 +70,15 @@ from ..types import PTR_DIAG, PTR_LEFT, PTR_UP
 from . import launches
 
 MODES = {"global": 0, "local": 1, "ptr": 2}
-NEG = -(1 << 28)  # band_pipeline.NEG: dominates any score, no int32 overflow
+# The sentinel of E at the left column, F at the top row and the capture
+# (csrc/sp_tile.cu's kSpNeg).  It must lie below every real score: at
+# -2^28 (the JAX package's value) a global score below it came back as
+# -2^28.  Every real cell's H, E and F lies in [-2^30, 2^30) as long as the
+# pair's global scores reach no lower than -2^29 and |o + e| < 2^29.  A
+# real cell adds NEG only once: to one gap term (NEG + e, NEG + o + e:
+# above -2^30 - 2^29) or to a letter's score, and never to another NEG; its
+# result is max-merged at once with a real value.  So no int32 sum wraps.
+NEG = -(1 << 30)
 MAX_STRIP = 1024
 # rows per CTA: a 16 384-row block is 128 strips, about one per SM
 DEFAULT_STRIP = 128

@@ -270,3 +270,26 @@ def test_pointer_batches_give_the_same_alignment(name, D, monkeypatch):
     if D < 8:  # a block the walk crosses several tiles of
         assert max(per_launch[pbp.PTR_BATCH_BYTES]) >= 2
         assert len(per_launch[pbp.PTR_BATCH_BYTES]) < walked
+
+
+def test_fault_7_sp_scores_below_the_jax_sentinel_follow_the_oracle():
+    """Fault 7 (ROADMAP Queue 3): the JAX package's full-matrix SP path
+    starts its capture and its E/F boundaries at -2^28, so a global score
+    below that comes back as -2^28 and its walk's re-score check raises.
+    The port's sentinel is -2^30: both SP entry points give the oracle's
+    result.  100 x letter 0 against 90 x letter 1, DNA 2/-3, o=-5, e=-2
+    times 2^20, global, on meshes of 2."""
+    import jax
+
+    q, t = np.zeros(100, np.int32), np.ones(90, np.int32)
+    s = 1 << 20
+    jsp = JaxScoringParams(match=2 * s, mismatch=-3 * s, gap_open=-5 * s, gap_extend=-2 * s)
+    want = nw_affine(q, t, jsp)
+    assert str(want) == "score=-309329920 q[0:100] t[0:90] 10I90M"
+    jmesh = jbp.make_band_mesh(jax.devices()[:2])
+    assert jbp.nw_affine_score_sp(q, t, jsp, jmesh, C=128) == -(1 << 28) == -268435456
+    with pytest.raises(RuntimeError, match="rescore -309329920 != fill score -268435456"):
+        jbp.nw_affine_align_sp(q, t, jsp, jmesh, C=128)
+    for D in (1, 2):
+        assert st.align_score_sp(q, t, _psp(jsp), _mesh(D), C=128) == want.score
+        assert str(st.align_sp(q, t, _psp(jsp), _mesh(D), C=128)) == str(want)

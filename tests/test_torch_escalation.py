@@ -181,3 +181,66 @@ def test_pointer_budget_routes_through_host_windows(port_run, monkeypatch):
     whole = port_strip.strip_bucket(qq, tt, ql, tl, tables, mode="global", want_tb=True)
     for k in KEYS:
         np.testing.assert_array_equal(np.asarray(chunked[k]), np.asarray(whole[k]), err_msg=k)
+
+
+# fault 8 (ROADMAP Queue 3): short local pairs under DNA affine scoring times
+# 2^k near int32's range (|o| + (n + m) max(|e|, |s|) <= 2^29); pass 2's
+# window is sized by the bucket, not the pair
+FAULT_8 = [(np.array([3], np.uint8), np.array([3, 3], np.uint8), 25),
+           (np.array([2, 2, 3, 0, 3, 2, 0], np.uint8), np.array([3, 0, 1, 0, 3], np.uint8), 23)]
+
+
+def _scaled(shift):
+    s = 1 << shift
+    return ScoringParams(match=2 * s, mismatch=-3 * s, gap_open=-5 * s, gap_extend=-2 * s)
+
+
+@pytest.mark.parametrize("traceback", [True, False])
+@pytest.mark.parametrize("case", range(len(FAULT_8)))
+def test_fault_8_pass2_window_near_int32_range_follows_the_oracle(case, traceback):
+    """The banded pass-2 engine (``band_fill`` in emode) fills its whole
+    window unmasked: past the pair, H sank by a gap or a mismatch a diagonal,
+    below -2^31 at this scale, and the kernel's int32 wrapped (the card
+    raised in pass 3's row window; the JAX package's pass 2 loses the score).
+    The plain version computes in int64 but hands its state back in int32,
+    where it wrapped the same way.  Now H is floored at ``EMODE_FLOOR``: the
+    H stays inside [EMODE_FLOOR, score], no value wraps and the result is
+    the oracle's."""
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch.ops import band_fill as bf_mod
+    from seqalib_tpu_torch.oracle_fast import align_oracle
+
+    q, t, shift = FAULT_8[case]
+    sp = _scaled(shift)
+    psp = scoring_params(sp.match, sp.mismatch, sp.gap_open, sp.gap_extend, None)
+    states = []
+
+    def spy(*a, **kw):
+        out = bf_mod.band_fill(*a, **kw)
+        states.append(out["state"])
+        return out
+
+    want = align_oracle(q, t, sp, mode="local")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_strip, "band_fill", spy)
+        got = st.api.align_batch([q], [t], scoring=psp, mode="local", traceback=traceback,
+                                 device="cpu")[0]
+    assert states  # the banded engine ran
+    for s in states:  # H of the last two diagonals; no value wrapped to the top
+        assert int(s[:2].min()) >= bf_mod.EMODE_FLOOR
+        assert int(s[:4].max()) <= want.score
+    assert str(got) == str(want) if traceback else (
+        (got.score, got.query_start, got.query_end, got.target_start, got.target_end)
+        == (want.score, want.query_start, want.query_end, want.target_start, want.target_end))
+
+
+def test_fault_8_jax_pass2_loses_the_local_score():
+    """The JAX package on fault 8's first pair: its int32 pass 2 wraps and
+    ``strip_bucket`` gives up (the port follows the oracle instead)."""
+    q, t, shift = FAULT_8[0]
+    sp = _scaled(shift)
+    with pytest.raises(AssertionError, match="reverse extension lost the local score"):
+        strip_pallas.strip_bucket(q[None].astype(np.int32), t[None].astype(np.int32),
+                                  np.array([len(q)]), np.array([len(t)]), sentinel_table(sp),
+                                  mode="local", gap_open=sp.gap_open,
+                                  gap_extend=sp.gap_extend, affine=True, want_tb=False)

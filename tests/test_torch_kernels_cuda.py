@@ -389,6 +389,44 @@ def test_band_fill_emode_kernel_matches_plain_version(dev, scoring, tie_safe, Wp
     _same(got, band_fill_ref(*c["args"], state, c["score"], c["tab"], **call))
 
 
+# fault 8 (ROADMAP Queue 3): short local pairs under DNA affine scoring times
+# 2^k near int32's range; the banded pass 2 wrapped int32 past the pair
+FAULT_8 = [(np.array([3], np.uint8), np.array([3, 3], np.uint8), 25),
+           (np.array([2, 2, 3, 0, 3, 2, 0], np.uint8), np.array([3, 0, 1, 0, 3], np.uint8), 23),
+           (np.array([0] * 15, np.uint8), np.array([0, 1] * 8, np.uint8), 23)]
+
+
+@pytest.mark.parametrize("traceback", [True, False])
+@pytest.mark.parametrize("case", range(len(FAULT_8)))
+def test_fault_8_pass2_near_int32_range_on_the_card(dev, case, traceback):
+    """Each emode call of the pair's pass 2 equals its plain version, and
+    the result the oracle's (the kernel wrapped below -2^31 before EMODE_FLOOR:
+    pass 3's row window then raised)."""
+    from seqalib_tpu_torch.ops import strip as strip_mod
+
+    q, t, shift = FAULT_8[case]
+    s = 1 << shift
+    sp = ScoringParams(match=2 * s, mismatch=-3 * s, gap_open=-5 * s, gap_extend=-2 * s)
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append((a, kw))
+        return band_fill(*a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(strip_mod, "band_fill", spy)
+        got = align_batch([q], [t], scoring=scoring_params(sp.match, sp.mismatch, sp.gap_open,
+                                                          sp.gap_extend, None),
+                          mode="local", traceback=traceback, device=dev)[0]
+    assert calls
+    for a, kw in calls:
+        _same(band_fill(*a, **kw), band_fill_ref(*a, **kw))
+    want = oracle_fast.align_oracle(q, t, sp, mode="local")
+    assert (str(got) == str(want) if traceback else
+            got.score == want.score and (got.query_start, got.query_end) ==
+            (want.query_start, want.query_end))
+
+
 @pytest.mark.parametrize("scoring", sorted(SCORINGS))
 def test_band_walk_kernel_matches_plain_version(dev, scoring):
     c = _band_bucket(dev, scoring, seed=3)

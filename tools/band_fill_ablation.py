@@ -22,9 +22,12 @@ per thread from Wp 129 on); ``no_barrier`` (the per-diagonal
 (every letter read as 0: wrong values, the letter loads' cost); and, with
 ``--baseline NAME=PATH``, other ``band_fill.cu`` files with the same C
 interface (for example the parent commit's).  A variant that keeps the values must equal
-``shipped`` on every output, or the script fails.  Prints the card's name
-and power limit, one line per variant and shape (ms per call, µs per
-anti-diagonal), and a JSON summary as the last line.
+``shipped`` on every output, or the script fails.  ``--only NAME ...``
+builds and times those variants alone, and ``--rounds N`` times them in
+turns, N rounds with the order swapped each round (``--shapes`` picks the
+shapes).  Prints the card's name and power limit, one line per variant
+and shape (ms per call, µs per anti-diagonal; per round with
+``--rounds``), and a JSON summary as the last line.
 """
 
 import argparse
@@ -108,6 +111,9 @@ def cases(dev):
                             table=dna, k0=4096, k1=8192, mode="ptr"),
         "emode": case(rng, dev, B=512, L=1024, band=64, Wp=128, alpha=20, table=BLOSUM62,
                       k0=0, k1=1152, mode="emode", tie_safe=True, smax=11),
+        # config 3's pass 2 as the main path calls it (tie_safe off)
+        "emode_config3": case(rng, dev, B=512, L=1024, band=64, Wp=128, alpha=20,
+                              table=BLOSUM62, k0=0, k1=1152, mode="emode"),
         "wide_fill": case(rng, dev, B=64, L=10_000, band=1000, Wp=1152, alpha=4, table=dna,
                           k0=0, k1=2048, mode="fill"),
     }
@@ -123,6 +129,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", nargs="*", default=[], metavar="NAME=PATH",
                     help="other band_fill.cu files with the same C interface")
+    ap.add_argument("--only", nargs="*", default=None, metavar="NAME",
+                    help="build and time these variants alone (shipped first)")
+    ap.add_argument("--shapes", nargs="*", default=None, metavar="SHAPE")
+    ap.add_argument("--rounds", type=int, default=1, help="rounds in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("band_fill_ablation: no CUDA device", file=sys.stderr)
@@ -130,8 +140,12 @@ def main() -> int:
     dev = torch.device("cuda")
     print(card_line(), flush=True)
     srcs = variants(args.baseline)
+    if args.only is not None:
+        srcs = {k: v for k, v in srcs.items() if k == "shipped" or k in args.only}
     libs = build_all(srcs)
     shapes = cases(dev)
+    if args.shapes is not None:
+        shapes = {k: v for k, v in shapes.items() if k in args.shapes}
     ref, rows = {}, []
     for name in srcs:
         _build._lib = libs[name]
@@ -144,14 +158,25 @@ def main() -> int:
                 for key, v in ref[shape].items():
                     if not torch.equal(got[key], v):
                         raise AssertionError(f"{name} {shape}: {key} differs from shipped")
-            ms = time_ms(lambda: bf_mod.band_fill(*a, **kw), REPS)
-            us = ms * 1e3 / (kw["k1"] - kw["k0"])
-            Wp = a[6].shape[2]
-            print(f"[ablation] {name:10s} {shape:13s} Wp {Wp:5d} B {a[6].shape[1]:4d}: "
-                  f"{ms:8.3f} ms, {us:.4f} µs per anti-diagonal"
-                  + ("" if srcs[name][1] else " (values not kept)"), flush=True)
-            rows.append({"variant": name, "shape": shape, "Wp": Wp, "ms": ms,
-                         "us_per_diagonal": us, "exact": srcs[name][1]})
+    names = list(srcs)
+    for r in range(args.rounds):
+        for shape, (a, kw) in shapes.items():
+            for name in (names if r % 2 == 0 else names[::-1]):
+                _build._lib = libs[name]
+                ms = time_ms(lambda: bf_mod.band_fill(*a, **kw), REPS)
+                us = ms * 1e3 / (kw["k1"] - kw["k0"])
+                Wp = a[6].shape[2]
+                print(f"[ablation] round {r + 1} {name:10s} {shape:13s} Wp {Wp:5d} B "
+                      f"{a[6].shape[1]:4d}: {ms:8.4f} ms, {us:.4f} µs per anti-diagonal"
+                      + ("" if srcs[name][1] else " (values not kept)"), flush=True)
+                rows.append({"variant": name, "shape": shape, "round": r + 1, "Wp": Wp,
+                             "ms": ms, "us_per_diagonal": us, "exact": srcs[name][1]})
+    if args.rounds > 1:
+        for shape in shapes:
+            spans = {n: [x["ms"] for x in rows if x["variant"] == n and x["shape"] == shape]
+                     for n in names}
+            print(f"[turns] {shape}: " + "; ".join(f"{n} {min(v):.4f}-{max(v):.4f} ms"
+                                                   for n, v in spans.items()), flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}))
     return 0
 

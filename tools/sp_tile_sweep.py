@@ -14,12 +14,21 @@ and the substeps each further strip adds.  ``--ablate`` instead builds
 variants of ``seqalib_tpu_torch/csrc/sp_tile.cu`` (one ``nvcc`` each, all
 started together) with one piece of a substep's work removed (values not
 kept) and times a lone strip of 64 rows and a run of 16 384 rows with
-each.  The card's name and power limit come first; the last line is a
-JSON summary.  Needs a CUDA card.
+each.  ``--parent DIR`` instead builds ``DIR``'s ``sp_tile.cu`` (another
+checkout, e.g. ``git archive`` of the parent commit unpacked under
+``_checkout/``) beside this tree's, records the tile calls of
+``chip_smoke.py``'s SP phase (its pairs and calls: ``align_sp`` 10 240 x
+8 192, the local score of 16 384 x 16 381, the 1 536-letter pair as one
+tile) and times each call with both libraries in turns over ``--rounds``
+rounds (the order swapped each round), every sentinel input at the
+library's own value (``NEG`` of each tree's ``ops/sp_tile.py``), and the
+two outputs held equal.  The card's name and power limit come first; the
+last line is a JSON summary.  Needs a CUDA card.
 """
 
 import argparse
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -73,11 +82,100 @@ def run_ms(R, W, strip, calls, dev, C=256):
     return time_ms(lambda: sp_tile_run(*args, **kw), calls)
 
 
+def path_calls(dev):
+    """{key: (fn, args, kw)}: the first call of each ``sp_tile`` key in
+    ``chip_smoke.py``'s SP phase, whole, and ``key cut`` for the three keys
+    that phase holds to the plain version on a cut (its first rows and
+    tiles), as it cuts them."""
+    import chip_smoke as cs
+    from seqalib_tpu_torch import ScoringParams
+    from seqalib_tpu_torch.ops import sp_tile as tile_mod
+    from seqalib_tpu_torch.parallel import band_pipeline as bp_mod
+
+    q, t, q16, t16, qo, to = cs.sp_pairs(np.random.default_rng(cs.SEED))
+    sp = ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+    targets = [(bp_mod, "sp_tile_run", tile_mod.sp_tile_run_ref),
+               (bp_mod, "sp_tile_ptr", tile_mod.sp_tile_ptr_ref)]
+    mesh = (dev,)
+    calls = {}
+    for run in (lambda: bp_mod.nw_affine_align_sp(q, t, sp, mesh, C=cs.SP_C),
+                lambda: bp_mod.sw_affine_score_sp(q16, t16, sp, mesh, C=cs.SP_C),
+                lambda: bp_mod.nw_affine_align_sp(qo, to, sp, mesh, C=cs.SP_ONE_C),
+                lambda: bp_mod.sw_affine_score_sp(qo, to, sp, mesh, C=cs.SP_ONE_C)):
+        more, _ = cs.record(run, targets)
+        calls.update({k: (fn, args, kw) for k, (fn, _, args, kw, _) in more.items()
+                      if k not in calls})
+    Rc = cs.SP_CUT_ROWS
+    for key in ("sp_tile/run_global", "sp_tile/run_local", "sp_tile/ptr_batch"):
+        fn, args, kw = calls[key]
+        qb, tk, htop, ftop, hcol, ecol, cap, tab = args
+        C = kw["C"]
+        if key == "sp_tile/ptr_batch":
+            K = htop.shape[0]
+            Kc = min(K, cs.SP_CUT_BATCH)
+            cut = (qb[:Rc], tk[(K - Kc) * C:], htop[:Kc], ftop[:Kc], hcol[:Kc, :Rc],
+                   ecol[:Kc, :Rc], cap, tab)
+        else:
+            W = cs.SP_CUT_TILES * C
+            cut = (qb[:Rc], tk[:W + 1], htop[:W + 1], ftop[:W], hcol[:Rc], ecol[:Rc], cap,
+                   tab)
+        calls[f"{key} cut"] = (fn, cut, kw)
+    return calls
+
+
+def parent_turns(parent, rounds, calls_per_round, dev):
+    """Each SP-phase tile call with ``parent``'s kernel and this tree's, in
+    turns; returns {key: {"parent": [ms], "this": [ms]}}."""
+    src = Path(parent) / "seqalib_tpu_torch" / "csrc" / "sp_tile.cu"
+    text = (Path(parent) / "seqalib_tpu_torch" / "ops" / "sp_tile.py").read_text()
+    parent_neg = -(1 << int(re.search(r"^NEG = -\(1 << (\d+)\)", text, re.M).group(1)))
+    libs = build_variants_of({"parent": {"sp_tile.cu": src.read_text()},
+                              "this": {"sp_tile.cu": (_build.CSRC / "sp_tile.cu").read_text()}},
+                             _build.BUILD_DIR / "sp_tile_parent")
+    negs = {"parent": parent_neg, "this": NEG}
+    calls = path_calls(dev)
+
+    def with_neg(args, neg):  # the sentinel inputs at the library's own value
+        return tuple(torch.where(x == NEG, neg, x) if torch.is_tensor(x) and x.dtype ==
+                     torch.int32 else x for x in args)
+
+    times = {key: {"parent": [], "this": []} for key in calls}
+    for key, (fn, args, kw) in calls.items():
+        outs = {}
+        for name in ("parent", "this"):
+            _build._lib = libs[name]
+            outs[name] = fn(*with_neg(args, negs[name]), **kw)
+        for k, v in outs["parent"].items():  # a capture no cell took is the sentinel
+            if v.dtype == torch.int32:
+                v = torch.where(v == parent_neg, NEG, v)
+            if not torch.equal(outs["this"][k], v):
+                raise AssertionError(f"{key}: {k} differs between the two kernels")
+    for r in range(rounds):
+        order = ("parent", "this") if r % 2 == 0 else ("this", "parent")
+        for key, (fn, args, kw) in calls.items():
+            for name in order:
+                _build._lib = libs[name]
+                a = with_neg(args, negs[name])
+                times[key][name].append(time_ms(lambda: fn(*a, **kw), calls_per_round))
+        print(f"[turns] round {r + 1}: " + "; ".join(
+            f"{k} {v['parent'][-1]:.4f} / {v['this'][-1]:.4f}" for k, v in times.items()),
+            flush=True)
+    for key, v in times.items():
+        wins = sum(b < a for a, b in zip(v["parent"], v["this"]))
+        print(f"[turns] {key}: parent {min(v['parent']):.4f}-{max(v['parent']):.4f} ms, this "
+              f"{min(v['this']):.4f}-{max(v['this']):.4f} ms; this faster in {wins} of "
+              f"{rounds} rounds", flush=True)
+    return times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cols", type=int, default=16384)
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--parent", help="another checkout: its sp_tile kernel in turns with "
+                    "this tree's at the SP phase's calls")
+    ap.add_argument("--rounds", type=int, default=6)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("sp_tile_sweep: needs a CUDA card", file=sys.stderr)
@@ -86,6 +184,10 @@ def main() -> int:
     print(card_line(), flush=True)
     W = args.cols
     rows = []
+    if args.parent:
+        times = parent_turns(args.parent, args.rounds, args.calls, dev)
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "turns": times}))
+        return 0
     if args.ablate:
         for name, lib in build_variants().items():
             _build._lib = lib
