@@ -39,8 +39,14 @@ Phases (any failure raises and exits non-zero):
    pairs cut to 1024 x 1088 equal the banded oracle; then a band sweep
    (64, 256) and B=8 pairs of 100 kb at band 64, re-scored; then one 10 kb
    read against a 27 kb window (a length delta of 17 000, slot width Wp
-   8 704: the wide variant of the banded fill), its CIGAR re-scored and its
-   score equal to ``align_score_sp``'s;
+   8 704: the wide variant of the banded fill, a thread block cluster a
+   pair), its CIGAR re-scored and its score equal to ``align_score_sp``'s;
+   then the wide variants' other instances through the entry points, each
+   result equal to the oracle: local pass 2 under SEQALIB_FUSED_BW=16 384
+   (the cluster's emode, Wp 16 512) on 8 of config 3's pairs and under
+   131 100 (the global-scratch variant's emode, Wp 131 200) on them cut to
+   100 letters, and ``band=131 100`` on 2 DNA pairs of 100 letters (the
+   scratch variant's fill and pointer modes);
 6. the full-matrix sequence-parallel path on a mesh of one device:
    ``align_sp`` on a 10 240 x 8 192 DNA pair (the target is the query's
    first 8 192 letters with 150 substitutions; match 2, mismatch -3, o=-5,
@@ -137,11 +143,11 @@ Phases (any failure raises and exits non-zero):
    BLOSUM62 with gap_open 0, DNA affine scaled near int32's range), both
    modes, through every route of ``sweep.ROUTES`` on the card
    (``align_batch`` on the strip route under both pass-2 engines with and
-   without traceback and on ``"xla"``, ``band=`` 1, 3, 16 and 800,
+   without traceback and on ``"xla"``, ``band=`` 1, 3, 16, 800 and 8 300,
    ``align``, ``align_all_vs_all``, both SP and both banded-SP entry points
    on a mesh of 2 naming the card), the launch counts set to 0 just before
-   and read just after (every key but the two wide ``band_fill`` ones
-   launched); every result equal to ``oracle_fast``, the first call of each
+   and read just after (every key but ``band_fill/wide_emode`` and the
+   scratch variant's launched); every result equal to ``oracle_fast``, the first call of each
    kernel key the routes launched equal to its plain version, every
    identity of ``tests/test_torch_properties.py`` (``sweep.identity_checks``)
    and fault 7's pair on both SP entry points equal to the oracle.
@@ -176,7 +182,9 @@ batch, on their first 2048 rows and first 4 tiles (3 of a batch), with the
 whole call's time printed beside, and the one-tile launches of the
 2 048-column tiles whole), the wide banded fill (fill and pointer modes on
 2048 diagonals of the 17 000-delta pair, and of pairs whose deltas give Wp
-8 320 and 16 384), the
+8 320, 16 384 and 32 768, each with its cluster geometry; the scratch
+variant's fill and pointer calls and both variants' pass-2 emode calls
+whole), the
 wavefront fill (pointer and score-only modes, at the wide-table phase's
 shapes), the wavefront walk (at the same phase's stream, on its CIGAR
 text, lengths and final states, with its kernel's own time under
@@ -235,7 +243,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_CELL = {"strip_fill/local": 11, "strip_fill/emode": 10, "strip_fill/gmode": 13,
                 "band_fill/fill": 9, "band_fill/ptr": 13, "band_fill/emode": 10,
                 "band_fill/relay": 9, "band_fill/relay_ptr": 13,
-                "band_fill/wide": 9, "band_fill/wide_ptr": 13,
+                "band_fill/wide": 9, "band_fill/wide_ptr": 13, "band_fill/wide_emode": 10,
+                "band_fill/wide_scratch": 9, "band_fill/wide_scratch_ptr": 13,
+                "band_fill/wide_scratch_emode": 10,
                 "sp_tile/global": 9, "sp_tile/local": 11, "sp_tile/ptr": 13,
                 "sp_tile/run_global": 9, "sp_tile/run_local": 11, "sp_tile/ptr_batch": 13,
                 "wavefront_fill/score": 9, "wavefront_fill/ptr": 13,
@@ -253,8 +263,16 @@ SP_ORACLE_N = 1536  # align_sp held to the oracle, str(AlignResult), on meshes o
 SP_ONE_C = 2048  # tiles as wide as the SP_ORACLE_N pair: one tile per block
 SP_CUT_TILES, SP_CUT_BATCH = 4, 3  # tiles of a run and of a pointer batch held to plain
 # config 4 with a long window: a 10 kb read against L4 + delta letters; the
-# deltas give the wide fill Wp 8 704 (the path), 8 320 and 16 384
-WIDE_DELTA, WIDE_DELTAS_HELD = 17_000, (16_300, 32_400)
+# deltas give the wide fill (a thread block cluster a pair) Wp 8 704 (the
+# path), 8 320, 16 384 and 32 768
+WIDE_DELTA, WIDE_DELTAS_HELD = 17_000, (16_300, 32_400, 65_100)
+# the scratch variant (Wp > 131 072): a band of 131 100 on SCRATCH_PAIRS DNA
+# pairs of SCRATCH_LEN letters (Wp 131 200, few diagonals); pass 2 reaches
+# the wide emode under SEQALIB_FUSED_BW=PASS2_WIDE_BW (Wp 16 512) on
+# PASS2_PAIRS of config 3's pairs, the scratch emode under PASS2_SCRATCH_BW
+# (Wp 131 200) on them cut to SCRATCH_LEN letters
+SCRATCH_BAND, SCRATCH_PAIRS, SCRATCH_LEN = 131_100, 2, 100
+PASS2_WIDE_BW, PASS2_SCRATCH_BW, PASS2_PAIRS = 16_384, 131_100, 8
 B7, L7, BAND7 = 64, 1000, 64
 # the banded-SP phase (8): long reads, the relay's mesh, the kernel cuts
 BSP, LSP, BANDSP, DSP = 16, 100_000, 256, 4
@@ -319,8 +337,14 @@ KERNELS = {  # name -> (CUDA source, replaced Pallas kernel, path[, launch-count
     "band_fill/emode": ("band_fill.cu", f"{BANDED}:90", "config3"),
     "band_fill/fill": ("band_fill.cu", f"{BANDED}:90", "config4"),
     "band_fill/ptr": ("band_fill.cu", f"{BANDED}:90", "config4"),
+    # the wide variants: a thread block cluster a pair (8192 < Wp <= 131072),
+    # the global scratch past it
     "band_fill/wide": ("band_fill.cu", f"{BANDED}:90", "config4_wide"),
     "band_fill/wide_ptr": ("band_fill.cu", f"{BANDED}:90", "config4_wide"),
+    "band_fill/wide_emode": ("band_fill.cu", f"{BANDED}:90", "pass2_wide"),
+    "band_fill/wide_scratch": ("band_fill.cu", f"{BANDED}:90", "config4_scratch"),
+    "band_fill/wide_scratch_ptr": ("band_fill.cu", f"{BANDED}:90", "config4_scratch"),
+    "band_fill/wide_scratch_emode": ("band_fill.cu", f"{BANDED}:90", "pass2_scratch"),
     "band_walk": ("band_walk.cu", f"{BANDED}:890", "config4"),
     "sp_tile/global": ("sp_tile.cu", f"{SPTILE}:52", "sp_one_tile"),
     "sp_tile/ptr": ("sp_tile.cu", f"{SPTILE}:52", "sp_one_tile"),
@@ -1056,17 +1080,23 @@ def kernel_phase_sp(q, t, q16, t16, qo, to, sp, dev):
     return per_kernel
 
 
-def kernel_phase_wide4(q, t, sp, dev):
-    """The wide banded fill: config 4's path on one read against windows
-    WIDE_DELTA and WIDE_DELTAS_HELD letters longer, its fill and pointer
-    calls held against the plain version on CMP_DIAGONALS diagonals (the
-    fill from its middle checkpoint, the pointer recompute from its first
-    diagonal), the whole calls timed; the key takes the WIDE_DELTA pair."""
+def kernel_phase_wide4(q, t, sp, q3, t3, sp3, dev):
+    """The wide banded fills: config 4's path on one read against windows
+    WIDE_DELTA and WIDE_DELTAS_HELD letters longer (the cluster variant),
+    its fill and pointer calls held against the plain version on
+    CMP_DIAGONALS diagonals (the fill from its middle checkpoint, the
+    pointer recompute from its first diagonal), the whole calls timed; the
+    key takes the WIDE_DELTA pair.  Then the scratch variant's fill and
+    pointer calls on short pairs at a band of SCRATCH_BAND, and pass 2's
+    emode on both variants (``pass2_runs``' calls), each whole call held."""
     from seqalib_tpu_torch.models import banded as banded_mod
     from seqalib_tpu_torch.ops import band_fill as bf_mod
+    from seqalib_tpu_torch.ops import strip as strip_mod
 
     targets = [(banded_mod, "band_fill", bf_mod.band_fill_ref)]
     per_kernel = {}
+    tail = np.random.default_rng(SEED + 2).integers(0, 4, max(WIDE_DELTAS_HELD), np.uint8)
+    t = np.concatenate([t, tail])  # windows past the pair's own target
     for delta in (WIDE_DELTA, *WIDE_DELTAS_HELD):
         tw = t[: len(q) + delta]
         calls, _ = record(lambda: banded_mod.banded_align_batch(
@@ -1085,9 +1115,97 @@ def kernel_phase_wide4(q, t, sp, dev):
             entry = kernel_entry(key, fn, plain, args, kw)
             if delta == WIDE_DELTA:
                 per_kernel[key] = entry
-            say(f"[kernel] {key}: delta {delta}, Wp {args[6].shape[2]}: whole call "
+            say(f"[kernel] {key}: delta {delta}, Wp {args[6].shape[2]}, geometry (C, S, "
+                f"threads) {bf_mod.fill_geometry(args[6].shape[2])}: whole call "
                 f"{whole:.3f} ms over {calls[key][3]['k1'] - calls[key][3]['k0']} diagonals")
+    qs, ts = scratch_pairs()
+    calls, _ = record(lambda: banded_mod.banded_align_batch(
+        qs, ts, np.full(len(qs), SCRATCH_LEN), np.full(len(ts), SCRATCH_LEN), sp,
+        SCRATCH_BAND, device=dev), targets)
+    for key in ("band_fill/wide_scratch", "band_fill/wide_scratch_ptr"):
+        per_kernel[key] = kernel_entry(key, *calls[key][:4])
+    for bw, key in ((PASS2_WIDE_BW, "band_fill/wide_emode"),
+                    (PASS2_SCRATCH_BW, "band_fill/wide_scratch_emode")):
+        calls, _ = record(lambda: pass2_run(q3, t3, sp3, bw, dev),
+                          [(strip_mod, "band_fill", bf_mod.band_fill_ref)])
+        per_kernel[key] = kernel_entry(key, *calls[key][:4])
     return per_kernel
+
+
+def scratch_pairs():
+    """SCRATCH_PAIRS DNA pairs of SCRATCH_LEN letters (the target the query
+    with 4% substitutions): at a band of SCRATCH_BAND, Wp 131 200."""
+    rng = np.random.default_rng(SEED + 3)
+    qs = rng.integers(0, 4, (SCRATCH_PAIRS, SCRATCH_LEN)).astype(np.uint8)
+    ts = qs.copy()
+    ts[:, ::25] = (ts[:, ::25] + 1) % 4
+    return qs, ts
+
+
+def pass2_inputs(q3, t3, bw):
+    """Config 3's first PASS2_PAIRS pairs, cut to SCRATCH_LEN letters for
+    the scratch variant's band."""
+    cut = SCRATCH_LEN if bw > PASS2_WIDE_BW else None
+    return [q[:cut] for q in q3[:PASS2_PAIRS]], [t[:cut] for t in t3[:PASS2_PAIRS]]
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """The environment variable ``name`` set to ``value``, and put back as
+    it was (or unset) after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def pass2_run(q3, t3, sp3, bw, dev):
+    """Local ``align_batch`` with CIGARs on ``pass2_inputs`` under
+    SEQALIB_FUSED_BW=bw: pass 2's banded engine over Wp = ceil128(bw + 2)."""
+    import seqalib_tpu_torch as st
+
+    qs, ts = pass2_inputs(q3, t3, bw)
+    with env_set("SEQALIB_FUSED_BW", str(bw)):
+        return st.align_batch(qs, ts, scoring=sp3, mode="local", device=dev)
+
+
+def wide_variant_runs(q3, t3, sp3, sp4, dev, counts):
+    """The entry points through the wide variants' other instances, each
+    counted as a path: pass 2 under a band of PASS2_WIDE_BW (the cluster
+    emode) and PASS2_SCRATCH_BW (the scratch emode), and config 4's route
+    at a band of SCRATCH_BAND (the scratch fill and pointer modes); every
+    result equal to the oracle's."""
+    import seqalib_tpu_torch as st
+    from seqalib_tpu_torch.ops import launches, reset_launches
+
+    for bw, path in ((PASS2_WIDE_BW, "pass2_wide"), (PASS2_SCRATCH_BW, "pass2_scratch")):
+        reset_launches()
+        got = pass2_run(q3, t3, sp3, bw, dev)
+        counts[path] = dict(launches)
+        qs, ts = pass2_inputs(q3, t3, bw)
+        want = st.align_batch(qs, ts, scoring=sp3, mode="local", backend="oracle")
+        for b, (g, w) in enumerate(zip(got, want)):
+            if str(g) != str(w):
+                raise AssertionError(f"{path} pair {b}: {g} != oracle {w}")
+        say(f"[{path}] SEQALIB_FUSED_BW={bw}: {len(qs)}/{len(qs)} local pairs equal to the "
+            "oracle")
+    qs, ts = scratch_pairs()
+    reset_launches()
+    got = st.align_batch(list(qs), list(ts), scoring=sp4, mode="global", band=SCRATCH_BAND,
+                         device=dev)
+    counts["config4_scratch"] = dict(launches)
+    want = st.align_batch(list(qs), list(ts), scoring=sp4, mode="global", band=SCRATCH_BAND,
+                          backend="oracle")
+    for b, (g, w) in enumerate(zip(got, want)):
+        if str(g) != str(w):
+            raise AssertionError(f"config4_scratch pair {b}: {g} != oracle {w}")
+    say(f"[config4_scratch] band {SCRATCH_BAND}: {len(qs)}/{len(qs)} pairs equal to the "
+        "banded oracle")
 
 
 def kernel_phase_wide(qs, ts, sp, dev):
@@ -2143,7 +2261,8 @@ def sweep_runs(dev):
         f"{ {k: v for k, v in counts.items() if v} }")
     missing = [k for k, (_, _, _, *key) in KERNELS.items()
                if counts.get((key or [k])[0], 0) <= 0
-               and k not in ("band_fill/wide", "band_fill/wide_ptr")]
+               and k not in ("band_fill/wide_emode", "band_fill/wide_scratch",
+                             "band_fill/wide_scratch_ptr", "band_fill/wide_scratch_emode")]
     if missing:
         raise AssertionError(f"[sweep] the routes never launched: {missing}")
     n = sweep.identity_checks(dev)
@@ -2205,7 +2324,7 @@ def main() -> int:
     say(f"[config3] escalated pairs: {escalated}/{B3}")
     kernel_phase1(q1, t1, sp1, dev)
     per_kernel.update(kernel_phase4(qs4, ts4, sp4, dev))
-    per_kernel.update(kernel_phase_wide4(qw, tw, sp4, dev))
+    per_kernel.update(kernel_phase_wide4(qw, tw, sp4, q3, t3, sp3, dev))
     per_kernel.update(kernel_phase_sp(qsp, tsp, q16, t16, qo, to, sp4, dev))
     per_kernel.update(kernel_phase_wide(qs7, ts7, sp7, dev))
     per_kernel.update(kernel_phase_xla(q1, t1, sp1, q3, t3, sp3, dev))
@@ -2226,13 +2345,10 @@ def main() -> int:
     reset_launches()
     want3 = config_run("config3", qs3, ts3, sp3, "local", dev)
     counts["config3"] = dict(launches)
-    os.environ["SEQALIB_FUSED_PASS2"] = "strip"
-    try:
+    with env_set("SEQALIB_FUSED_PASS2", "strip"):
         reset_launches()
         config_run("config3_strip", qs3, ts3, sp3, "local", dev, want=want3)
         counts["config3_strip"] = dict(launches)
-    finally:
-        del os.environ["SEQALIB_FUSED_PASS2"]
 
     reset_launches()
     want1 = config_run("config1", list(q1), list(t1), sp1, "global", dev)
@@ -2254,6 +2370,7 @@ def main() -> int:
     if res[0].score != want:
         raise AssertionError(f"config4_wide score {res[0].score} != align_score_sp {want}")
     say(f"[config4_wide] delta {WIDE_DELTA}: score {want} == align_score_sp")
+    wide_variant_runs(q3, t3, sp3, sp4, dev, counts)
     say(f"[time] configs done at {time.perf_counter() - t_start:.1f} s")
     sp_runs(qsp, tsp, q16, t16, qo, to, sp4, dev, counts)
     say(f"[time] SP phase done at {time.perf_counter() - t_start:.1f} s")

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "seqalib_strip_walk": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P],
     "seqalib_band_fill": [
         _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P,
+        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P,
     ],
     "seqalib_band_walk": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "seqalib_sp_run": [_P] * 7 + [_I] * 16 + [_P] * 4 + [_I] + [_P] * 6,

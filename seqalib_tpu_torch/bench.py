@@ -68,9 +68,9 @@ def main(argv=None) -> int:
     knobs = strip.pass2_knobs()
 
     def call():
-        return strip.local_fused(qpad, t2, qlen, qlen, tables, mq=L, WR=strip.WR_DEFAULT,
+        return strip.local_fused(qpad, t2, qlen, qlen, tables, mq=L, WR=knobs["WR"],
                                  pass2=knobs["pass2"], tie_safe=knobs["tie_safe"],
-                                 err=error_words(5, dev))
+                                 err=error_words(5, dev), BW=knobs["BW"])
 
     out = {k: v.cpu().numpy() for k, v in call().items()}  # warm-up, and the checked call
     raise_on_error(out["row_err"][:4], (qpad.shape[1], t2.shape[1]) * 2)

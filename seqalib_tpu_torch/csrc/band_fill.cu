@@ -31,7 +31,8 @@
 // Design: one CTA per pair, thread t owning the S adjacent slots
 // [t*S, t*S + S) (S by Wp: 1 up to Wp 512, then 2, 4, 8, 16, so that a CTA
 // has at most 512 threads; blockDim is rounded up to whole warps and the
-// slots past Wp - 1 are idle; above Wp 8192, band_fill_wide_kernel below).  H(k-1), H(k-2), E(k-1), F(k-1) of a
+// slots past Wp - 1 are idle; ops/band_fill.py::fill_geometry chooses S and
+// the threads, and above Wp 8192 the wide variants below).  H(k-1), H(k-2), E(k-1), F(k-1) of a
 // thread's slots, the kEmode BV/BK/EV and the pending kPtr nibble stay in
 // registers.  Since d1 = ihat(k) - ihat(k-1) and d2 = ihat(k) - ihat(k-2)
 // depend on k alone, a slot's neighbours p-1 and p+1 are the same shift
@@ -75,6 +76,43 @@ constexpr int kEdge = 4;  // words per warp and buffer: H, E first; H, F last
 // sum wraps.  A cell of the pair never comes near the floor (its value is at
 // least -2^29), nor does any cell at the usual scales: no output changes there.
 constexpr int kEmodeFloor = -(1 << 30) - (1 << 29);
+// the most CTAs of a cluster (16 needs the non-portable size; 8 is portable)
+constexpr int kMaxCluster = 16;
+
+// thread block clusters (sm_90): the CTA's rank and the cluster's size and
+// index, a shared::cluster address of this CTA's shared word in CTA rank's,
+// a store of two words there, and the cluster barrier, split (arrive has
+// release semantics, wait acquire, by default)
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_nctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster2(uint32_t addr, int x, int y) {
+  asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};" ::"r"(addr), "r"(x), "r"(y)
+               : "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
 
 struct BandArgs {
   const int32_t* qk;  // (B, q_width) letters, row i at [i]
@@ -111,38 +149,60 @@ struct BandArgs {
 };
 
 // RELAY: a resumed row block (bh/bf and/or bout given), so that the
-// other launches issue none of its per-diagonal work
-template <int MODE, int S, bool RELAY>
+// other launches issue none of its per-diagonal work.  CLUSTER: the pair's
+// slots split over the CTAs of a thread block cluster (the wide variant,
+// below); false compiles to the one-CTA kernel above.
+template <int MODE, int S, bool RELAY, bool CLUSTER>
 __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(const BandArgs a) {
   extern __shared__ int32_t smem[];
   const int Wp = a.Wp;
   const int NT = a.NT;
   const int nwarp = blockDim.x >> 5;
-  // per buffer: kEdge words per warp, then H, F of slot Wp - 1
-  const int ebuf = nwarp * kEdge + 2;
-  int32_t* tab = smem;            // NT * NT
-  int32_t* edge = tab + NT * NT;  // [2][ebuf]
+  // per buffer: kEdge words per warp, then H, F of the slot left of the
+  // CTA's first (slot Wp - 1 for slot 0) and, in a cluster, H, E of the slot
+  // right of its last (slot 0 for slot Wp - 1); in a cluster the edges come
+  // first, so that the pairs other CTAs store are 8-byte aligned
+  const int ebuf = nwarp * kEdge + (CLUSTER ? 4 : 2);
+  int32_t* tab = CLUSTER ? smem + 2 * ebuf : smem;  // NT * NT
+  int32_t* edge = CLUSTER ? smem : tab + NT * NT;   // [2][ebuf]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int b = blockIdx.x;
+  // a cluster of ncta CTAs per pair: CTA crank owns slots [crank * Wc,
+  // (crank + 1) * Wc), Wc = blockDim.x * S
+  const int crank = CLUSTER ? (int)cluster_ctarank() : 0;
+  const int ncta = CLUSTER ? (int)cluster_nctarank() : 1;
+  const int b = CLUSTER ? (int)cluster_id() : blockIdx.x;
   for (int x = tid; x < NT * NT; x += blockDim.x) tab[x] = a.table[x];
 
-  const int base = tid * S;     // the thread's first slot
-  const int tl = (Wp - 1) / S;  // the thread that owns slot Wp - 1
+  const int base = (crank * (int)blockDim.x + tid) * S;  // the thread's first slot
+  const int tl = (Wp - 1) / S - crank * (int)blockDim.x;  // the thread that owns slot Wp - 1
   // the local slot whose right neighbour lies in another thread: the next
   // thread's first slot, or slot 0 for slot Wp - 1
   const int Lt = tid == tl ? Wp - 1 - base : S - 1;
   const bool live = base < Wp;
+  // the thread whose last slot's right neighbour lies in another CTA (the
+  // next one's first slot) or around the ring (slot 0): it sends H, F of
+  // that slot over, and takes H, E of the neighbour from the last words
+  const bool r_out = tid == tl || (CLUSTER && tid == (int)blockDim.x - 1 && crank + 1 < ncta);
   // where the thread's neighbours across its edges come from after a
   // barrier: the next warp's first slot (slot 0 for slot Wp - 1), the
   // previous warp's last slot (slot Wp - 1 for slot 0); every thread reads
   // (most at offset 0, a broadcast) and keeps what it needs, without a branch
-  const bool r_edge = tid == tl || (lane == 31 && warp + 1 < nwarp);
+  const bool r_edge = r_out || (lane == 31 && warp + 1 < nwarp);
   const bool l_edge = tid == 0 || (lane == 0 && warp > 0);
-  const int r_off = tid == tl ? 0 : (r_edge ? (warp + 1) * kEdge : 0);
+  const int r_off = r_out ? (CLUSTER ? nwarp * kEdge + 2 : 0)
+                          : (r_edge ? (warp + 1) * kEdge : 0);
   const int l_off = tid == 0 ? nwarp * kEdge : (l_edge ? (warp - 1) * kEdge + 2 : 0);
+  // in a cluster: the words of the CTAs on either side that this one feeds
+  // (around the cluster's ends: the ring), as shared::cluster addresses
+  uint32_t to_left = 0, to_right = 0;
+  if constexpr (CLUSTER) {
+    const uint32_t own = (uint32_t)__cvta_generic_to_shared(edge);
+    to_left = map_rank(own + (nwarp * kEdge + 2) * 4, (crank + ncta - 1) % ncta);
+    to_right = map_rank(own + nwarp * kEdge * 4, (crank + 1) % ncta);
+  }
   const size_t plane = (size_t)a.B * Wp;
   const size_t row = (size_t)b * Wp;
 
@@ -206,7 +266,12 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(const BandArgs a
   int ih2 = ihat(a.k0 - 2, a.dhi), ih1 = ihat(a.k0 - 1, a.dhi);
   int ih = ihat(a.k0, a.dhi);
   fetch(a.k0, ih);
-  __syncthreads();  // the table is in
+  if constexpr (CLUSTER) {  // the table is in, and every CTA of the cluster runs
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();  // the table is in
+  }
 #pragma unroll
   for (int s = 0; s < S; ++s) sc[s] = tab[min(qn[s], last) * NT + min(tn[s], last)];
 
@@ -257,7 +322,7 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(const BandArgs a
     const int pcap = a.bout_row - ih;
     const bool cap = bo_h != nullptr && bx >= 0 && bx < a.Wbo;
     const bool cap_in = cap && pcap >= 0 && pcap < Wp;
-    if (cap && !cap_in && tid == 0) {  // no slot: 0, as the TPU
+    if (cap && !cap_in && tid == 0 && crank == 0) {  // no slot: 0, as the TPU
       bo_h[bx] = 0;
       bo_f[bx] = 0;
     }
@@ -331,6 +396,35 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(const BandArgs a
       en[s] = E;
       fn[s] = F;
     }
+    if constexpr (CLUSTER) {
+      // the diagonal's edges go out at once, to this CTA's words and to
+      // the neighbours', and the barrier is passed; the rest of the step
+      // (rare stores, the next diagonal's lookups, the shuffles) runs
+      // before this CTA waits on it
+      int32_t* eo = edge + (k & 1) * ebuf;
+      if (lane == 0) {
+        eo[warp * kEdge] = hn[0];
+        eo[warp * kEdge + 1] = en[0];
+      }
+      if (lane == 31) {
+        eo[warp * kEdge + 2] = hn[S - 1];
+        eo[warp * kEdge + 3] = fn[S - 1];
+      }
+      const uint32_t buf = (uint32_t)((k & 1) * ebuf * 4);
+      if (tid == 0) st_cluster2(to_left + buf, hn[0], en[0]);
+      if (r_out) {  // the slot at local index Lt
+        int wh = hn[0], wf = fn[0];
+#pragma unroll
+        for (int s = 1; s < S; ++s) {
+          if (s == Lt) {
+            wh = hn[s];
+            wf = fn[s];
+          }
+        }
+        st_cluster2(to_right + buf, wh, wf);
+      }
+      cluster_arrive();
+    }
     // rare stores, under conditions that hold for the whole diagonal
     if (cap_in) {
 #pragma unroll
@@ -371,27 +465,31 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(const BandArgs a
     lnH1 = __shfl_up_sync(kFull, h1[S - 1], 1);
     lnF1 = __shfl_up_sync(kFull, f1[S - 1], 1);
     int32_t* eg = edge + (k & 1) * ebuf;
-    if (lane == 0) {
-      eg[warp * kEdge] = h1[0];
-      eg[warp * kEdge + 1] = e1[0];
-    }
-    if (lane == 31) {
-      eg[warp * kEdge + 2] = h1[S - 1];
-      eg[warp * kEdge + 3] = f1[S - 1];
-    }
-    if (tid == tl) {  // slot Wp - 1, local index Lt
-      int wh = h1[0], wf = f1[0];
-#pragma unroll
-      for (int s = 1; s < S; ++s) {
-        if (s == Lt) {
-          wh = h1[s];
-          wf = f1[s];
-        }
+    if constexpr (CLUSTER) {
+      cluster_wait();  // every CTA's edges of the diagonal are in
+    } else {
+      if (lane == 0) {
+        eg[warp * kEdge] = h1[0];
+        eg[warp * kEdge + 1] = e1[0];
       }
-      eg[nwarp * kEdge] = wh;
-      eg[nwarp * kEdge + 1] = wf;
+      if (lane == 31) {
+        eg[warp * kEdge + 2] = h1[S - 1];
+        eg[warp * kEdge + 3] = f1[S - 1];
+      }
+      if (tid == tl) {  // slot Wp - 1, local index Lt
+        int wh = h1[0], wf = f1[0];
+#pragma unroll
+        for (int s = 1; s < S; ++s) {
+          if (s == Lt) {
+            wh = h1[s];
+            wf = f1[s];
+          }
+        }
+        eg[nwarp * kEdge] = wh;
+        eg[nwarp * kEdge + 1] = wf;
+      }
+      __syncthreads();  // the diagonal's edges are out before the next reads them
     }
-    __syncthreads();  // the diagonal's edges are out before the next reads them
     const int xh = eg[r_off], xe = eg[r_off + 1];
     const int yh = eg[l_off], yf = eg[l_off + 1];
     rnH1 = r_edge ? xh : rnH1;
@@ -417,10 +515,30 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(const BandArgs a
   }
 }
 
-// The wide variant, for Wp > kMaxThreads * 16 (slots the registers cannot
-// hold): the same recurrence, in the same order, with the slot rows in
+// The wide variant, for 8192 < Wp <= 131072 (more slots than the registers
+// of one CTA hold): band_fill_kernel<..., CLUSTER = true>, one thread block
+// cluster of C = 2-16 CTAs per pair (a launch of B * C CTAs with the cluster
+// dimension; C > 8 with the non-portable size), CTA r owning the slots
+// [r * Wc, (r + 1) * Wc), Wc = threads * S, each thread S slots in
+// registers as above.  Inside a CTA the neighbours move as above; across
+// CTAs, each diagonal, a CTA's first slot stores its H and E into the left
+// neighbour CTA's last edge words and its last live slot H and F into the
+// right neighbour's ring words, through distributed shared memory
+// (st.shared::cluster at mapa addresses, double-buffered by the diagonal's
+// parity as the warps' words), the cluster's ends joined as the ring.  One
+// split cluster barrier a diagonal takes the __syncthreads' place: arrive
+// (release) right after the edges are out, then the rare stores, the next
+// diagonal's table lookups and the in-warp shuffles, then wait (acquire).
+// A pair's chain of diagonals then runs at one CTA's step plus the
+// barrier's latency across up to 16 SMs, with no slot row in memory.
+// (Per-neighbour mbarriers with remote arrives in the cluster barrier's
+// place took 0.4 us a diagonal more: tools/band_fill_ablation.py's variant
+// "neighbours".)
+//
+// The scratch variant, for Wp > 131072 (more slots than a cluster of 16
+// holds): the same recurrence, in the same order, with the slot rows in
 // global memory (a.scratch, per pair H at k, k-1, k-2 and E, F at k, k-1,
-// rotated; ~450 KB a pair at Wp 16384, L2-resident), the emode BV/BK/EV in
+// rotated; ~3.7 MB a pair at Wp 131200), the emode BV/BK/EV in
 // `state`/`score` and the pending pointer nibble in the pointer byte itself.
 // One CTA of kWideThreads per pair, slot p on thread p % kWideThreads; a
 // diagonal reads only the two before it, so one __syncthreads closes it.
@@ -591,25 +709,89 @@ int launch_wide(const BandArgs& a, cudaStream_t stream) {
 }
 
 template <int MODE, int S>
-int launch_s(const BandArgs& a, cudaStream_t stream) {
-  const int threads = ((a.Wp + S - 1) / S + 31) / 32 * 32;
+int launch_s(const BandArgs& a, int threads, cudaStream_t stream) {
   const size_t smem = ((size_t)a.NT * a.NT + 2 * ((threads / 32) * kEdge + 2)) * sizeof(int32_t);
   if (MODE != kEmode && (a.bh != nullptr || a.bout != nullptr))
-    band_fill_kernel<MODE, S, true><<<a.B, threads, smem, stream>>>(a);
+    band_fill_kernel<MODE, S, true, false><<<a.B, threads, smem, stream>>>(a);
   else
-    band_fill_kernel<MODE, S, false><<<a.B, threads, smem, stream>>>(a);
+    band_fill_kernel<MODE, S, false, false><<<a.B, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// S slots per thread: at most 512 threads a CTA
+// A cluster of C CTAs of `threads` threads per pair, C * B CTAs in all.
+// Returns cudaErrorLaunchOutOfResources when no such cluster fits the card
+// (cudaOccupancyMaxActiveClusters); the caller raises, it never reroutes.
+template <int MODE, int S, bool RELAY>
+int launch_cluster_r(const BandArgs& a, int C, int threads, cudaStream_t stream) {
+  void (*kernel)(const BandArgs) = band_fill_kernel<MODE, S, RELAY, true>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.B * C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = ((size_t)a.NT * a.NT + 2 * ((threads / 32) * kEdge + 4)) * sizeof(int32_t);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaSuccess;
+  if (C > 8) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  int fits = 0;
+  err = cudaOccupancyMaxActiveClusters(&fits, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (fits < 1) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int MODE, int S>
+int launch_cluster(const BandArgs& a, int C, int threads, cudaStream_t stream) {
+  if (MODE != kEmode && (a.bh != nullptr || a.bout != nullptr))
+    return launch_cluster_r<MODE, S, true>(a, C, threads, stream);
+  return launch_cluster_r<MODE, S, false>(a, C, threads, stream);
+}
+
+// The geometry ops/band_fill.py::fill_geometry chose: C = 1, one CTA of
+// `threads` threads with S slots each (S 1-16); C = 2-16, a cluster of C
+// such CTAs (S 2-16); C = 0, the global-scratch variant
 template <int MODE>
-int launch(const BandArgs& a, cudaStream_t stream) {
-  if (a.Wp <= kMaxThreads) return launch_s<MODE, 1>(a, stream);
-  if (a.Wp <= 2 * kMaxThreads) return launch_s<MODE, 2>(a, stream);
-  if (a.Wp <= 4 * kMaxThreads) return launch_s<MODE, 4>(a, stream);
-  if (a.Wp <= 8 * kMaxThreads) return launch_s<MODE, 8>(a, stream);
-  if (a.Wp <= kSlotsMax * kMaxThreads) return launch_s<MODE, kSlotsMax>(a, stream);
-  return launch_wide<MODE>(a, stream);
+int launch(const BandArgs& a, int C, int S, int threads, cudaStream_t stream) {
+  if (C == 0) return launch_wide<MODE>(a, stream);
+  // the CTAs hold every slot, and the last one slot Wp - 1 (the ring's end)
+  if (C < 0 || C > kMaxCluster || threads < 32 || threads > kMaxThreads || threads % 32 ||
+      (long long)C * threads * S < a.Wp || (long long)(C - 1) * threads * S >= a.Wp)
+    return (int)cudaErrorInvalidValue;
+  if (C == 1) {
+    switch (S) {
+      case 1:
+        return launch_s<MODE, 1>(a, threads, stream);
+      case 2:
+        return launch_s<MODE, 2>(a, threads, stream);
+      case 4:
+        return launch_s<MODE, 4>(a, threads, stream);
+      case 8:
+        return launch_s<MODE, 8>(a, threads, stream);
+      case kSlotsMax:
+        return launch_s<MODE, kSlotsMax>(a, threads, stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (S) {
+    case 2:
+      return launch_cluster<MODE, 2>(a, C, threads, stream);
+    case 4:
+      return launch_cluster<MODE, 4>(a, C, threads, stream);
+    case 8:
+      return launch_cluster<MODE, 8>(a, C, threads, stream);
+    case kSlotsMax:
+      return launch_cluster<MODE, kSlotsMax>(a, C, threads, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -621,7 +803,8 @@ extern "C" int seqalib_band_fill(
     int k1, int K, int dhi, int gap_open, int gap_extend, int mode, int CK,
     int tie_safe, int smax, int32_t* state, int32_t* score, int32_t* ckpt,
     uint8_t* ptr, const int32_t* bh, const int32_t* bf, int Wb, int32_t* bout,
-    int Wbo, int bout_row, int32_t* scratch, void* stream) {
+    int Wbo, int bout_row, int32_t* scratch, int cluster, int slots, int threads,
+    void* stream) {
   if ((bh != nullptr && Wb < 1) || (bout != nullptr && (Wbo < 1 || bout_row < 0)))
     return (int)cudaErrorInvalidValue;
   const BandArgs a{qk,    q_width, tk,       t_width,    qlen,  tlen,     dlo_p,
@@ -632,11 +815,11 @@ extern "C" int seqalib_band_fill(
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case kFill:
-      return launch<kFill>(a, s);
+      return launch<kFill>(a, cluster, slots, threads, s);
     case kPtr:
-      return launch<kPtr>(a, s);
+      return launch<kPtr>(a, cluster, slots, threads, s);
     case kEmode:
-      return launch<kEmode>(a, s);
+      return launch<kEmode>(a, cluster, slots, threads, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

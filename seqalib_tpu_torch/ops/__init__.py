@@ -5,9 +5,11 @@ tensor (a call on a CPU tensor runs the plain PyTorch version and counts
 nothing).  ``strip_fill``, ``band_fill``, ``sp_tile`` and ``wavefront_fill``
 (``ops.wavefront.launch_key``) count each mode under its own key,
 ``wavefront_walk`` its linear variant, ``band_walk`` its ``i_floor`` handoff;
-``band_fill``'s wide variant (Wp > 8192) counts under ``band_fill/wide*``,
-and ``sp_tile`` counts a run of several tiles under ``sp_tile/run_*`` and a
-batch of several pointer tiles under ``sp_tile/ptr_batch``.
+``band_fill``'s wide variant (a thread block cluster a pair, 8192 < Wp <=
+131072) counts under ``band_fill/wide*`` and its scratch variant (Wp >
+131072) under ``band_fill/wide_scratch*``, and ``sp_tile`` counts a run of
+several tiles under ``sp_tile/run_*`` and a batch of several pointer tiles
+under ``sp_tile/ptr_batch``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ launches: dict[str, int] = {
     "band_fill/wide": 0,
     "band_fill/wide_ptr": 0,
     "band_fill/wide_emode": 0,
+    "band_fill/wide_scratch": 0,
+    "band_fill/wide_scratch_ptr": 0,
+    "band_fill/wide_scratch_emode": 0,
     "band_walk": 0,
     "band_walk/floor": 0,
     "sp_tile/global": 0,

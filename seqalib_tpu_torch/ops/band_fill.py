@@ -63,8 +63,10 @@ block from the block above it, in ``fill`` and ``ptr`` modes:
   diagonal of ``[k0, k1)`` reaches stay NEG_INF.
 
 Returns a dict with ``state`` and ``score`` after ``k1 - 1``, plus
-``ckpt``, ``ptr`` or ``bout``.  Kernel: ``csrc/band_fill.cu`` (slot rows
-in registers up to Wp ``MAX_WP_REGISTERS``, in a global scratch above).
+``ckpt``, ``ptr`` or ``bout``.  Kernel: ``csrc/band_fill.cu``, in the
+geometry ``fill_geometry(Wp)`` gives: slot rows in the registers of one CTA
+up to Wp ``MAX_WP_REGISTERS``, of a thread block cluster up to
+``MAX_WP_CLUSTER``, in a global scratch above.
 """
 
 from __future__ import annotations
@@ -86,9 +88,41 @@ EMODE_FLOOR = -(1 << 30) - (1 << 29)
 # letters strip_fill takes, plus the zero sentinel row and two sentinels
 MAX_TABLE = 66
 # the kernel runs one CTA of at most 512 threads per pair, each thread
-# holding at most 16 slots in registers; wider slot rows go to its wide
+# holding at most 16 slots in registers; wider slot rows go to a cluster of
+# up to 16 such CTAs (the wide variant), wider still to the scratch
 # variant, which keeps them in a global scratch of 7 rows per pair
-MAX_WP_REGISTERS = 16 * 512
+MAX_THREADS = 512
+MAX_SLOTS = 16
+MAX_CLUSTER = 16
+MAX_WP_REGISTERS = MAX_SLOTS * MAX_THREADS
+MAX_WP_CLUSTER = MAX_CLUSTER * MAX_SLOTS * MAX_THREADS
+SCRATCH_THREADS = 1024  # csrc/band_fill.cu kWideThreads
+# slots per thread of the cluster variant, by Wp (the first whose bound
+# holds): the fewest that a cluster of 16 holds.  A diagonal costs about
+# 0.85 + 0.18 S µs whatever C (the cluster barrier, then a CTA's step), so
+# the fewest slots a thread win at B = 1 and 16 (tools/band_fill_ablation.py
+# --geometries; PERF.md §6)
+CLUSTER_SLOTS = ((16_384, 2), (32_768, 4), (65_536, 8), (MAX_WP_CLUSTER, 16))
+
+
+def fill_geometry(Wp: int) -> tuple:
+    """``(C, S, threads)`` of the kernel at slot width ``Wp``: C = 1, one
+    CTA of ``threads`` threads holding S slots each (S = 1, 2, 4, 8, 16 by
+    Wp); C = 2-16, a thread block cluster of C such CTAs per pair, S from
+    ``CLUSTER_SLOTS`` and the threads spread evenly; C = 0, the
+    global-scratch variant (``SCRATCH_THREADS`` threads, one slot row of
+    each of 7 in memory)."""
+    def warps(n):
+        return -(-n // 32) * 32
+
+    if Wp <= MAX_WP_REGISTERS:
+        S = next(s for s in (1, 2, 4, 8, MAX_SLOTS) if Wp <= s * MAX_THREADS)
+        return 1, S, warps(-(-Wp // S))
+    if Wp > MAX_WP_CLUSTER:
+        return 0, 1, SCRATCH_THREADS
+    S = next(s for top, s in CLUSTER_SLOTS if Wp <= top)
+    C = -(-Wp // (S * MAX_THREADS))
+    return C, S, warps(-(-Wp // (S * C)))
 
 
 def n_state(mode: str) -> int:
@@ -290,13 +324,19 @@ def band_fill_ref(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *,
 def band_fill(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *, k0: int,
               k1: int, K: int, dlo: int, dhi: int, gap_open: int, gap_extend: int,
               mode: str, CK: int = 0, tie_safe: bool = False, smax: int = 0,
-              bh=None, bf=None, want_bout: bool = False, bout_row: int = 0):
+              bh=None, bf=None, want_bout: bool = False, bout_row: int = 0,
+              _geometry=None):
     """Fill diagonals [k0, k1) of every pair; see the module docstring.
     ``state`` and ``score`` are not modified.  A CPU tensor runs
-    ``band_fill_ref``; a CUDA tensor the kernel.  A call with ``bh``
-    counts under ``band_fill/relay`` (fill) or ``band_fill/relay_ptr``; one
-    with Wp > ``MAX_WP_REGISTERS`` (the kernel's wide variant) under
-    ``band_fill/wide``, ``band_fill/wide_ptr`` or ``band_fill/wide_emode``."""
+    ``band_fill_ref``; a CUDA tensor the kernel, in ``fill_geometry(Wp)``
+    (``_geometry``, a ``(C, S, threads)`` no entry point passes, forces
+    another, for the card tests and tools).  The launch counts under
+    ``launch_key``: a call with ``bh`` under ``band_fill/relay`` (fill) or
+    ``band_fill/relay_ptr``; one on a cluster (8192 < Wp <= 131072) under
+    ``band_fill/wide``, ``band_fill/wide_ptr`` or ``band_fill/wide_emode``,
+    one on the scratch variant under ``band_fill/wide_scratch``,
+    ``_scratch_ptr`` or ``_scratch_emode``.  A cluster that the card cannot
+    schedule raises; no call reroutes."""
     qk, tk, state, score, tab = (x.contiguous() for x in (qk, tk, state, score, tab))
     vecs = [v.to(torch.int32).contiguous() for v in (qlen, tlen, dlo_p, dhi_p)]
     if bh is not None and bf is not None:
@@ -329,8 +369,8 @@ def band_fill(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *, k0: int,
                                         dtype=torch.int32, device=dev)
     if B == 0 or k1 == k0:
         return out
-    wide = Wp > MAX_WP_REGISTERS
-    scratch = torch.empty((B, 7, Wp), dtype=torch.int32, device=dev) if wide else None
+    C, S, threads = fill_geometry(Wp) if _geometry is None else _geometry
+    scratch = torch.empty((B, 7, Wp), dtype=torch.int32, device=dev) if C == 0 else None
     launch(
         "band_fill", dev, "seqalib_band_fill", qk.data_ptr(), qk.shape[1], tk.data_ptr(), tk.shape[1],
         *(v.data_ptr() for v in vecs), tab.data_ptr(), tab.shape[0], B, Wp,
@@ -343,17 +383,20 @@ def band_fill(qk, tk, qlen, tlen, dlo_p, dhi_p, state, score, tab, *, k0: int,
         bh.shape[1] if bh is not None else 0,
         bout.data_ptr() if bout is not None else None,
         bout.shape[2] if bout is not None else 0, bout_row,
-        scratch.data_ptr() if wide else None,
+        scratch.data_ptr() if scratch is not None else None, C, S, threads,
     )
-    launches[launch_key(mode, bh is not None, Wp)] += 1
+    launches[launch_key(mode, bh is not None, Wp, _geometry)] += 1
     return out
 
 
-def launch_key(mode: str, relay: bool, Wp: int) -> str:
-    """The ``launches`` key of a CUDA ``band_fill`` call: the wide variant
-    (Wp > ``MAX_WP_REGISTERS``) by mode, resumed blocks under ``relay``."""
-    if Wp > MAX_WP_REGISTERS:
-        return "band_fill/wide" + ("" if mode == "fill" else f"_{mode}")
+def launch_key(mode: str, relay: bool, Wp: int, geometry=None) -> str:
+    """The ``launches`` key of a CUDA ``band_fill`` call in ``geometry``
+    (default ``fill_geometry(Wp)``): the cluster and scratch variants by
+    mode, resumed blocks on one CTA under ``relay``."""
+    C = (fill_geometry(Wp) if geometry is None else geometry)[0]
+    if C != 1:
+        return ("band_fill/wide" + ("" if C else "_scratch")
+                + ("" if mode == "fill" else f"_{mode}"))
     if relay:
         return "band_fill/relay" if mode == "fill" else "band_fill/relay_ptr"
     return f"band_fill/{mode}"

@@ -9,8 +9,9 @@ coordinates contract of ``seqalib_tpu/oracle.py``:
 
 1. pass 1: local end-only fill, reduced to the canonical end (qe, te);
 2. pass 2: anchored reverse extension (``emode``) over the reversed
-   prefixes, cut by ``row_window`` to WR rows x ~2*WR columns; a pair
-   whose pass-2 score differs escalates to ``reverse_starts``, which
+   prefixes, cut by ``row_window`` to WR rows x ~2*WR columns
+   (``SEQALIB_FUSED_WR``, default 512, rounded up to a multiple of 128); a
+   pair whose pass-2 score differs escalates to ``reverse_starts``, which
    widens its window x4 until the score is found;
 3. with ``want_tb``: a global fill with pointers over each pair's
    [qs:qe] x [ts:te] window, cut by ``row_window``, walked by
@@ -22,9 +23,10 @@ Pass 2 runs on one of the JAX package's two engines, chosen by
 package reads it):
 
 * ``"banded"`` (the default): ``band_fill`` in ``emode`` over a band of
-  ``BW`` = 64 diagonals around the anchor (``banded_pass2``); a table
-  outside the range [-4, 11] with more than 7 letters stays on the strip
-  engine, as in the JAX package;
+  ``BW`` diagonals around the anchor (``SEQALIB_FUSED_BW``, default 64;
+  ``banded_pass2``; from BW 8 191 on its slots take ``band_fill``'s wide
+  variants); a table outside the range [-4, 11] with more than 7 letters
+  stays on the strip engine, as in the JAX package;
 * ``"strip"``: ``strip_fill`` in ``emode`` over the whole window.
 
 ``tie_safe`` (``SEQALIB_FUSED_TIE_SAFE=1``) escalates every pair whose
@@ -57,7 +59,7 @@ log = logging.getLogger("seqalib_tpu_torch.strip")
 TI = 128  # row quantum of the padded query (JAX strip height)
 LANES = 128  # column quantum of the padded target
 WR_DEFAULT = 4 * TI  # pass-2 row window
-BW = 64  # banded pass 2: band half-width around the anchor diagonal
+BW_DEFAULT = 64  # banded pass 2: band half-width around the anchor diagonal
 CKB = 64  # banded pass 2: the diagonal count is a multiple of this
 PASS2_ENGINES = ("banded", "strip")
 
@@ -67,12 +69,19 @@ def _ceil_to(x: int, m: int) -> int:
 
 
 def pass2_knobs() -> dict:
-    """The pass-2 engine and ``tie_safe`` from the environment
-    (``SEQALIB_FUSED_PASS2``, default ``"banded"``; ``SEQALIB_FUSED_TIE_SAFE``,
-    default off), the same variables the JAX package reads."""
+    """The pass-2 knobs from the environment, the variables the JAX package
+    reads at the same boundary (``fused_wr``, ``fused_pass2_knobs``): the
+    engine (``SEQALIB_FUSED_PASS2``, default ``"banded"``), ``tie_safe``
+    (``SEQALIB_FUSED_TIE_SAFE``, default off), the row window ``WR``
+    (``SEQALIB_FUSED_WR``, default 512, rounded up to a multiple of TI) and
+    the banded engine's half-width ``BW`` (``SEQALIB_FUSED_BW``, default 64).
+    ``WR`` also sets the escalations' first window (``reverse_starts``'
+    ``Wq0``)."""
     env = os.environ
     return {"pass2": env.get("SEQALIB_FUSED_PASS2", "banded"),
-            "tie_safe": env.get("SEQALIB_FUSED_TIE_SAFE", "0") == "1"}
+            "tie_safe": env.get("SEQALIB_FUSED_TIE_SAFE", "0") == "1",
+            "WR": _ceil_to(int(env.get("SEQALIB_FUSED_WR", str(WR_DEFAULT))), TI),
+            "BW": int(env.get("SEQALIB_FUSED_BW", str(BW_DEFAULT)))}
 
 
 def jax_route(tables: Tables) -> str:
@@ -181,10 +190,11 @@ def _global_finish(host, text, qlen, tlen, tables: Tables, want_tb: bool):
 
 
 def banded_pass2(qr, tr, qe, te2, score, tables: Tables, *, mq: int, WR: int,
-                 TWD: int, tie_safe: bool):
+                 TWD: int, tie_safe: bool, BW: int = BW_DEFAULT):
     """Pass 2 on the banded engine: the anchored reverse extension of the
     reversed prefixes ``qr`` (B, WR) and ``tr`` (B, W2r) (``tr[:, 0]`` a
-    sentinel) over the 128-slot window of diagonals -BW..BW, and the
+    sentinel) over the slot window of diagonals -BW..BW (128 slots at the
+    default BW), and the
     first maximum (ri, rj) by the canonical packed index.  Returns
     ``(score2, ri, rj)``; with ``tie_safe`` a pair whose EV bound admits an
     outside tie gets ``score2 = score - 1`` (escalates).  Counterpart of
@@ -233,7 +243,7 @@ def banded_pass2(qr, tr, qe, te2, score, tables: Tables, *, mq: int, WR: int,
 
 
 def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
-                pass2: str, tie_safe: bool, err):
+                pass2: str, tie_safe: bool, err, BW: int = BW_DEFAULT):
     """Passes 1 and 2 on device tensors: score, canonical end (qe, te),
     start (qs, ts) and the pass-2 score ``score2`` (a pair with
     ``score2 != score`` must escalate).  ``err`` holds the deferred checks
@@ -260,7 +270,7 @@ def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
                     err=err[1:2])
     if pass2 == "banded" and jax_route(tables) != "wide":
         score2, ri, rj = banded_pass2(qr, tr, qe, te2, score, tables, mq=mq, WR=WR,
-                                      TWD=TWD, tie_safe=tie_safe)
+                                      TWD=TWD, tie_safe=tie_safe, BW=BW)
     else:
         r2 = strip_fill(qr, tr, torch.clamp(qe, max=WR), te2, tables, mq=mq,
                         mode="emode", err=err[4:5])
@@ -283,14 +293,14 @@ def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
 
 
 def local_fused_tb(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
-                   pass2: str, tie_safe: bool, err):
+                   pass2: str, tie_safe: bool, err, BW: int = BW_DEFAULT):
     """``local_fused`` plus pass 3 on device: each pair's [qs:qe] x
     [ts:te] window, cut at the pass-1 shapes, filled globally with
     pointers and walked.  Adds the window-global score ``score_w`` and
     the walk's CIGAR ``text`` and its lengths ``nchar``.  Counterpart of
     ``_strip_local_fused_tb`` (without its link-era packing)."""
     res = local_fused(qpad, t2, qlen, tlen, tables, mq=mq, WR=WR, pass2=pass2,
-                      tie_safe=tie_safe, err=err)
+                      tie_safe=tie_safe, err=err, BW=BW)
     SENT_Q, SENT_T = tables.A1, tables.A1 + 1
     n_pad = qpad.shape[1]
     W2 = t2.shape[1]
@@ -390,23 +400,26 @@ def window_global_cigars(q, t, score, qs, qe, ts, te, tables: Tables):
 
 
 def strip_bucket(q, t, qlen, tlen, tables: Tables, *, mode: str,
-                 want_tb: bool = False, WR: int = WR_DEFAULT,
-                 pass2: str | None = None, tie_safe: bool | None = None):
+                 want_tb: bool = False, WR: int | None = None,
+                 pass2: str | None = None, tie_safe: bool | None = None,
+                 BW: int | None = None):
     """Align one padded bucket: ``q`` (B, n) and ``t`` (B, m) letter arrays
     with lengths ``qlen``/``tlen``, on the device of ``tables``.
 
     Returns numpy ``score``/``qs``/``qe``/``ts``/``te`` (B,) int32, plus
     ``cigars`` with ``want_tb``, plus ``escalated`` (B,) bool in local
     mode (pairs whose start came from ``reverse_starts``).  ``WR`` is the
-    pass-2 row window (rounded up to a multiple of 128); ``pass2`` and
-    ``tie_safe`` default to ``pass2_knobs()``.  ``strip_launch(...)()``."""
+    pass-2 row window (rounded up to a multiple of 128), ``BW`` the banded
+    pass 2's half-width; ``WR``, ``pass2``, ``tie_safe`` and ``BW`` default
+    to ``pass2_knobs()``.  ``strip_launch(...)()``."""
     return strip_launch(q, t, qlen, tlen, tables, mode=mode, want_tb=want_tb, WR=WR,
-                        pass2=pass2, tie_safe=tie_safe)()
+                        pass2=pass2, tie_safe=tie_safe, BW=BW)()
 
 
 def strip_launch(q, t, qlen, tlen, tables: Tables, *, mode: str,
-                 want_tb: bool = False, WR: int = WR_DEFAULT,
-                 pass2: str | None = None, tie_safe: bool | None = None):
+                 want_tb: bool = False, WR: int | None = None,
+                 pass2: str | None = None, tie_safe: bool | None = None,
+                 BW: int | None = None):
     """The launch half of ``strip_bucket`` (same arguments): the letters'
     copies, passes 1-2 (and 3 with ``want_tb``) or the global fill and
     walk, and the copy of their small results to the host, all enqueued
@@ -421,6 +434,8 @@ def strip_launch(q, t, qlen, tlen, tables: Tables, *, mode: str,
     knobs = pass2_knobs()
     pass2 = knobs["pass2"] if pass2 is None else pass2
     tie_safe = knobs["tie_safe"] if tie_safe is None else tie_safe
+    WR = knobs["WR"] if WR is None else WR
+    BW = knobs["BW"] if BW is None else BW
     if pass2 not in PASS2_ENGINES:
         raise ValueError(f"pass2 must be one of {PASS2_ENGINES}, got {pass2!r}")
     q = np.asarray(q)
@@ -443,7 +458,7 @@ def strip_launch(q, t, qlen, tlen, tables: Tables, *, mode: str,
                 strip_bucket(q[lo : lo + cap_pairs], t[lo : lo + cap_pairs],
                              qlen[lo : lo + cap_pairs], tlen[lo : lo + cap_pairs],
                              tables, mode=mode, want_tb=True, pass2=pass2,
-                             tie_safe=tie_safe)
+                             tie_safe=tie_safe, WR=WR, BW=BW)
                 for lo in range(0, B, cap_pairs)
             ]
             merged = {
@@ -464,7 +479,7 @@ def strip_launch(q, t, qlen, tlen, tables: Tables, *, mode: str,
         fused_tb = want_tb and B * per_pair <= ptr_cap_bytes()
         fused = local_fused_tb if fused_tb else local_fused
         res = fused(qpad, t2, qlen_d, tlen_d, tables, mq=m, WR=WR, pass2=pass2,
-                    tie_safe=tie_safe, err=error_words(5, device))
+                    tie_safe=tie_safe, err=error_words(5, device), BW=BW)
         text = res.pop("text") if fused_tb else None
         wait = to_host(res)  # nchar among them
 

@@ -37,7 +37,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..ops.strip import strip_launch
+from ..ops.strip import pass2_knobs, strip_launch
 from ..ops.wavefront_xla import xla_launch
 from ..scoring import tables_from_params
 from ..types import ScoringParams
@@ -120,7 +120,10 @@ def strip_sharded(mesh: Mesh, q, t, qlen, tlen, sp: ScoringParams, *, mode: str,
     Each shard runs ``strip_launch`` on its own device with that device's
     ``Tables``; every shard is launched before any is finalized, and the
     launch half makes no device-to-host sync.  ``strip_kw`` goes to
-    ``strip_launch`` (``WR``, ``pass2``, ``tie_safe``); the pointer budget
+    ``strip_launch`` (``WR``, ``pass2``, ``tie_safe``, ``BW``), over the
+    pass-2 knobs this process reads once (``pass2_knobs``: every shard runs
+    the same window and band; each rank of a world reads its own
+    environment, as the JAX package's ranks do); the pointer budget
     (``ptr_cap_bytes``) applies to each shard.  Returns the finalize
     callable with ``launch_only``, else its result: ``score``/``qs``/``qe``/
     ``ts``/``te`` (B,) int32 (+ ``cigars`` with ``want_tb``) for the whole
@@ -128,6 +131,7 @@ def strip_sharded(mesh: Mesh, q, t, qlen, tlen, sp: ScoringParams, *, mode: str,
     q, t = np.asarray(q), np.asarray(t)
     qlen, tlen = np.asarray(qlen), np.asarray(tlen)
     tables: Dict[torch.device, object] = {}
+    strip_kw = {**pass2_knobs(), **strip_kw}
     pending = []
     for dev, lo, hi in my_shards(mesh, len(qlen)):
         if dev not in tables:

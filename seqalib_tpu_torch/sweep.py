@@ -14,7 +14,7 @@ length buckets (16, 32, 64): they are the sample the quick test runs.
 
 ``run_route(api, name, draws)`` sends the draws through one route of
 ``ROUTES`` (``align_batch`` on the strip route under both pass-2 engines,
-with and without traceback, and on ``"xla"``; ``band=`` 1, 3, 16 and 800;
+with and without traceback, and on ``"xla"``; ``band=`` 1, 3, 16, 800 and 8 300;
 ``align``; ``align_all_vs_all``; both full-matrix SP entry points and
 both banded-SP ones) and returns ``Result``s: what the route gave, and
 what the oracle is asked for the same pair.  ``api`` is ``PortAPI(device)``
@@ -54,7 +54,9 @@ SHORT = ((1, 1), (2, 3), (3, 4), (5, 7), (8, 8), (1, 2), (4, 3), (7, 5), (6, 6),
 SUBSET_BUCKETS = ((1, 16), (17, 32), (33, 64))
 SUBSET = 36
 COUNT = 240  # the whole sweep
-BANDS = (1, 3, 16, 2 * MAX_LEN)  # the last holds every pair: the full matrix
+# 800 holds every pair (the full matrix); 8 300 too, over slot rows of Wp 8 448:
+# band_fill's wide variant (a thread block cluster a pair on the card)
+BANDS = (1, 3, 16, 2 * MAX_LEN, 8300)
 SP_C = 32  # SP tiles: a 400-letter target is 13 of them
 SP_BAND = 16  # banded SP: the band of align_banded_sp
 SP_SCORE_BAND = 3  # and of align_score_banded_sp

@@ -370,3 +370,26 @@ def test_boundary_arguments_are_refused():
                   mode="emode", want_bout=True, **kw)
     with pytest.raises(ValueError, match="bh must be"):
         band_fill(z, z, v, v, v, v, st, sc, tab, mode="fill", bh=bh.long(), bf=bh, **kw)
+
+
+def test_fill_geometry_covers_every_wide_width():
+    """``fill_geometry``: one CTA up to Wp 8 192 (the register variant's S
+    and threads), a cluster of 2-16 CTAs that holds every slot, with slot
+    Wp - 1 in its last CTA, at every Wp the banded geometry gives from
+    8 320 to 131 072, and the scratch variant past that."""
+    from seqalib_tpu_torch.ops.band_fill import MAX_WP_CLUSTER, fill_geometry, launch_key
+
+    for Wp in range(128, 8193, 128):
+        C, S, T = fill_geometry(Wp)
+        assert C == 1 and S in (1, 2, 4, 8, 16) and T % 32 == 0 and T <= 512
+        assert S * T >= Wp and (S == 1 or (S // 2) * 512 < Wp)
+    for Wp in range(8320, MAX_WP_CLUSTER + 1, 128):
+        C, S, T = fill_geometry(Wp)
+        assert 2 <= C <= 16 and S in (2, 4, 8, 16) and T % 32 == 0 and 32 <= T <= 512
+        assert C * S * T >= Wp > (C - 1) * S * T, Wp
+        assert launch_key("ptr", True, Wp) == "band_fill/wide_ptr"
+    assert MAX_WP_CLUSTER == 131072
+    for Wp in (131200, 262144):
+        assert fill_geometry(Wp)[0] == 0
+        assert launch_key("emode", False, Wp) == "band_fill/wide_scratch_emode"
+    assert launch_key("fill", True, 512, (4, 4, 32)) == "band_fill/wide"

@@ -244,3 +244,105 @@ def test_fault_8_jax_pass2_loses_the_local_score():
                                   np.array([len(q)]), np.array([len(t)]), sentinel_table(sp),
                                   mode="local", gap_open=sp.gap_open,
                                   gap_extend=sp.gap_extend, affine=True, want_tb=False)
+
+
+# fault 9 (ROADMAP Queue 3): the pass-2 row window (SEQALIB_FUSED_WR, rounded up
+# to 128) and the banded engine's half-width (SEQALIB_FUSED_BW) come from the
+# environment in both packages; the port used to fix them at 512 and 64.
+# Pair 5 spans 300 rows (past a window of 256), pair 7 holds a 45-letter net
+# gap over 100 rows (past a band of 32, inside the window)
+KNOBS = [("SEQALIB_FUSED_WR", "256", [5]), ("SEQALIB_FUSED_BW", "32", [7])]
+
+
+def _knob_batch():
+    q, t, qlen, tlen = _esc_batch()
+    t[6] = np.random.default_rng(14).integers(0, 20, size=L)
+    t[6, 40:120] = q[6, 60:140]
+    t[7, 20:70] = q[7, 100:150]
+    t[7, 115:165] = q[7, 150:200]
+    return q, t, qlen, tlen
+
+
+@pytest.fixture(scope="module", params=KNOBS, ids=[k[0] for k in KNOBS])
+def knob_runs(request):
+    """Both packages on ``_knob_batch`` under one knob, the default banded
+    engine: (knob, JAX result and escalations, port result and escalations)."""
+    var, value, _ = request.param
+    q, t, qlen, tlen = _knob_batch()
+    jax_calls, port_calls = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(var, value)
+        mp.delenv("SEQALIB_FUSED_PASS2", raising=False)
+        mp.setattr(strip_pallas, "_reverse_starts",
+                   _spy(jax_calls, strip_pallas._reverse_starts))
+        mp.setattr(port_strip, "reverse_starts", _spy(port_calls, port_strip.reverse_starts))
+        jax_out = strip_pallas.strip_bucket(
+            q, t, qlen, tlen, sentinel_table(SP), mode="local", gap_open=SP.gap_open,
+            gap_extend=SP.gap_extend, affine=True, want_tb=True)
+        out = port_strip.strip_bucket(q, t, qlen, tlen, tables_from_params(PORT_SP, "cpu"),
+                                      mode="local", want_tb=True)
+    return request.param, (jax_out, jax_calls), (out, port_calls)
+
+
+def test_fault_9_pass2_knobs_escalate_the_pairs_jax_escalates(knob_runs):
+    """Under SEQALIB_FUSED_WR=256 and under SEQALIB_FUSED_BW=32 the port
+    escalates exactly the pairs the JAX package escalates (none at the
+    defaults), and returns its results."""
+    (_, _, want), (jax_out, jax_calls), (out, calls) = knob_runs
+    assert jax_calls == [want]
+    assert calls == [want]
+    assert np.nonzero(out["escalated"])[0].tolist() == want
+    for k in KEYS:
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(jax_out[k]), err_msg=k)
+
+
+def test_fault_9_knobs_are_read_as_the_jax_package_reads_them(monkeypatch):
+    from seqalib_tpu.ops.strip_pallas import fused_pass2_knobs, fused_wr
+
+    assert port_strip.pass2_knobs() == {"pass2": "banded", "tie_safe": False, "WR": 512,
+                                        "BW": 64}
+    monkeypatch.setenv("SEQALIB_FUSED_WR", "300")
+    monkeypatch.setenv("SEQALIB_FUSED_BW", "40")
+    knobs = port_strip.pass2_knobs()
+    assert (knobs["WR"], knobs["BW"]) == (fused_wr(), fused_pass2_knobs(True)["bw"]) == (384, 40)
+
+
+def test_fault_9_knobs_reach_every_shard_of_a_pair_mesh(knob_runs, monkeypatch):
+    """The bucket sharded over a pair mesh of two CPU shards (pairs 0-3 and
+    4-7, ``strip_sharded``): the knobs reach both, the escalated pair is
+    the second shard's, and the results are the one-device run's."""
+    from seqalib_tpu_torch.parallel.dist import make_pair_mesh, strip_sharded
+
+    (var, value, want), _, (one, _) = knob_runs
+    q, t, qlen, tlen = _knob_batch()
+    monkeypatch.setenv(var, value)
+    calls = []
+    monkeypatch.setattr(port_strip, "reverse_starts", _spy(calls, port_strip.reverse_starts))
+    out = strip_sharded(make_pair_mesh(["cpu"] * 2), q, t, qlen, tlen, PORT_SP, mode="local",
+                        want_tb=True)
+    assert calls == [[w - 4 for w in want]]
+    for k in KEYS:
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(one[k]), err_msg=k)
+
+
+def test_fault_9_a_band_of_128_closes_the_pinned_tie_in_both_packages(monkeypatch):
+    """``tests/test_fused_tie_boundary.py``'s tie: its canonical cell lies 70
+    diagonals off the anchor, outside the default band of 64, where the
+    banded engine returns the in-band start (0, 35).  Under
+    SEQALIB_FUSED_BW=128 both packages see it and return (35, 0); the port
+    used to keep its band of 64 and return the other start."""
+    from test_fused_tie_boundary import _tie_problem
+
+    q, t, sp = _tie_problem()
+    psp = scoring_params(0, 0, sp.gap_open, sp.gap_extend, sp.matrix)
+    args = (q[None].astype(np.int32), t[None].astype(np.int32), np.array([len(q)]),
+            np.array([len(t)]))
+    monkeypatch.setenv("SEQALIB_FUSED_PASS2", "banded")
+    monkeypatch.setenv("SEQALIB_FUSED_BW", "128")
+    jax_out = strip_pallas.strip_bucket(*args, sentinel_table(sp), mode="local",
+                                        gap_open=sp.gap_open, gap_extend=sp.gap_extend,
+                                        affine=False)
+    out = port_strip.strip_bucket(*args, tables_from_params(psp, "cpu"), mode="local")
+    for got in (jax_out, out):
+        assert tuple(int(got[k][0]) for k in ("score", "qs", "qe", "ts", "te")) == (
+            84, 35, 49, 0, 84)

@@ -18,7 +18,8 @@ from seqalib_tpu_torch import align_batch
 from seqalib_tpu_torch._build import CSRC
 from seqalib_tpu_torch.models.banded import _geometry, _pad_letters
 from seqalib_tpu_torch.ops import launches
-from seqalib_tpu_torch.ops.band_fill import band_fill, band_fill_ref, band_table
+from seqalib_tpu_torch.ops.band_fill import (band_fill, band_fill_ref, band_table,
+                                             fill_geometry)
 from seqalib_tpu_torch.ops.band_walk import band_walk, band_walk_ref
 from seqalib_tpu_torch.ops import strip_fill as sf_mod
 from seqalib_tpu_torch.ops import wavefront as wf_mod
@@ -921,21 +922,18 @@ def test_wide_table_align_batch_on_cuda_matches_oracle(dev):
         assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode="global", band=24))
 
 
-# the wide variant of band_fill (Wp > 8192): slot rows past the geometry's
-# (junk slots, held all the same), and a band that fills them
-WIDE_WPS = [8320, 16384]
+# the wide variants of band_fill: a thread block cluster a pair (8192 < Wp
+# <= 131072) and the global scratch (Wp > 131072); slot rows past the
+# geometry's (junk slots, held all the same), a ragged width whose last CTA
+# is part-filled (12 416), and a band that fills them
+WIDE_WPS = [8320, 8704, 12416, 16384, 32768, 131200]
+# geometries no entry point picks, forced through the wrapper's private
+# keyword: (Wp, (C, S, threads)): 4 CTAs of one warp, a ragged last CTA, 16
+FORCED_GEOMETRIES = [(512, (4, 4, 32)), (1001, (3, 4, 96)), (2000, (16, 2, 64))]
 
 
-@pytest.mark.parametrize("Wp", WIDE_WPS + [None])
-@pytest.mark.parametrize("scoring", ["dna_affine", "blosum62_affine"])
-@pytest.mark.parametrize("mode", ["fill", "ptr", "emode", "relay", "relay_ptr"])
-def test_band_fill_wide_kernel_matches_plain_version(dev, scoring, mode, Wp):
-    """Every mode of the wide variant; Wp None: a band of 8 300 (Wp 8 448
-    from the geometry) over pairs of up to 600 letters."""
-    c = _band_bucket(dev, scoring, B=9, band=8300 if Wp is None else 64, Wp=Wp, qmax=600)
+def _wide_call(dev, c, mode):
     B, Wp = c["score"].shape
-    assert Wp > 8192
-    kw = dict(c["kw"])
     state = c["state"]
     if mode == "fill":
         call = dict(k0=0, k1=c["Kp"], mode="fill", CK=c["CK"])
@@ -953,12 +951,57 @@ def test_band_fill_wide_kernel_matches_plain_version(dev, scoring, mode, Wp):
                              dtype=torch.int32, device=dev)
         call = dict(k0=0, k1=c["Kp"], mode="fill" if mode == "relay" else "ptr", bh=bh,
                     bf=bh - 3, want_bout=True, bout_row=60)
-    key = "band_fill/wide" + {"fill": "", "relay": "", "emode": "_emode"}.get(mode, "_ptr")
+    return state, call
+
+
+def _wide_key(mode, C):
+    return ("band_fill/wide" + ("_scratch" if C == 0 else "")
+            + {"fill": "", "relay": "", "emode": "_emode"}.get(mode, "_ptr"))
+
+
+@pytest.mark.parametrize("Wp", WIDE_WPS + [None])
+@pytest.mark.parametrize("scoring", ["dna_affine", "blosum62_affine"])
+@pytest.mark.parametrize("mode", ["fill", "ptr", "emode", "relay", "relay_ptr"])
+def test_band_fill_wide_kernel_matches_plain_version(dev, scoring, mode, Wp):
+    """Every mode of the cluster variant, and of the scratch variant at Wp
+    131 200; Wp None: a band of 8 300 (Wp 8 448 from the geometry) over
+    pairs of up to 600 letters.  Byte for byte, the launch key asserted."""
+    c = _band_bucket(dev, scoring, B=9, band=8300 if Wp is None else 64, Wp=Wp, qmax=600)
+    Wp = c["score"].shape[1]
+    C = fill_geometry(Wp)[0]
+    assert Wp > 8192 and (C == 0) == (Wp > 131072)
+    state, call = _wide_call(dev, c, mode)
+    key = _wide_key(mode, C)
     before = launches[key]
-    got = band_fill(*c["args"], state, c["score"], c["tab"], **call, **kw)
+    got = band_fill(*c["args"], state, c["score"], c["tab"], **call, **c["kw"])
     torch.cuda.synchronize()
     assert launches[key] == before + 1
-    _same(got, band_fill_ref(*c["args"], state, c["score"], c["tab"], **call, **kw))
+    _same(got, band_fill_ref(*c["args"], state, c["score"], c["tab"], **call, **c["kw"]))
+
+
+@pytest.mark.parametrize("Wp,geometry", FORCED_GEOMETRIES)
+@pytest.mark.parametrize("mode", ["fill", "ptr", "emode", "relay", "relay_ptr"])
+def test_band_fill_cluster_forced_at_small_widths(dev, mode, Wp, geometry):
+    """The cluster kernel forced onto narrow slot rows (the edges across
+    CTAs through distributed shared memory, the ring across the cluster's
+    ends) against the plain version, byte for byte."""
+    c = _band_bucket(dev, "blosum62_affine", B=5, band=40, Wp=Wp, qmax=400)
+    state, call = _wide_call(dev, c, mode)
+    key = _wide_key(mode, geometry[0])
+    before = launches[key]
+    got = band_fill(*c["args"], state, c["score"], c["tab"], **call, **c["kw"],
+                    _geometry=geometry)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    _same(got, band_fill_ref(*c["args"], state, c["score"], c["tab"], **call, **c["kw"]))
+
+
+def test_band_fill_refuses_a_geometry_that_leaves_a_cta_empty(dev):
+    c = _band_bucket(dev, "dna_affine", B=2, band=8, Wp=512)
+    state, call = _wide_call(dev, c, "fill")
+    with pytest.raises(RuntimeError, match="band_fill: CUDA error"):
+        band_fill(*c["args"], state, c["score"], c["tab"], **call, **c["kw"],
+                  _geometry=(5, 4, 32))
 
 
 def test_config4_pair_with_a_delta_of_17000_aligns_on_cuda(dev):

@@ -137,6 +137,29 @@ def test_two_processes_run_xla_with_a_band(tmp_path):
     assert list(map(str, res)) == list(map(str, want))
 
 
+def test_two_processes_read_the_pass2_band(tmp_path, monkeypatch):
+    """Fault 9 in a world of two ranks: every rank reads SEQALIB_FUSED_BW, as
+    the JAX package's ranks do.  Four copies of the pinned co-optimal tie of
+    ``tests/test_fused_tie_boundary.py`` (its canonical cell 70 diagonals
+    off the anchor), one a shard: under a band of 128 every shard returns
+    the canonical start (35, 0), as one process does; under the default
+    band of 64 the in-band start (0, 35)."""
+    from test_fused_tie_boundary import _tie_problem
+
+    q, t, sp = _tie_problem()
+    psp = st.ScoringParams(gap_open=sp.gap_open, gap_extend=sp.gap_extend, matrix=sp.matrix)
+    B = 4
+    qs, ts = np.tile(q, (B, 1)), np.tile(t, (B, 1))
+    lens = (np.full(B, len(q)), np.full(B, len(t)))
+    monkeypatch.setenv("SEQALIB_FUSED_PASS2", "banded")
+    monkeypatch.setenv("SEQALIB_FUSED_BW", "128")
+    res = _ranks_return(tmp_path, qs, ts, *lens, psp, "local")
+    assert [(r.query_start, r.target_start) for r in res] == [(35, 0)] * B
+    monkeypatch.delenv("SEQALIB_FUSED_BW")
+    res = st.align_batch(list(qs), list(ts), scoring=psp, mode="local", device="cpu")
+    assert [(r.query_start, r.target_start) for r in res] == [(0, 35)] * B
+
+
 def test_worker_defaults_to_the_card(tmp_path, monkeypatch):
     """Without ``--device`` the worker asks for the card and raises where
     there is none, before it joins a rendezvous."""

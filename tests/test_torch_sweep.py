@@ -1,8 +1,9 @@
 """The seeded differential sweep (``seqalib_tpu_torch/sweep.py``): the same
 draws through every route of the port (``align_batch`` on the strip route
 under both pass-2 engines, with and without traceback, and on ``"xla"``;
-``band=`` 1, 3, 16 and 800; ``align``; ``align_all_vs_all``; both
-full-matrix SP entry points and both banded-SP ones), each result held to
+``band=`` 1, 3, 16, 800 and 8 300 (``band_fill``'s wide variant, Wp 8 448);
+``align``; ``align_all_vs_all``; both full-matrix SP entry points and both
+banded-SP ones), each result held to
 the oracle (``oracle_fast``) and to the JAX package's same entry point on
 the same inputs, at the ``str(AlignResult)`` level (coordinates where the
 route returns no CIGAR, scores for the score-only SP entry points).

@@ -3,7 +3,7 @@
 turns in one run on one card.
 
     python3 tools/ab_walls.py --parent DIR [--rounds 10] [--calls 10]
-                              [--configs 3,1,2,wide,wide_score,xla3,xla2,xla1]
+                              [--configs 3,1,2,wide,wide_score,xla3,xla2,xla1,4,4wide]
 
 Each tree runs in a worker process of its own (this script with
 ``--worker ROOT``: it imports ``seqalib_tpu_torch`` from ROOT, builds its
@@ -11,7 +11,9 @@ kernels, and takes its inputs from ``tools/profile_port.py``: config 3,
 config 1 and the wide table, seed 0, full CIGARs, and config 2 and the wide
 table as ``wide_score``, score and coordinates only; ``xla3``, ``xla2`` and
 ``xla1`` are configs 3, 2 and 1 on ``backend="xla"``, the full-matrix
-wavefront route, config 2 score-only).  Both workers stay alive
+wavefront route, config 2 score-only; ``4`` is config 4, B=64 pairs of
+10 kb at band 128, and ``4wide`` its long window, one 10 kb read against a
+window 17 000 letters longer, the wide ``band_fill``).  Both workers stay alive
 for the whole run.  The configs run one after another; for each, the two
 workers take turns for ``--rounds`` rounds: this tree first on even
 rounds, the parent first on odd ones, so that neither always runs first.
@@ -60,8 +62,8 @@ def worker(root: str) -> int:
             xla = {"backend": "xla"} if config.startswith("xla") else {}
             base = config[3:] if xla else config
             qs, ts, sp, mode = profile_port.inputs("wide" if wide else base,
-                                                   64 if wide else 512)
-            band = 64 if wide else None
+                                                   64 if wide or base == "4" else 512)
+            band = 64 if wide else (128 if base in ("4", "4wide") else None)
             tb = base not in ("2", "wide_score")
 
             def run(qs=qs, ts=ts, sp=sp, mode=mode, band=band, tb=tb, xla=xla):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a warm ``seqalib_tpu_torch.align_batch`` call goes.
 
-    python3 tools/profile_port.py [--config 3|1|2|4|5|sp|wide|banded_sp] [--batch B]
+    python3 tools/profile_port.py [--config 3|1|2|4|4wide|5|sp|wide|banded_sp] [--batch B]
                                   [--calls N] [--device cuda|cpu] [--backend strip|xla]
 
 Inputs are those of ``chip_smoke.py`` (seed 0): config 3 is B=512
@@ -9,7 +9,9 @@ BLOSUM62 o=-10 e=-1 local pairs of 1024 x 1024 with full CIGARs, config 1
 is B=512 DNA global linear-gap pairs of 256 x 256, config 4 is B=64 DNA
 pairs of 10 kb (the target is the query with 2% substitutions) aligned
 globally in a band of 128, match 2, mismatch -3, o=-5, e=-2, with full
-CIGARs.  Config 2 is B=512 DNA local linear-gap pairs of 512-1024 letters
+CIGARs; ``4wide`` is its long window, one 10 kb read against a window
+17 000 letters longer (Wp 8 704: ``band_fill``'s wide variant; ``--batch``
+is ignored).  Config 2 is B=512 DNA local linear-gap pairs of 512-1024 letters
 (``cli.py``'s generator, seed 0), score and coordinates only.  Config 5 is
 ``align_all_vs_all`` of ``--batch`` reads (default 1 000) of 128-256 letters
 against 100 references of 512-1 024 (the generator of ``cli.py``'s config
@@ -157,6 +159,13 @@ def inputs(config: str, batch: int):
     if config == "4":
         sp = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
         return (*long_reads(rng, batch, 10_000), sp, "global")
+    if config == "4wide":  # config 4's long window: a 10 kb read, a window 17 000 longer
+        sp = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+        t = rng.integers(0, 4, 27_000).astype(np.uint8)
+        q = t[8_000:18_000].copy()
+        idx = rng.choice(10_000, 200, replace=False)
+        q[idx] = (q[idx] + 1 + rng.integers(0, 3, 200)) % 4
+        return [q], [t], sp, "global"
     if config == "3":
         sp = st.ScoringParams.blosum62(gap_open=-10, gap_extend=-1)
         alpha, L, mode = 20, 1024, "local"
@@ -246,7 +255,8 @@ def profile(label: str, run, calls: int, dev) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("1", "2", "3", "4", "5", "sp", "wide", "banded_sp"),
+    ap.add_argument("--config", choices=("1", "2", "3", "4", "4wide", "5", "sp", "wide",
+                                         "banded_sp"),
                     default="3")
     ap.add_argument("--batch", type=int, default=None,
                     help="pairs per call (default 512; 64 for config 4, 16 for banded_sp; "
@@ -263,7 +273,7 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     qs, ts, sp, mode = inputs(args.config, args.batch)
-    band = {"4": 128, "wide": 64, "banded_sp": 256}.get(args.config)
+    band = {"4": 128, "4wide": 128, "wide": 64, "banded_sp": 256}.get(args.config)
     if args.config == "sp":
         mesh = st.make_band_mesh([dev])
         (q, q16), (t, t16) = qs, ts
