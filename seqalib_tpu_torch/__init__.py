@@ -32,6 +32,7 @@ from .types import (  # noqa: F401
 from .api import align, align_all_vs_all  # noqa: F401
 from .parallel.band_pipeline import make_band_mesh  # noqa: F401
 from .parallel.dist import make_pair_mesh  # noqa: F401
+from .telemetry import traced
 
 __version__ = "0.3.0"
 
@@ -47,6 +48,7 @@ def align_batch(queries, targets, scoring=None, mode="global", backend="strip", 
                         **kw)
 
 
+@traced("seqalib.align_score_sp")
 def align_score_sp(query, target, scoring, mesh, mode="global", **kw):
     """Affine score of ONE long pair computed by row-blocks x column tiles
     over ``mesh`` (a tuple of devices, ``make_band_mesh``).  ``mode``:
@@ -62,6 +64,7 @@ def align_score_sp(query, target, scoring, mesh, mode="global", **kw):
     return nw_affine_score_sp(query, target, scoring, mesh, **kw)
 
 
+@traced("seqalib.align_score_banded_sp")
 def align_score_banded_sp(queries, targets, scoring, band, mesh, **kw):
     """Banded affine global score(s) with each pair's band split into row
     blocks over ``mesh`` (a tuple of devices), the blocks relayed from one
@@ -72,6 +75,7 @@ def align_score_banded_sp(queries, targets, scoring, band, mesh, **kw):
     return banded_nw_affine_score_sp(queries, targets, scoring, band, mesh, **kw)
 
 
+@traced("seqalib.align_banded_sp")
 def align_banded_sp(query, target, scoring, band, mesh, **kw):
     """Banded affine global alignment (score + full CIGAR) of one long pair,
     or a batch, with the band relayed as row blocks over ``mesh``;
@@ -82,6 +86,7 @@ def align_banded_sp(query, target, scoring, band, mesh, **kw):
     return banded_nw_affine_align_sp(query, target, scoring, band, mesh, **kw)
 
 
+@traced("seqalib.align_sp")
 def align_sp(query, target, scoring, mesh, **kw):
     """Global affine alignment (score + full CIGAR) of ONE long pair over
     ``mesh``: the pipeline fill with boundary checkpoints, then a walk that

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .telemetry import traced
 from .types import (
     PROTEIN_SIZE,
     AlignResult,
@@ -68,6 +69,7 @@ def _device(device) -> torch.device:
     return dev
 
 
+@traced("seqalib.align")
 def align(
     query,
     target,
@@ -84,6 +86,7 @@ def align(
     )[0]
 
 
+@traced("seqalib.align_batch")
 def align_batch(
     queries: Sequence,
     targets: Sequence,
@@ -177,6 +180,7 @@ def _load_shard(shard: str, n: int, key: str, out: Dict[str, np.ndarray]) -> boo
     return False
 
 
+@traced("seqalib.align_all_vs_all")
 def align_all_vs_all(
     queries: Sequence,
     references: Sequence,

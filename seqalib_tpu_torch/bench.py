@@ -10,8 +10,7 @@ of the strip engine (``ops.strip.local_fused``: the end-only local fill,
 the canonical-end reduce, the reversed windows and the pass-2 reverse
 extension, the launch half of a local ``strip_bucket`` without its
 traceback), timed call by call with CUDA events over ``BENCH_REPS`` warm
-calls (at least 10); GCUPS = B * L * L / the median call.  ``BENCH_TRACE``
-names a directory for a ``torch.profiler`` Chrome trace of one call.
+calls (at least 10); GCUPS = B * L * L / the median call.
 
 Prints one JSON line: ``metric`` (it names the device), ``value`` (GCUPS),
 ``unit``, ``pairs_per_sec``, ``escalated`` (pairs whose pass-2 score missed
@@ -56,7 +55,6 @@ def main(argv=None) -> int:
     B = int(os.environ.get("BENCH_B", "512"))
     L = int(os.environ.get("BENCH_L", "1024"))
     reps = max(10, int(os.environ.get("BENCH_REPS", "10")))
-    trace_dir = os.environ.get("BENCH_TRACE")
 
     sp = ScoringParams.blosum62()
     rng = np.random.default_rng(0)
@@ -91,16 +89,6 @@ def main(argv=None) -> int:
             call()
             times.append(time.perf_counter() - t0)
     per_call = statistics.median(times)
-    if trace_dir:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts) as prof:
-            call()
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, "bench.json"))
 
     n_check = min(PARITY_PAIRS, B)
     equal = 0

@@ -29,6 +29,7 @@ import torch
 from ..ops.band_fill import band_fill, band_table
 from ..ops.band_walk import band_walk
 from ..scoring import NIBBLE_BIAS, fits_nibbles
+from ..telemetry import count_d2h, span
 from ..types import NEG_INF, AlignResult, ScoringParams
 from ..utils.cigar import op_rows_to_cigars
 
@@ -106,44 +107,47 @@ def banded_align_batch(
     B = qs.shape[0]
     if B == 0:
         return []
-    deltas = tlen - qlen
-    # each pair's band bounds (the oracle's); the bucket's slot geometry
-    # covers them all
-    dlo_p = np.minimum(0, deltas) - band
-    dhi_p = np.maximum(0, deltas) + band
-    dlo = int(dlo_p.min())
-    dhi = int(dhi_p.max())
-    n = int(qlen.max())
-    m = int(tlen.max())
-    Wp, K = _geometry(dlo, dhi, n, m)
-    if CK is None:
-        CK = 256 if traceback else 512
-    CK = _ceil_to(CK, 4)
-    Kp = _ceil_to(K, CK)
+    with span("seqalib.banded.stage"):
+        deltas = tlen - qlen
+        # each pair's band bounds (the oracle's); the bucket's slot geometry
+        # covers them all
+        dlo_p = np.minimum(0, deltas) - band
+        dhi_p = np.maximum(0, deltas) + band
+        dlo = int(dlo_p.min())
+        dhi = int(dhi_p.max())
+        n = int(qlen.max())
+        m = int(tlen.max())
+        Wp, K = _geometry(dlo, dhi, n, m)
+        if CK is None:
+            CK = 256 if traceback else 512
+        CK = _ceil_to(CK, 4)
+        Kp = _ceil_to(K, CK)
 
-    A = table.shape[0]  # letters A and A + 1 are the query/target sentinels
-    # out-of-band cells are masked, so the sentinel score never reaches a
-    # result; it is the JAX kernel's (-4 on its profile route, mismatch on
-    # its scalar route) so that every pointer byte is the same as there
-    sent = -NIBBLE_BIAS if sp.matrix is not None else sp.mismatch
+        A = table.shape[0]  # letters A and A + 1 are the query/target sentinels
+        # out-of-band cells are masked, so the sentinel score never reaches a
+        # result; it is the JAX kernel's (-4 on its profile route, mismatch on
+        # its scalar route) so that every pointer byte is the same as there
+        sent = -NIBBLE_BIAS if sp.matrix is not None else sp.mismatch
 
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
 
-    qk = put(_pad_letters(qs, n + 1, A, qlen))
-    tk = put(_pad_letters(ts, m + 1, A + 1, tlen))
-    tab = put(band_table(table, sent))
-    vecs = [put(v) for v in (qlen, tlen, dlo_p, dhi_p)]
-    state0 = torch.full((4, B, Wp), NEG_INF, dtype=torch.int32, device=dev)
-    score0 = torch.full((B, Wp), NEG_INF, dtype=torch.int32, device=dev)
-    kw = dict(K=K, dlo=dlo, dhi=dhi, gap_open=sp.gap_open, gap_extend=sp.gap_extend)
+        qk = put(_pad_letters(qs, n + 1, A, qlen))
+        tk = put(_pad_letters(ts, m + 1, A + 1, tlen))
+        tab = put(band_table(table, sent))
+        vecs = [put(v) for v in (qlen, tlen, dlo_p, dhi_p)]
+        state0 = torch.full((4, B, Wp), NEG_INF, dtype=torch.int32, device=dev)
+        score0 = torch.full((B, Wp), NEG_INF, dtype=torch.int32, device=dev)
+        kw = dict(K=K, dlo=dlo, dhi=dhi, gap_open=sp.gap_open, gap_extend=sp.gap_extend)
 
-    fill = band_fill(qk, tk, *vecs, state0, score0, tab, k0=0, k1=Kp, mode="fill",
-                     CK=CK if traceback else 0, **kw)
-    scores = fill["score"].max(dim=1).values  # fetched once the walk is queued
-    if not traceback:
-        return [AlignResult(int(s), 0, int(qlen[b]), 0, int(tlen[b]), "")
-                for b, s in enumerate(scores.tolist())]
+    with span("seqalib.banded.fill"):
+        fill = band_fill(qk, tk, *vecs, state0, score0, tab, k0=0, k1=Kp, mode="fill",
+                         CK=CK if traceback else 0, **kw)
+        scores = fill["score"].max(dim=1).values  # fetched once the walk is queued
+        if not traceback:
+            count_d2h(scores)
+            return [AlignResult(int(s), 0, int(qlen[b]), 0, int(tlen[b]), "")
+                    for b, s in enumerate(scores.tolist())]
 
     ckpts = fill["ckpt"]  # (Kp / CK, 4, B, Wp): the state entering each chunk
     SB = super_block_chunks(CK, B, Wp)
@@ -156,14 +160,20 @@ def banded_align_batch(
     while ci >= 0:
         cg = (ci // SB) * SB  # the super-block's first chunk
         k0, k1 = cg * CK, min(cg + SB, NC) * CK
-        ptr = band_fill(qk, tk, *vecs, ckpts[cg], score0, tab, k0=k0, k1=k1,
-                        mode="ptr", **kw)["ptr"]
-        ops, iv, jv, stv, dnv = band_walk(ptr, iv, jv, stv, dnv, k0=k0, dhi=dhi)
+        with span("seqalib.banded.block"):
+            ptr = band_fill(qk, tk, *vecs, ckpts[cg], score0, tab, k0=k0, k1=k1,
+                            mode="ptr", **kw)["ptr"]
+            ops, iv, jv, stv, dnv = band_walk(ptr, iv, jv, stv, dnv, k0=k0, dhi=dhi)
         blocks.append(ops)  # column x <-> diagonal k0 + x
         ci = cg - 1
-    # blocks were walked from high k to low: flipping each and joining them
-    # gives every pair's ops in walk (end -> start) order
-    ops_mat = torch.cat([blk.flip(1) for blk in blocks], dim=1).cpu().numpy()
-    cigars = op_rows_to_cigars(ops_mat[:, ::-1])
-    return [AlignResult(int(s), 0, int(qlen[b]), 0, int(tlen[b]), cigars[b])
-            for b, s in enumerate(scores.tolist())]
+    with span("seqalib.banded.ops_copy"):
+        # blocks were walked from high k to low: flipping each and joining them
+        # gives every pair's ops in walk (end -> start) order
+        ops_t = torch.cat([blk.flip(1) for blk in blocks], dim=1)
+        ops_mat = ops_t.cpu().numpy()
+        count_d2h(ops_t)
+    with span("seqalib.banded.cigar"):
+        cigars = op_rows_to_cigars(ops_mat[:, ::-1])
+        count_d2h(scores)
+        return [AlignResult(int(s), 0, int(qlen[b]), 0, int(tlen[b]), cigars[b])
+                for b, s in enumerate(scores.tolist())]

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..scoring import NIBBLE_BIAS, Tables, fits_nibbles
+from ..telemetry import count_d2h
 from ..transfer import host_buffer, to_device, to_host, upload
 from ..types import NEG_INF
 from .band_fill import band_fill, band_table
@@ -354,9 +355,9 @@ def reverse_starts(q, t, score, qe, te, tables: Tables, *, Wq0: int):
         )
         res = strip_fill(to_device(qr, device), to_device(tr, device), to_device(wq, device),
                          to_device(te_s, device), tables, mq=m_sub, mode="emode")
-        score2, ri, rj = (
-            x.cpu().numpy() for x in reduce_best(res["bv"], res["bk"], m_sub + 1)
-        )
+        best = reduce_best(res["bv"], res["bk"], m_sub + 1)
+        score2, ri, rj = (x.cpu().numpy() for x in best)
+        count_d2h(*best)
         ok = score2 == score[pend]
         # full-height windows must reproduce the score: anything else is a
         # kernel or contract fault, not a windowing artifact

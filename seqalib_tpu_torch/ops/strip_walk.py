@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..telemetry import count_d2h
 from ..types import PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP
 from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD, op_rows_to_cigars
 
@@ -68,11 +69,14 @@ def cigars_from_text(text, nchar) -> list[str]:
     only the last max(nchar) bytes of the text rows, and decodes one slice
     per pair.  Raises ``ValueError`` when a pair's start cell lay outside
     P."""
-    n = torch.as_tensor(nchar).tolist()
+    nchar = torch.as_tensor(nchar)
+    n = nchar.tolist()
     if min(n, default=0) < 0:
         raise _bad_start(n.index(BAD_START))
     W = max(n, default=0)
-    raw = text[:, text.shape[1] - W:].contiguous().cpu().numpy().tobytes()
+    tail = text[:, text.shape[1] - W:].contiguous()
+    raw = tail.cpu().numpy().tobytes()
+    count_d2h(nchar, tail)
     return [raw[(b + 1) * W - x: (b + 1) * W].decode("ascii") for b, x in enumerate(n)]
 
 

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..ops.sp_tile import NEG, ptr_index, sp_tile_ptr, sp_tile_run
+from ..telemetry import count_d2h, span
 from ..types import PTR_DIAG, PTR_LEFT, PTR_UP, AlignResult
 from ..utils.cigar import OP_D, OP_I, OP_M, ops_to_cigar
 
@@ -81,81 +82,89 @@ def _sp_fill(q, t, sp, mesh: Mesh, C, sp_sub, want_tb, local=False):
     """The pipeline fill.  Returns (score, geom), with ``want_tb`` also the
     per-tile boundaries ``ckpt[(d, tt)] = (H_top, F_top, Hcol, Ecol)``.
     ``sp_sub`` sets the kernel's strip height to ``sp_sub * 128`` rows."""
-    q = np.asarray(q)
-    t = np.asarray(t)
-    n, m = len(q), len(t)
-    D = len(mesh)
-    R = max(1, _ceil_to(n, D) // D)
-    n_tiles = max(1, _ceil_to(m, C) // C)
-    pad_letter = 0 if sp.matrix is not None else 4
-    q_pad = np.zeros(D * R, np.int32)
-    q_pad[:n] = q
-    t_pad = np.full(n_tiles * C + 1, pad_letter, np.int32)
-    t_pad[1: 1 + m] = t  # t_pad[x] = t[x - 1]: 1-based columns
-    o, e = sp.gap_open, sp.gap_extend
-    tbl = sp.substitution_matrix() if sp.matrix is not None else None
-    strip = sp_sub * 128 if sp_sub else 0
-    kw = dict(n=n, m=m, C=C, match=sp.match, mismatch=sp.mismatch, gap_open=o,
-              gap_extend=e, mode="local" if local else "global", strip=strip)
+    with span("seqalib.sp.stage"):
+        q = np.asarray(q)
+        t = np.asarray(t)
+        n, m = len(q), len(t)
+        D = len(mesh)
+        R = max(1, _ceil_to(n, D) // D)
+        n_tiles = max(1, _ceil_to(m, C) // C)
+        pad_letter = 0 if sp.matrix is not None else 4
+        q_pad = np.zeros(D * R, np.int32)
+        q_pad[:n] = q
+        t_pad = np.full(n_tiles * C + 1, pad_letter, np.int32)
+        t_pad[1: 1 + m] = t  # t_pad[x] = t[x - 1]: 1-based columns
+        o, e = sp.gap_open, sp.gap_extend
+        tbl = sp.substitution_matrix() if sp.matrix is not None else None
+        strip = sp_sub * 128 if sp_sub else 0
+        kw = dict(n=n, m=m, C=C, match=sp.match, mismatch=sp.mismatch, gap_open=o,
+                  gap_extend=e, mode="local" if local else "global", strip=strip)
 
-    def put(x, dev):
-        return torch.as_tensor(np.asarray(x, np.int32)).to(dev)
+        def put(x, dev):
+            return torch.as_tensor(np.asarray(x, np.int32)).to(dev)
 
-    qbs = [put(q_pad[d * R: (d + 1) * R], dev) for d, dev in enumerate(mesh)]
-    tks = [put(t_pad, dev) for dev in mesh]
-    tabs = [put(tbl, dev) if tbl is not None else None for dev in mesh]
-    rows = np.arange(1, R + 1)
-    hcols = [put(np.zeros(R) if local else o + (d * R + rows) * e, dev)
-             for d, dev in enumerate(mesh)]
-    ecols = [torch.full((R,), NEG, dtype=torch.int32, device=dev) for dev in mesh]
-    caps = [torch.full((1,), NEG, dtype=torch.int32, device=dev) for dev in mesh]
+        qbs = [put(q_pad[d * R: (d + 1) * R], dev) for d, dev in enumerate(mesh)]
+        tks = [put(t_pad, dev) for dev in mesh]
+        tabs = [put(tbl, dev) if tbl is not None else None for dev in mesh]
+        rows = np.arange(1, R + 1)
+        hcols = [put(np.zeros(R) if local else o + (d * R + rows) * e, dev)
+                 for d, dev in enumerate(mesh)]
+        ecols = [torch.full((R,), NEG, dtype=torch.int32, device=dev) for dev in mesh]
+        caps = [torch.full((1,), NEG, dtype=torch.int32, device=dev) for dev in mesh]
 
-    def init_top(j0, W, dev):
-        # DP row 0 at columns j0 .. j0 + W: global H(0, j) = o + j*e (H(0, 0)
-        # = 0), local 0; F = -inf; built on the device, so that the host
-        # never waits for the queue
-        jc = torch.arange(j0, j0 + W + 1, dtype=torch.int32, device=dev)
-        h = torch.zeros_like(jc) if local else torch.where(jc == 0, 0, o + jc * e)
-        return h, torch.full((W,), NEG, dtype=torch.int32, device=dev)
+        def init_top(j0, W, dev):
+            # DP row 0 at columns j0 .. j0 + W: global H(0, j) = o + j*e (H(0, 0)
+            # = 0), local 0; F = -inf; built on the device, so that the host
+            # never waits for the queue
+            jc = torch.arange(j0, j0 + W + 1, dtype=torch.int32, device=dev)
+            h = torch.zeros_like(jc) if local else torch.where(jc == 0, 0, o + jc * e)
+            return h, torch.full((W,), NEG, dtype=torch.int32, device=dev)
+
+        one = _one_device(mesh)
+        if one:  # block by block: the first block's top row
+            pkt = init_top(0, n_tiles * C, mesh[0])
 
     ckpt = {}
-    if _one_device(mesh):  # block by block, each block's tiles in one run
-        W = n_tiles * C
-        pkt = init_top(0, W, mesh[0])
+    if one:  # block by block, each block's tiles in one run
         for d in range(D):
             h_top, f_top = pkt
-            out = sp_tile_run(qbs[d], tks[d], h_top, f_top, hcols[d], ecols[d], caps[d],
-                              tabs[d], i0=d * R, j0=0, want_cols=want_tb, **kw)
+            with span("seqalib.sp.fill"):
+                out = sp_tile_run(qbs[d], tks[d], h_top, f_top, hcols[d], ecols[d],
+                                  caps[d], tabs[d], i0=d * R, j0=0, want_cols=want_tb, **kw)
+                # the next block's top: corner H(i0 + R, 0), then the bottom rows
+                pkt = (torch.cat([hcols[d][R - 1:], out["hbot"]]), out["fbot"])
+                caps[d] = out["cap"]
             if want_tb:
-                for tt in range(n_tiles):
-                    x = tt * C
-                    left = ((hcols[d], ecols[d]) if tt == 0 else
-                            (out["hcols"][tt - 1], out["ecols"][tt - 1]))
-                    ckpt[(d, tt)] = (h_top[x: x + C + 1], f_top[x: x + C], *left)
-            # the next block's top: corner H(i0 + R, 0), then the bottom rows
-            pkt = (torch.cat([hcols[d][R - 1:], out["hbot"]]), out["fbot"])
-            caps[d] = out["cap"]
+                with span("seqalib.sp.checkpoint"):
+                    for tt in range(n_tiles):
+                        x = tt * C
+                        left = ((hcols[d], ecols[d]) if tt == 0 else
+                                (out["hcols"][tt - 1], out["ecols"][tt - 1]))
+                        ckpt[(d, tt)] = (h_top[x: x + C + 1], f_top[x: x + C], *left)
     else:
-        pkts = [None] * D  # the packet each block takes at this step
-        for s in range(n_tiles + D - 1):
-            nxt = [None] * D
-            for d, dev in enumerate(mesh):
-                tt = s - d
-                if not 0 <= tt < n_tiles:  # pipeline fill / drain: no tile
-                    continue
-                j0 = tt * C
-                h_top, f_top = init_top(j0, C, dev) if d == 0 else pkts[d]
-                if want_tb:
-                    ckpt[(d, tt)] = (h_top, f_top, hcols[d], ecols[d])
-                out = sp_tile_run(qbs[d], tks[d][j0: j0 + C + 1], h_top, f_top, hcols[d],
-                                  ecols[d], caps[d], tabs[d], i0=d * R, j0=j0, **kw)
-                if d + 1 < D:  # corner H(i0 + R, j0), then the bottom rows
-                    nd = mesh[d + 1]
-                    nxt[d + 1] = (torch.cat([hcols[d][R - 1:], out["hbot"]]).to(nd),
-                                  out["fbot"].to(nd))
-                hcols[d], ecols[d], caps[d] = out["hcol"], out["ecol"], out["cap"]
-            pkts = nxt
-    score = max(int(c) for c in caps)
+        with span("seqalib.sp.fill"):
+            pkts = [None] * D  # the packet each block takes at this step
+            for s in range(n_tiles + D - 1):
+                nxt = [None] * D
+                for d, dev in enumerate(mesh):
+                    tt = s - d
+                    if not 0 <= tt < n_tiles:  # pipeline fill / drain: no tile
+                        continue
+                    j0 = tt * C
+                    h_top, f_top = init_top(j0, C, dev) if d == 0 else pkts[d]
+                    if want_tb:
+                        ckpt[(d, tt)] = (h_top, f_top, hcols[d], ecols[d])
+                    out = sp_tile_run(qbs[d], tks[d][j0: j0 + C + 1], h_top, f_top, hcols[d],
+                                      ecols[d], caps[d], tabs[d], i0=d * R, j0=j0, **kw)
+                    if d + 1 < D:  # corner H(i0 + R, j0), then the bottom rows
+                        nd = mesh[d + 1]
+                        nxt[d + 1] = (torch.cat([hcols[d][R - 1:], out["hbot"]]).to(nd),
+                                      out["fbot"].to(nd))
+                    hcols[d], ecols[d], caps[d] = out["hcol"], out["ecol"], out["cap"]
+                pkts = nxt
+    with span("seqalib.sp.score_wait"):
+        score = max(int(c) for c in caps)
+        count_d2h(*caps)
     geom = dict(R=R, C=C, qb=qbs, tk=tks, tab=tabs, kw=kw)
     return (score, geom, ckpt) if want_tb else (score, geom)
 
@@ -197,16 +206,21 @@ def _ptr_tiles(geom, ckpt, d, tt, rows):
     cache.)"""
     C, R = geom["C"], geom["R"]
     K = max(1, min(tt + 1, PTR_BATCH_BYTES // (rows * C)))
-    tiles = [ckpt[(d, tt - g)] for g in range(K)]
-    htop, ftop, hcol, ecol = (torch.stack([b[x] if x < 2 else b[x][:rows] for b in tiles])
-                              for x in range(4))
-    dev = hcol.device
-    cap = torch.full((1,), NEG, dtype=torch.int32, device=dev)
-    kw = {k: v for k, v in geom["kw"].items() if k != "mode"}
-    lo = (tt - K + 1) * C
-    P = sp_tile_ptr(geom["qb"][d][:rows], geom["tk"][d][lo: (tt + 1) * C + 1], htop, ftop,
-                    hcol, ecol, cap, geom["tab"][d], i0=d * R, j0=tt * C,
-                    **dict(kw, n=0, m=0))["ptr"].cpu().numpy()
+    with span("seqalib.sp.ptr_batch"):
+        with span("seqalib.sp.ptr_launch"):
+            tiles = [ckpt[(d, tt - g)] for g in range(K)]
+            htop, ftop, hcol, ecol = (torch.stack([b[x] if x < 2 else b[x][:rows]
+                                                   for b in tiles]) for x in range(4))
+            dev = hcol.device
+            cap = torch.full((1,), NEG, dtype=torch.int32, device=dev)
+            kw = {k: v for k, v in geom["kw"].items() if k != "mode"}
+            lo = (tt - K + 1) * C
+            ptr = sp_tile_ptr(geom["qb"][d][:rows], geom["tk"][d][lo: (tt + 1) * C + 1], htop,
+                              ftop, hcol, ecol, cap, geom["tab"][d], i0=d * R, j0=tt * C,
+                              **dict(kw, n=0, m=0))["ptr"]
+        with span("seqalib.sp.ptr_copy"):  # waits for the recompute, then copies
+            P = ptr.cpu().numpy()
+            count_d2h(ptr)
     return {tt - g: P[g] for g in range(K)}
 
 
@@ -251,7 +265,18 @@ def nw_affine_align_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None):
         return AlignResult(int(score), 0, n, 0, m,
                            (f"{m}D" if m else "") if n == 0 else f"{n}I")
     score, geom, ckpt = _sp_fill(q, t, sp, mesh, C, sp_sub, want_tb=True)
-    R = geom["R"]
+    with span("seqalib.sp.walk"):
+        ops = _sp_walk(geom, ckpt, n, m)
+    with span("seqalib.sp.rescore"):
+        walked = _rescore_global_affine(q, t, ops, sp)
+        if walked != score:  # not an assert: must survive python -O
+            raise RuntimeError(f"SP traceback rescore {walked} != fill score {score}")
+        return AlignResult(int(score), 0, n, 0, m, ops_to_cigar(ops))
+
+
+def _sp_walk(geom, ckpt, n: int, m: int) -> list:
+    """The CIGAR ops of the path from (n, m) back to (0, 0), in order."""
+    R, C = geom["R"], geom["C"]
     ops: list = []
     i, j, state = n, m, "H"
     tiles = {}  # the pointer tiles of the last recompute, by (block, tile)
@@ -292,7 +317,4 @@ def nw_affine_align_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None):
                     state = "H"
                 j -= 1
     ops.reverse()
-    walked = _rescore_global_affine(q, t, ops, sp)
-    if walked != score:  # not an assert: must survive python -O
-        raise RuntimeError(f"SP traceback rescore {walked} != fill score {score}")
-    return AlignResult(int(score), 0, n, 0, m, ops_to_cigar(ops))
+    return ops

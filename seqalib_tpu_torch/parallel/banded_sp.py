@@ -45,6 +45,7 @@ from ..models.banded import banded_matrix_supported
 from ..ops.band_fill import LANES, band_fill, band_table, bout_width
 from ..ops.band_walk import band_walk
 from ..scoring import NIBBLE_BIAS
+from ..telemetry import count_d2h
 from ..types import NEG_INF, AlignResult, ScoringParams
 from ..utils.cigar import OP_D, OP_PAD, ops_to_cigar
 from .band_pipeline import Mesh, _rescore_global_affine
@@ -188,6 +189,7 @@ def _sp_relay(geom, blocks, mesh: Mesh, want_tb: bool = False):
     merged = torch.full((NG, GB), NEG_INF, dtype=torch.int32, device=mesh[0])
     for gi, sc in scores:
         merged[gi] = torch.maximum(merged[gi], sc)
+    count_d2h(merged)
     return merged.reshape(-1).cpu().numpy(), bnds
 
 
@@ -287,7 +289,9 @@ def banded_nw_affine_align_sp(q, t, sp: ScoringParams, band: int, mesh: Mesh,
         if bool(viol):
             raise RuntimeError("SP block walk ended mid-block (handoff invariant)")
         # block 0 first: each block's columns run along increasing diagonals
-        opsm = np.concatenate([ops[d].cpu().numpy() for d in range(d_start + 1)], axis=1)
+        rows = [ops[d] for d in range(d_start + 1)]
+        opsm = np.concatenate([r.cpu().numpy() for r in rows], axis=1)
+        count_d2h(*rows, i_fin, j_fin)
         i_fin, j_fin = i_fin.cpu().numpy(), j_fin.cpu().numpy()
         for b in range(GB):
             idx = gi * GB + b

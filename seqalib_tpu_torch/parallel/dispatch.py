@@ -46,6 +46,7 @@ from ..ops.strip import strip_launch
 from ..ops.wavefront import wavefront_launch
 from ..ops.wavefront_xla import xla_launch
 from ..scoring import tables_from_params
+from ..telemetry import span
 from ..types import AlignResult, ScoringParams
 from .band_pipeline import Mesh
 from .dist import refuse_multiprocess, strip_sharded, wavefront_sharded
@@ -140,14 +141,15 @@ def dispatch_banded(qs: List[np.ndarray], ts: List[np.ndarray], sp: ScoringParam
     for pi, idxs in enumerate(parts):
         if mesh is not None:
             device = mesh[pi % len(mesh)]
-        qb = _pad_stack([qs[i] for i in idxs], max(len(qs[i]) for i in idxs))
-        tb = _pad_stack([ts[i] for i in idxs], max(len(ts[i]) for i in idxs))
-        qlen = np.array([len(qs[i]) for i in idxs], np.int64)
-        tlen = np.array([len(ts[i]) for i in idxs], np.int64)
-        res = banded_align_batch(qb, tb, qlen, tlen, sp, band, traceback=traceback,
-                                 device=device)
-        for r, idx in enumerate(idxs):
-            results[idx] = res[r]
+        with span("seqalib.banded.group"):
+            qb = _pad_stack([qs[i] for i in idxs], max(len(qs[i]) for i in idxs))
+            tb = _pad_stack([ts[i] for i in idxs], max(len(ts[i]) for i in idxs))
+            qlen = np.array([len(qs[i]) for i in idxs], np.int64)
+            tlen = np.array([len(ts[i]) for i in idxs], np.int64)
+            res = banded_align_batch(qb, tb, qlen, tlen, sp, band, traceback=traceback,
+                                     device=device)
+            for r, idx in enumerate(idxs):
+                results[idx] = res[r]
     return results  # type: ignore[return-value]
 
 
@@ -176,24 +178,26 @@ def dispatch_batch(
 
     pending = []
     for (Lq, Lt), idxs in sorted(buckets.items()):
-        qb = _pad_stack([qs[i] for i in idxs], Lq)
-        tb = _pad_stack([ts[i] for i in idxs], Lt)
-        qlen = np.array([len(qs[i]) for i in idxs], np.int32)
-        tlen = np.array([len(ts[i]) for i in idxs], np.int32)
-        pending.append((idxs, run_bucket(qb, tb, qlen, tlen, sp, mode, band, traceback,
-                                         device, launch_only=True, mesh=mesh,
-                                         backend=backend)))
+        with span("seqalib.bucket.launch"):
+            qb = _pad_stack([qs[i] for i in idxs], Lq)
+            tb = _pad_stack([ts[i] for i in idxs], Lt)
+            qlen = np.array([len(qs[i]) for i in idxs], np.int32)
+            tlen = np.array([len(ts[i]) for i in idxs], np.int32)
+            pending.append((idxs, run_bucket(qb, tb, qlen, tlen, sp, mode, band, traceback,
+                                             device, launch_only=True, mesh=mesh,
+                                             backend=backend)))
 
     results: List[AlignResult] = [None] * len(qs)  # type: ignore[list-item]
     for idxs, finish in pending:
-        out = finish()
-        for r, idx in enumerate(idxs):
-            results[idx] = AlignResult(
-                int(out["score"][r]),
-                int(out["qs"][r]),
-                int(out["qe"][r]),
-                int(out["ts"][r]),
-                int(out["te"][r]),
-                out["cigars"][r] if traceback else "",
-            )
+        with span("seqalib.bucket.finalize"):
+            out = finish()
+            for r, idx in enumerate(idxs):
+                results[idx] = AlignResult(
+                    int(out["score"][r]),
+                    int(out["qs"][r]),
+                    int(out["qe"][r]),
+                    int(out["ts"][r]),
+                    int(out["te"][r]),
+                    out["cigars"][r] if traceback else "",
+                )
     return results

@@ -25,6 +25,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from .telemetry import count_d2h
+
 
 def host_buffer(n: int, device) -> torch.Tensor:
     """An int32 host buffer of ``n`` elements, pinned when ``device`` is a
@@ -58,6 +60,7 @@ def to_host(tensors: Dict[str, torch.Tensor]) -> Callable[[], Dict[str, np.ndarr
     flat = torch.cat([tensors[k].reshape(-1).to(torch.int32) for k in names])
     host = torch.empty(flat.shape, dtype=torch.int32, pin_memory=True)
     host.copy_(flat, non_blocking=True)
+    count_d2h(flat)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(dev))
 

@@ -144,7 +144,6 @@ def test_bench_all_runs_as_a_module():
 def small_bench(monkeypatch):
     monkeypatch.setenv("BENCH_B", "4")
     monkeypatch.setenv("BENCH_L", "64")
-    monkeypatch.delenv("BENCH_TRACE", raising=False)
 
 
 def test_headline_bench_on_the_cpu(small_bench, capsys):
