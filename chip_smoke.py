@@ -60,7 +60,7 @@ Phases (any failure raises and exits non-zero):
    2 048 columns (one tile: a run of one, a pointer batch of one) on a mesh
    of 1, its local score equal to the strip engine's; ``align_score_sp``
    makes one tile launch per call, ``align_sp`` fewer pointer launches than
-   the tiles its walk enters;
+   the tiles its walk enters, and one walk (``sp_walk``) a pointer batch;
 7. the banded route for tables outside [-4, 11] (the full-matrix
    wavefront): B=64 protein pairs of 1 000 letters (the target is the
    query with 5% substitutions and a few indels), band 64, 2 x BLOSUM62
@@ -180,7 +180,12 @@ sequence-parallel tile kernel (``sp_tile``:
 the runs of a block's tiles in global and local mode and the pointer
 batch, on their first 2048 rows and first 4 tiles (3 of a batch), with the
 whole call's time printed beside, and the one-tile launches of the
-2 048-column tiles whole), the wide banded fill (fill and pointer modes on
+2 048-column tiles whole), the walk through a batch of pointer tiles
+(``sp_walk``: every batch one ``align_sp`` call walks at the benchmark cell
+``long_pair_sp.cigar``'s shape, 16 569 x ~16 566 in tiles of 128 columns,
+each on its header and ops, with the kernel's own time under
+``torch.profiler``, the ns per op walked, and a bound of one 32-byte sector
+per op walked plus the ops written), the wide banded fill (fill and pointer modes on
 2048 diagonals of the 17 000-delta pair, and of pairs whose deltas give Wp
 8 320, 16 384 and 32 768, each with its cluster geometry; the scratch
 variant's fill and pointer calls and both variants' pass-2 emode calls
@@ -262,6 +267,7 @@ SP_N, SP_M, SP_SUBS, SP_C, SP_LONG, SP_CUT_ROWS = 10_240, 8_192, 150, 256, 16_38
 SP_ORACLE_N = 1536  # align_sp held to the oracle, str(AlignResult), on meshes of 1 and 4
 SP_ONE_C = 2048  # tiles as wide as the SP_ORACLE_N pair: one tile per block
 SP_CUT_TILES, SP_CUT_BATCH = 4, 3  # tiles of a run and of a pointer batch held to plain
+SP_CELL_N, SP_CELL_C = 16_569, 128  # the benchmark cell long_pair_sp.cigar's pair and tiles
 # config 4 with a long window: a 10 kb read against L4 + delta letters; the
 # deltas give the wide fill (a thread block cluster a pair) Wp 8 704 (the
 # path), 8 320, 16 384 and 32 768
@@ -352,6 +358,9 @@ KERNELS = {  # name -> (CUDA source, replaced Pallas kernel, path[, launch-count
     "sp_tile/run_global": ("sp_tile.cu", f"{SPTILE}:52", "sp_align"),
     "sp_tile/ptr_batch": ("sp_tile.cu", f"{SPTILE}:52", "sp_align"),
     "sp_tile/run_local": ("sp_tile.cu", f"{SPTILE}:52", "sp_local"),
+    # a kernel of the port alone: it replaces the JAX package's host walk of
+    # the SP path (nw_affine_align_sp)
+    "sp_walk": ("sp_walk.cu", "seqalib_tpu/parallel/band_pipeline.py:562", "sp_align"),
     "wavefront_fill/ptr": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide"),
     # the unbanded global fill with pointers (the pointer strip kernel),
     # counted under the same key on the "xla" route's config 3 (pass c)
@@ -1080,6 +1089,73 @@ def kernel_phase_sp(q, t, q16, t16, qo, to, sp, dev):
     return per_kernel
 
 
+def sp_cell_pair():
+    """A pair at the benchmark cell ``long_pair_sp.cigar``'s shape: SP_CELL_N
+    random letters against a copy with 2% substitutions, then a 7-letter
+    deletion, a 5-letter insertion and a 1-letter deletion at drawn places
+    (a generator of its own, so the other phases' pairs stay as they were)."""
+    rng = np.random.default_rng(SEED + 1)
+    q = rng.integers(0, 4, SP_CELL_N).astype(np.int32)
+    t = q.copy()
+    idx = rng.choice(SP_CELL_N, SP_CELL_N // 50, replace=False)
+    t[idx] = (t[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
+    for op, k in (("delete", 7), ("insert", 5), ("delete", 1)):
+        at = int(rng.integers(0, len(t) - k))
+        t = (np.delete(t, np.arange(at, at + k)) if op == "delete"
+             else np.insert(t, at, rng.integers(0, 4, k)))
+    return q, t.astype(np.int32)
+
+
+def sp_walk_view(out):
+    """``sp_walk``'s output without its undefined tail: the header and the
+    ops walked."""
+    import torch
+    from seqalib_tpu_torch.ops.sp_walk import HEADER_BYTES
+
+    return out[:HEADER_BYTES + int(out[:HEADER_BYTES].view(torch.int32)[3])]
+
+
+def kernel_phase_sp_walk(sp, dev):
+    """``sp_walk`` at the benchmark cell's shape: each batch one ``align_sp``
+    call of ``sp_cell_pair()`` walks (a mesh of one card, tiles of SP_CELL_C
+    columns), held against its plain version (which copies the batch to the
+    host and walks it there) and timed: the wrapper by CUDA events, the
+    kernel alone under ``torch.profiler``, per op walked; the bound, one
+    32-byte sector per op walked plus the header and ops written.  The entry
+    sums the call's batches."""
+    from seqalib_tpu_torch.ops import sp_walk as walk_mod
+    from seqalib_tpu_torch.parallel import band_pipeline as bp_mod
+
+    q, t = sp_cell_pair()
+    calls, res = record(lambda: bp_mod.nw_affine_align_sp(q, t, sp, (dev,), C=SP_CELL_C),
+                        [(bp_mod, "sp_walk", walk_mod.sp_walk_ref)], every=True)
+    total = dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, alone_ms=0.0, ops=0)
+    for key in sorted(calls, key=lambda k: int(k.split("#")[1])):
+        fn, plain, args, kw, _ = calls[key]
+        stats, out = check_kernel(f"{key} ({len(q)} x {len(t)})", lambda: fn(*args, **kw),
+                                  lambda: plain(*args, **kw), sp_walk_view)
+        n = sp_walk_view(out).numel() - walk_mod.HEADER_BYTES
+        nbytes = SECTOR_BYTES * n + walk_mod.HEADER_BYTES + n
+        alone = kernel_split(lambda: fn(*args, **kw), ("sp_walk_kernel",))["sp_walk_kernel"]
+        K, C, rows = args[0].shape
+        say(f"[kernel] {key}: batch of {K} tiles x {C} x {rows} rows from ({args[1]}, "
+            f"{args[2]}); {n} ops walked; kernel alone "
+            + ("not measured" if alone is None else
+               f"{alone:.4f} ms, {alone * 1e6 / max(1, n):.1f} ns per op")
+            + f"; wrapper {stats['ms']:.4f} ms; bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
+        for k in ("ms", "plain_ms"):
+            total[k] += stats[k]
+        total["bound_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        total["alone_ms"] += alone or 0.0
+        total["ops"] += n
+    say(f"[kernel] sp_walk: a call of {len(calls)} walks, {total['ops']} ops: wrapper "
+        f"{total['ms']:.4f} ms, kernel alone {total['alone_ms']:.4f} ms "
+        f"({total['alone_ms'] * 1e6 / max(1, total['ops']):.1f} ns per op), plain "
+        f"{total['plain_ms']:.3f} ms, bound {total['bound_ms']:.6f} ms (bytes); "
+        f"score {res.score}")
+    return {"sp_walk": dict(total, bound_by="bytes", library_ms=None)}
+
+
 def kernel_phase_wide4(q, t, sp, q3, t3, sp3, dev):
     """The wide banded fills: config 4's path on one read against windows
     WIDE_DELTA and WIDE_DELTAS_HELD letters longer (the cluster variant),
@@ -1523,6 +1599,8 @@ def sp_runs(q, t, q16, t16, qo, to, sp, dev, counts):
         f"{counts['sp_align']['sp_tile/run_global'] / (REPS + 1)} fill launches per call")
     if not ptr_launches < walked or counts["sp_align"]["sp_tile/ptr"]:
         raise AssertionError("align_sp: the pointer recompute is not batched")
+    if counts["sp_align"]["sp_walk"] != counts["sp_align"]["sp_tile/ptr_batch"]:
+        raise AssertionError("align_sp: not one walk on the card a pointer batch")
     four = st.align_sp(q, t, sp, st.make_band_mesh([dev] * 4), C=SP_C)
     if str(four) != str(res):
         raise AssertionError(f"align_sp on a mesh of 4: {four} != {res}")
@@ -2326,6 +2404,7 @@ def main() -> int:
     per_kernel.update(kernel_phase4(qs4, ts4, sp4, dev))
     per_kernel.update(kernel_phase_wide4(qw, tw, sp4, q3, t3, sp3, dev))
     per_kernel.update(kernel_phase_sp(qsp, tsp, q16, t16, qo, to, sp4, dev))
+    per_kernel.update(kernel_phase_sp_walk(sp4, dev))
     per_kernel.update(kernel_phase_wide(qs7, ts7, sp7, dev))
     per_kernel.update(kernel_phase_xla(q1, t1, sp1, q3, t3, sp3, dev))
     per_kernel.update(kernel_phase_banded_sp(qsb, tsb, sp4, dev))

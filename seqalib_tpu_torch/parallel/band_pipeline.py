@@ -31,9 +31,11 @@ rows and columns never feed cell (n, m).
 from, and walks back from (n, m).  Entering a tile it has no pointers for,
 it recomputes in one launch (``ops.sp_tile_ptr``) that tile and the tiles
 to its left in the same block, as many as ``PTR_BATCH_BYTES`` allows, on
-the rows above the entry cell only (the walk never goes down), and copies
-those rows to the host.  The walk never returns to a tile it has left;
-tiles it skips by going up a block are dropped.
+the rows above the entry cell only (the walk never goes down), and walks
+that batch on its block's device (``ops.sp_walk``) until the path leaves
+it: only the ops walked and the walk's end (cell and state) come back to
+the host, which starts the next batch from there.  The walk never returns
+to a tile it has left; tiles it skips by going up a block are dropped.
 """
 
 from __future__ import annotations
@@ -43,9 +45,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops.sp_tile import NEG, ptr_index, sp_tile_ptr, sp_tile_run
+from ..ops.sp_tile import NEG, sp_tile_ptr, sp_tile_run
+from ..ops.sp_walk import ST_H, read_walk, sp_walk
 from ..telemetry import count_d2h, span
-from ..types import PTR_DIAG, PTR_LEFT, PTR_UP, AlignResult
+from ..types import AlignResult
 from ..utils.cigar import OP_D, OP_I, OP_M, ops_to_cigar
 
 Mesh = Tuple[torch.device, ...]
@@ -197,14 +200,16 @@ def sw_affine_score_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None) -
     return max(0, score)
 
 
-def _ptr_tiles(geom, ckpt, d, tt, rows):
+def _ptr_tiles(geom, ckpt, d, tt, i, j, state):
     """Block d's tiles tt, tt - 1, ... (as many as ``PTR_BATCH_BYTES`` takes)
     recomputed from their boundaries as pointer tiles in one launch on the
-    block's device, on their first ``rows`` rows, and copied to the host:
-    {tile: (C, rows) array read through ``ptr_index``}.  (The JAX package
-    caches a jitted function for the recompute; eager PyTorch needs no
-    cache.)"""
+    block's device, on the rows down to i, and walked there from cell
+    (i, j) in ``state`` until the path leaves them (``sp_walk``).  Returns
+    ``read_walk`` of the walk: its end cell and state, and its ops.  (The
+    JAX package caches a jitted function for the recompute; eager PyTorch
+    needs no cache.)"""
     C, R = geom["C"], geom["R"]
+    i0, rows = d * R, i - d * R
     K = max(1, min(tt + 1, PTR_BATCH_BYTES // (rows * C)))
     with span("seqalib.sp.ptr_batch"):
         with span("seqalib.sp.ptr_launch"):
@@ -216,12 +221,14 @@ def _ptr_tiles(geom, ckpt, d, tt, rows):
             kw = {k: v for k, v in geom["kw"].items() if k != "mode"}
             lo = (tt - K + 1) * C
             ptr = sp_tile_ptr(geom["qb"][d][:rows], geom["tk"][d][lo: (tt + 1) * C + 1], htop,
-                              ftop, hcol, ecol, cap, geom["tab"][d], i0=d * R, j0=tt * C,
+                              ftop, hcol, ecol, cap, geom["tab"][d], i0=i0, j0=tt * C,
                               **dict(kw, n=0, m=0))["ptr"]
-        with span("seqalib.sp.ptr_copy"):  # waits for the recompute, then copies
-            P = ptr.cpu().numpy()
-            count_d2h(ptr)
-    return {tt - g: P[g] for g in range(K)}
+            walk = sp_walk(ptr, i, j, state, i0=i0, j0=tt * C)
+        with span("seqalib.sp.ptr_copy"):  # waits for the recompute and the walk
+            end = torch.empty(walk.shape, dtype=walk.dtype, pin_memory=walk.is_cuda)
+            end.copy_(walk)
+            count_d2h(walk)
+    return read_walk(end.numpy())
 
 
 def _rescore_global_affine(q, t, ops, sp) -> int:
@@ -254,9 +261,10 @@ def nw_affine_align_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None):
     """Global affine alignment of one long pair over ``mesh``: score and
     CIGAR.  The fill keeps every tile's boundaries; the walk, the oracle's
     H/E/F state machine, recomputes each tile it enters as a pointer tile,
-    copies to the host only the cells of the rows above where it entered,
-    and follows the pointers, hopping tiles and blocks.  The CIGAR
-    is re-scored against the fill score before returning."""
+    on the rows above where it entered, follows the pointers on the card
+    through that batch of tiles, and hops tiles and blocks from the end the
+    card returns.  The CIGAR is re-scored against the fill score before
+    returning."""
     q = np.asarray(q)
     t = np.asarray(t)
     n, m = len(q), len(t)
@@ -275,46 +283,15 @@ def nw_affine_align_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None):
 
 
 def _sp_walk(geom, ckpt, n: int, m: int) -> list:
-    """The CIGAR ops of the path from (n, m) back to (0, 0), in order."""
+    """The CIGAR ops of the path from (n, m) back to (0, 0), in order: a
+    pointer batch at a time until the path reaches row 0 or column 0, then
+    the rest of that row or column."""
     R, C = geom["R"], geom["C"]
     ops: list = []
-    i, j, state = n, m, "H"
-    tiles = {}  # the pointer tiles of the last recompute, by (block, tile)
-    while True:
-        if i == 0:
-            ops.extend([OP_D] * j)
-            break
-        if j == 0:
-            ops.extend([OP_I] * i)
-            break
-        d, tt = (i - 1) // R, (j - 1) // C
-        i0, j0 = d * R, tt * C
-        if (d, tt) not in tiles:  # only rows up to the entry cell can be visited
-            tiles = {(d, x): P for x, P in _ptr_tiles(geom, ckpt, d, tt, i - i0).items()}
-        P = tiles[(d, tt)]
-        while i > i0 and j > j0:
-            byte = int(P[ptr_index(i - i0 - 1, j - j0, C)])
-            if state == "H":
-                ph = byte & 3
-                if ph == PTR_DIAG:
-                    ops.append(OP_M)
-                    i -= 1
-                    j -= 1
-                elif ph == PTR_UP:
-                    state = "F"
-                elif ph == PTR_LEFT:
-                    state = "E"
-                else:
-                    raise RuntimeError(f"SP walk: no move at ({i}, {j})")
-            elif state == "F":
-                ops.append(OP_I)
-                if not (byte >> 3) & 1:
-                    state = "H"
-                i -= 1
-            else:  # E
-                ops.append(OP_D)
-                if not (byte >> 2) & 1:
-                    state = "H"
-                j -= 1
+    i, j, state = n, m, ST_H
+    while i > 0 and j > 0:
+        i, j, state, walked = _ptr_tiles(geom, ckpt, (i - 1) // R, (j - 1) // C, i, j, state)
+        ops.extend(walked)
+    ops.extend([OP_D] * j if i == 0 else [OP_I] * i)
     ops.reverse()
     return ops

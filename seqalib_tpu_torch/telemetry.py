@@ -16,9 +16,11 @@ against).  Every name starts with ``seqalib.``; the layers and phases are:
   letters, boundaries and first row staged before the first fill launch),
   ``seqalib.sp.fill``, ``seqalib.sp.checkpoint`` (the tiles' boundaries kept
   for the walk), ``seqalib.sp.score_wait`` (the host waits for the score),
-  ``seqalib.sp.walk`` and in it one ``seqalib.sp.ptr_batch`` a pointer
-  recompute, holding ``seqalib.sp.ptr_launch`` and ``seqalib.sp.ptr_copy``,
-  then ``seqalib.sp.rescore`` (the re-score, the CIGAR text, the result);
+  ``seqalib.sp.walk`` and in it one ``seqalib.sp.ptr_batch`` a batch of
+  pointer tiles, holding ``seqalib.sp.ptr_launch`` (the recompute and the
+  walk through it launched on the card) and ``seqalib.sp.ptr_copy`` (the
+  wait for both, and the copy of the walk's ops and end to the host), then
+  ``seqalib.sp.rescore`` (the re-score, the CIGAR text, the result);
 * batches (``parallel/dispatch.py``, ``models/banded.py``):
   ``seqalib.bucket.launch`` and ``seqalib.bucket.finalize`` a length bucket,
   ``seqalib.banded.group`` a delta group, and in ``banded_align_batch``
@@ -38,11 +40,12 @@ the work is made:
   a pair, 8192 < Wp <= 131072) counts under ``band_fill/wide*`` and its
   scratch variant (Wp > 131072) under ``band_fill/wide_scratch*``, and
   ``sp_tile`` counts a run of several tiles under ``sp_tile/run_*`` and a
-  batch of several pointer tiles under ``sp_tile/ptr_batch``.
+  batch of several pointer tiles under ``sp_tile/ptr_batch``; ``sp_walk``
+  counts the walk through one such batch.
 * ``d2h_bytes``: the bytes the port copies from a CUDA tensor to the host:
-  scores, pointer and op rows, CIGAR text, walk ends and the buffers of
-  ``transfer.to_host`` (``count_d2h`` where each copy is made; the plain
-  versions of the kernels count nothing).
+  scores, op rows and the long pair's walked ops, CIGAR text, walk ends and
+  the buffers of ``transfer.to_host`` (``count_d2h`` where each copy is
+  made; the plain versions of the kernels count nothing).
 
 ``snapshot()`` reads both at once; the difference of two snapshots is what
 the calls between them did.
@@ -86,6 +89,7 @@ launches: dict[str, int] = {
     "sp_tile/run_global": 0,
     "sp_tile/run_local": 0,
     "sp_tile/ptr_batch": 0,
+    "sp_walk": 0,
     "wavefront_fill/ptr": 0,
     "wavefront_fill/score": 0,
     "wavefront_fill/lin_ptr": 0,

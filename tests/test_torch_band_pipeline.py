@@ -24,6 +24,7 @@ from seqalib_tpu.oracle import nw_affine, sw_affine
 from seqalib_tpu.parallel import band_pipeline as jbp
 from seqalib_tpu.types import ScoringParams as JaxScoringParams
 from seqalib_tpu_torch.ops import launches
+from seqalib_tpu_torch.ops import sp_walk as sp_walk_mod
 from seqalib_tpu_torch.parallel import band_pipeline as pbp
 from seqalib_tpu_torch.scoring import scoring_params
 
@@ -237,39 +238,71 @@ def test_per_step_pipeline_align_matches_jax_and_oracle(name, D, monkeypatch):
 
 
 def _count_ptr_batches(monkeypatch):
-    """Record the tiles of every pointer recompute ``align_sp`` makes."""
-    calls = []
-    real = pbp.sp_tile_ptr
+    """Record the tiles of every pointer recompute ``align_sp`` makes, and
+    every walk through one: (start, end, block top, left edge)."""
+    calls, walks = [], []
+    real, real_walk = pbp.sp_tile_ptr, pbp.sp_walk
 
     def counted(qb, tk, htop, *args, **kw):
         calls.append(htop.shape[0])
         return real(qb, tk, htop, *args, **kw)
 
+    def walked(P, i, j, state, *, i0, j0):
+        out = real_walk(P, i, j, state, i0=i0, j0=j0)
+        end = sp_walk_mod.read_walk(out.numpy())[:2]
+        walks.append(((i, j), end, i0, j0 - (P.shape[0] - 1) * P.shape[1]))
+        return out
+
     monkeypatch.setattr(pbp, "sp_tile_ptr", counted)
-    return calls
+    monkeypatch.setattr(pbp, "sp_walk", walked)
+    return calls, walks
 
 
 @pytest.mark.parametrize("D", [1, 2, 8])
-@pytest.mark.parametrize("name", ["400x520_C128", "blosum62_200x240"])
+@pytest.mark.parametrize("name", ["400x520_C128", "blosum62_200x240", "gap_runs",
+                                  "m_below_C_40x7"])
 def test_pointer_batches_give_the_same_alignment(name, D, monkeypatch):
     """The walk's recompute with a budget of one tile a launch (K = 1) and
     the default (K > 1): the same result, and batches make fewer launches
-    than tiles walked."""
+    than tiles walked.  Each batch is walked once (``sp_walk``, its plain
+    version here), from where the last walk ended, until the path leaves it
+    at the block top or the batch's left edge."""
     q, t, jsp, C, _, sub = ALIGN_CASES[name]
     jax_str, oracle = _jax_align(name)
-    calls = _count_ptr_batches(monkeypatch)
+    calls, walks = _count_ptr_batches(monkeypatch)
     per_launch = {}
     for budget in (1, pbp.PTR_BATCH_BYTES):
         monkeypatch.setattr(pbp, "PTR_BATCH_BYTES", budget)
         calls.clear()
+        walks.clear()
         assert str(st.align_sp(q, t, _psp(jsp), _mesh(D), C=C, sp_sub=sub)) == oracle
         per_launch[budget] = list(calls)
+        assert len(walks) == len(calls)
+        starts, ends = [w[0] for w in walks], [w[1] for w in walks]
+        assert starts == [(len(q), len(t))] + ends[:-1] and 0 in ends[-1]
+        assert all(end[0] == i0 or end[1] == lo for _, end, i0, lo in walks)
     walked = len(per_launch[1])  # one launch per tile the walk entered
     assert set(per_launch[1]) == {1}
     assert jax_str == oracle
-    if D < 8:  # a block the walk crosses several tiles of
+    if D < 8 and min(len(q), len(t)) > C:  # a block the walk crosses several tiles of
         assert max(per_launch[pbp.PTR_BATCH_BYTES]) >= 2
         assert len(per_launch[pbp.PTR_BATCH_BYTES]) < walked
+
+
+def test_a_pointer_byte_with_no_move_raises_as_the_host_walk_did(monkeypatch):
+    """A recompute that gave a tile with no move in state H (a zeroed tile)
+    stops the walk with the error the host walk raised."""
+    real = pbp.sp_tile_ptr
+
+    def zeroed(*args, **kw):
+        out = real(*args, **kw)
+        out["ptr"].zero_()
+        return out
+
+    monkeypatch.setattr(pbp, "sp_tile_ptr", zeroed)
+    q, t, jsp, C, _, sub = ALIGN_CASES["333x290_C64"]
+    with pytest.raises(RuntimeError, match=r"SP walk: no move at \(333, 290\)"):
+        st.align_sp(q, t, _psp(jsp), _mesh(2), C=C, sp_sub=sub)
 
 
 def test_fault_7_sp_scores_below_the_jax_sentinel_follow_the_oracle():

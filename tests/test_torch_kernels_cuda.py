@@ -28,6 +28,8 @@ from seqalib_tpu_torch.ops.row_window import (NO_ERROR, error_words, raise_on_er
 from seqalib_tpu_torch.ops.sp_tile import NEG as SP_NEG
 from seqalib_tpu_torch.ops.sp_tile import (sp_tile, sp_tile_ptr, sp_tile_ptr_ref,
                                            sp_tile_ref, sp_tile_run, sp_tile_run_ref)
+from seqalib_tpu_torch.ops.sp_walk import HEADER_BYTES as SP_WALK_HEADER
+from seqalib_tpu_torch.ops.sp_walk import read_walk, sp_walk, sp_walk_ref
 from seqalib_tpu_torch.ops.strip import prep_strip
 from seqalib_tpu_torch.ops.strip_fill import strip_fill, strip_fill_ref
 from seqalib_tpu_torch.ops import strip_walk as sw_mod
@@ -1105,6 +1107,138 @@ def test_sp_tile_ptr_kernel_matches_plain_version(dev, scoring, shape):
     want = sp_tile_ptr_ref(*args, **kw)
     _same(got, want)
     assert len(np.unique(want["ptr"].cpu().numpy() & 3)) == 3  # diag, up and left
+
+
+def _same_sp_walk(out, P, i, j, state, i0, j0):
+    """``sp_walk``'s output on the card against its plain version's on the
+    same batch: the header, and the ops walked (the bytes past them are
+    undefined).  Returns the plain version's header."""
+    want = sp_walk_ref(P.cpu(), i, j, state, i0=i0, j0=j0).numpy()
+    got = out.cpu().numpy()
+    head = want[:SP_WALK_HEADER].view(np.int32).tolist()
+    assert got[:SP_WALK_HEADER].view(np.int32).tolist() == head
+    n = SP_WALK_HEADER + head[3]
+    assert np.array_equal(got[SP_WALK_HEADER:n], want[SP_WALK_HEADER:n])
+    return head
+
+
+def _sp_walk_pair(case):
+    """(q, t, the port's scoring, mesh entries, C, pointer budget) of a walk
+    case."""
+    from seqalib_tpu_torch import ScoringParams as PortScoring
+
+    rng = np.random.default_rng(len(case))
+    if case == "blosum62":
+        q = rng.integers(0, 20, 520)
+        t = np.insert(np.delete(q, np.arange(200, 212)), 400, rng.integers(0, 20, 9))
+        t[::23] = (t[::23] + 1) % 20
+        return q, t, PortScoring.blosum62(gap_open=-10, gap_extend=-1), 2, 64, None
+    sp = PortScoring(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+    q = rng.integers(0, 4, 1200)
+    t = q.copy()
+    t[::29] = (t[::29] + 1) % 4
+    if case == "gap_runs":  # a run of 40 I (rows) and one of 45 D (columns): several blocks
+        t = np.insert(np.delete(t, np.arange(300, 340)), 800, rng.integers(0, 4, 45))
+        return q, t, sp, 1, 128, None
+    t = np.delete(t, np.arange(500, 520))
+    if case == "left_edge":  # batches of two tiles: most walks leave by the left edge
+        return q, t, sp, 1, 64, 2 * len(q) * 64
+    return q, t, sp, 2, 128, None  # block_top: a mesh of 2, the walk leaves block 1 at its top
+
+
+@pytest.mark.parametrize("case", ["left_edge", "block_top", "gap_runs", "blosum62"])
+def test_sp_walk_kernel_matches_plain_version_on_the_paths_batches(dev, case, monkeypatch):
+    """Every batch ``align_sp`` walks on the card, walked again by the plain
+    version from the same start: the same ops, end cell, state and count;
+    and the alignment equals the port's oracle's."""
+    from seqalib_tpu_torch import align_sp
+    from seqalib_tpu_torch.oracle_fast import nw_affine as port_nw_affine
+    from seqalib_tpu_torch.parallel import band_pipeline as pbp
+
+    q, t, psp, D, C, budget = _sp_walk_pair(case)
+    q, t = q.astype(np.int32), t.astype(np.int32)
+    if budget:
+        monkeypatch.setattr(pbp, "PTR_BATCH_BYTES", budget)
+    walks = []
+    real = pbp.sp_walk
+
+    def recorded(P, i, j, state, *, i0, j0):
+        out = real(P, i, j, state, i0=i0, j0=j0)
+        walks.append((out, P, i, j, state, i0, j0))
+        return out
+
+    monkeypatch.setattr(pbp, "sp_walk", recorded)
+    before = launches["sp_walk"]
+    got = align_sp(q, t, psp, (dev,) * D, C=C)
+    assert str(got) == str(port_nw_affine(q, t, psp))
+    assert launches["sp_walk"] == before + len(walks)
+    edges = []
+    for out, P, i, j, state, i0, j0 in walks:
+        assert P.is_cuda
+        ei, ej, _, n, err = _same_sp_walk(out, P, i, j, state, i0, j0)
+        lo = j0 - (P.shape[0] - 1) * P.shape[1]
+        assert not err and n > 0
+        edges.append("top" if ei == i0 and i0 > 0 else "left" if ej == lo and lo > 0 else "end")
+    if case == "left_edge":
+        assert edges.count("left") >= 5
+    if case == "block_top":
+        assert "top" in edges
+    if case == "gap_runs":  # each run crosses a staged block of 32 steps
+        runs = re.findall(r"(\d+)([ID])", got.cigar)
+        assert {op for n, op in runs if int(n) > 32} == {"I", "D"}
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_sp_walk_kernel_on_random_pointer_bytes(dev, seed):
+    """Random batches (tiles of 1-128 columns, long gap runs in half of
+    them, some bytes with no move), walked from random cells in every
+    state: the kernel and the plain version agree exactly."""
+    rng = np.random.default_rng(seed)
+    for _ in range(8):
+        K = int(rng.integers(1, 6))
+        C = int(rng.choice([1, 8, 31, 32, 33, 64, 128]))
+        rows = int(rng.integers(1, 300))
+        P = rng.integers(0, 16, (K, C, rows)).astype(np.uint8)
+        if seed % 2:
+            P = (rng.choice([PTR_UP, PTR_LEFT], P.shape) | 12).astype(np.uint8)
+            P[rng.random(P.shape) < 0.02] = PTR_DIAG
+        P[(P & 3) == 0] |= np.uint8(rng.random() < 0.8)  # a batch in five keeps its stops
+        Pd = torch.as_tensor(P, device=dev)
+        i0, j0 = int(rng.integers(0, 999)), (K - 1) * C + int(rng.integers(0, 999))
+        for _ in range(4):
+            i = i0 + int(rng.integers(1, rows + 1))
+            j = j0 - (K - 1) * C + int(rng.integers(1, K * C + 1))
+            state = int(rng.integers(0, 3))
+            _same_sp_walk(sp_walk(Pd, i, j, state, i0=i0, j0=j0), Pd, i, j, state, i0, j0)
+
+
+def test_sp_walk_kernel_stops_at_a_zeroed_tile_with_the_no_move_error(dev):
+    P = torch.zeros((3, 64, 200), dtype=torch.uint8, device=dev)
+    out = sp_walk(P, 5200, 4000, 0, i0=5000, j0=3968)
+    assert _same_sp_walk(out, P, 5200, 4000, 0, 5000, 3968) == [5200, 4000, 0, 0, 1]
+    with pytest.raises(RuntimeError, match=r"SP walk: no move at \(5200, 4000\)"):
+        read_walk(out.cpu().numpy())
+
+
+def test_sp_walk_makes_one_launch_and_no_sync(dev):
+    """Under the sync debug mode a device-to-host transfer raises; the
+    profiler sees one kernel per call and nothing else on the device."""
+    P = torch.full((4, 128, 3000), PTR_DIAG, dtype=torch.uint8, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sp_walk(P, 3000, 384, 0, i0=0, j0=384)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _same_sp_walk(out, P, 3000, 384, 0, 0, 384)[:4] == [2616, 0, 0, 384]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        sp_walk(P, 3000, 384, 0, i0=0, j0=384)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "sp_walk_kernel" in kernels[0], kernels
+    assert "sp_run_kernel<" not in kernels[0]
 
 
 @pytest.mark.parametrize("band", [9, 600])  # Wp 128 and 640: the walk's staged window moves

@@ -15,7 +15,7 @@ import torch
 from seqalib_tpu_torch import _build
 
 WRAPPERS = ["row_window", "strip_fill", "strip_walk", "band_fill", "band_walk",
-            "sp_tile", "wavefront"]
+            "sp_tile", "sp_walk", "wavefront"]
 
 
 class _Lib:

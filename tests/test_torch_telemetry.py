@@ -9,6 +9,7 @@ import torch
 
 import seqalib_tpu_torch as st
 from seqalib_tpu_torch import ops, telemetry
+from seqalib_tpu_torch.ops.sp_walk import out_bytes
 from seqalib_tpu_torch.parallel import band_pipeline as pbp
 
 DNA = st.ScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
@@ -18,7 +19,8 @@ LAUNCH_KEYS = {
     "band_fill/relay_ptr", "band_fill/wide", "band_fill/wide_ptr", "band_fill/wide_emode",
     "band_fill/wide_scratch", "band_fill/wide_scratch_ptr", "band_fill/wide_scratch_emode",
     "band_walk", "band_walk/floor", "sp_tile/global", "sp_tile/local", "sp_tile/ptr",
-    "sp_tile/run_global", "sp_tile/run_local", "sp_tile/ptr_batch", "wavefront_fill/ptr",
+    "sp_tile/run_global", "sp_tile/run_local", "sp_tile/ptr_batch", "sp_walk",
+    "wavefront_fill/ptr",
     "wavefront_fill/score", "wavefront_fill/lin_ptr", "wavefront_fill/lin_score",
     "wavefront_fill/local", "wavefront_fill/local_lin", "wavefront_fill/local_ptr",
     "wavefront_fill/local_lin_ptr", "wavefront_walk", "wavefront_walk/linear",
@@ -192,7 +194,10 @@ def test_align_sp_on_the_card_counts_its_pointer_rows_scores_and_launches(monkey
     after = telemetry.snapshot()
     batches = list(shapes)
     assert batches and all(C == 128 for _, C, _ in batches)
+    # each batch's walk sends back its header and room for its ops, not its
+    # pointer rows; and the one block's score
     assert after["d2h_bytes"] - before["d2h_bytes"] == sum(
-        K * C * rows for K, C, rows in batches) + 4  # and the one block's score
-    assert after["launches"] - before["launches"] == 1 + len(batches)
+        out_bytes(K, C, rows) for K, C, rows in batches) + 4
+    # the fill, then a recompute and a walk a batch
+    assert after["launches"] - before["launches"] == 1 + 2 * len(batches)
     assert str(got) == str(st.align_sp(q, t, DNA, st.make_band_mesh(["cpu"])))
