@@ -12,11 +12,17 @@ Config 4 of BASELINE.json: banded affine NW on 10-100 kb pairs.
    walked by ``band_walk``; the walker state stays on the device from one
    super-block to the next.  The op blocks come back once, after the last.
 
-A bucket may mix length deltas: each pair keeps its own band bounds
+A batch may mix length deltas: each pair keeps its own band bounds
 (``dlo_p``/``dhi_p``), and the slot geometry (``dlo``, ``dhi``, ``Wp``)
-covers them all.  Not carried over from the TPU driver, because they
-change no value: the clamp/dyn/steady phase split, NSUB, letter streaming,
-the batch padding to a multiple of 8 and the VMEM batch chunking.
+covers them all.  ``align_batch`` joins the ``delta // band`` groups (the
+JAX package's grouping) into one call while their bands fit the widest
+group's slot window and their pairs the card's SMs
+(``parallel.dispatch.banded_batches``): a call a group would run the
+groups' fills and recomputes one after another, each on as few SMs as its
+group has pairs.  Not carried over from the JAX package's TPU host code,
+because they change no value: the clamp/dyn/steady phase split, NSUB,
+letter streaming, the batch padding to a multiple of 8 and the VMEM batch
+chunking.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 from ..ops.band_fill import band_fill, band_table
 from ..ops.band_walk import band_walk
 from ..scoring import NIBBLE_BIAS, fits_nibbles
-from ..telemetry import count_d2h, span
+from ..telemetry import count_band, count_d2h, span
 from ..types import NEG_INF, AlignResult, ScoringParams
 from ..utils.cigar import op_rows_to_cigars
 
@@ -49,11 +55,20 @@ def banded_matrix_supported(table) -> bool:
     return fits_nibbles(table) and np.asarray(table).shape[0] + 1 <= 31
 
 
+def slot_width(dlo: int, dhi: int) -> int:
+    """``Wp``: the slots of a state row whose bands cover diagonals
+    ``dlo .. dhi``."""
+    return _ceil_to((dhi - dlo + 1) // 2 + 2, LANES)
+
+
+def checkpoint_bytes(B: int, Wp: int, K: int, CK: int = 256) -> int:
+    """Bytes of a traceback batch's checkpoints, ``(Kp / CK, 4, B, Wp)``
+    int32 over ``K`` diagonals (the default ``CK`` with traceback)."""
+    return _ceil_to(K, CK) // CK * 4 * B * Wp * 4
+
+
 def _geometry(dlo: int, dhi: int, n: int, m: int):
-    D = dhi - dlo + 1
-    Wp = _ceil_to(D // 2 + 2, LANES)
-    K = n + m + 1
-    return Wp, K
+    return slot_width(dlo, dhi), n + m + 1
 
 
 def _pad_letters(seqs: np.ndarray, width: int, sentinel: int, lens: np.ndarray):
@@ -143,6 +158,7 @@ def banded_align_batch(
     with span("seqalib.banded.fill"):
         fill = band_fill(qk, tk, *vecs, state0, score0, tab, k0=0, k1=Kp, mode="fill",
                          CK=CK if traceback else 0, **kw)
+        count_band(qk, batches=1, slots=B * Wp * Kp)
         scores = fill["score"].max(dim=1).values  # fetched once the walk is queued
         if not traceback:
             count_d2h(scores)
@@ -163,6 +179,7 @@ def banded_align_batch(
         with span("seqalib.banded.block"):
             ptr = band_fill(qk, tk, *vecs, ckpts[cg], score0, tab, k0=k0, k1=k1,
                             mode="ptr", **kw)["ptr"]
+            count_band(qk, slots=B * Wp * (k1 - k0))
             ops, iv, jv, stv, dnv = band_walk(ptr, iv, jv, stv, dnv, k0=k0, dhi=dhi)
         blocks.append(ops)  # column x <-> diagonal k0 + x
         ci = cg - 1

@@ -6,8 +6,13 @@ Three routes, chosen as the JAX package chooses them:
 * banded (``band=`` with ``mode="global"``, scalar scoring or a table that
   ``banded_matrix_supported`` accepts, under ``backend="strip"`` or
   ``"pallas"``): pairs are grouped by their length delta quantized to the
-  band, ``(len(t) - len(q)) // band``, and each group is aligned by
-  ``models.banded.banded_align_batch``;
+  band, ``(len(t) - len(q)) // band``, as in the JAX package, and the
+  groups, in that order, are joined into batches (``banded_batches``): a
+  group joins the batch before it while the batch's slot window ``Wp``
+  stays within the widest of its groups' own and on its groups' kernel
+  variant, its pairs' CTAs within the card's SMs and its checkpoints
+  within ``JOIN_BYTES``.  Each batch is aligned by one
+  ``models.banded.banded_align_batch``, every pair in its own band;
 * length buckets: pairs are sorted into (Lq, Lt) buckets (``bucket_len``),
   each bucket is padded and aligned by ``strip_bucket``, or, for a band
   with a wider table, by the full-matrix ``wavefront_bucket``; under
@@ -23,7 +28,7 @@ bucket is sharded over the mesh's devices (``dist.strip_sharded``;
 ``dist.wavefront_sharded`` for the wide-table route and for every
 ``"xla"`` bucket, banded or not, as in the JAX package: every shard
 launched before any is finalized), and the banded route splits each
-delta group over them, assigning the parts round robin; its parts run one
+batch over them, assigning the parts round robin; its parts run one
 after another, so it gains nothing from several cards.  The mesh comes in
 as a ``Mesh`` (``api.py`` normalizes the caller's argument).  Under a
 ``torch.distributed`` world of more than one process the length buckets
@@ -40,8 +45,11 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from ..models.banded import banded_align_batch, banded_matrix_supported
+from ..models.banded import (banded_align_batch, banded_matrix_supported, checkpoint_bytes,
+                             slot_width)
+from ..ops.band_fill import MAX_WP_REGISTERS, fill_geometry
 from ..ops.strip import strip_launch
 from ..ops.wavefront import wavefront_launch
 from ..ops.wavefront_xla import xla_launch
@@ -52,6 +60,8 @@ from .band_pipeline import Mesh
 from .dist import refuse_multiprocess, strip_sharded, wavefront_sharded
 
 MIN_BUCKET = 16
+H100_SMS = 132
+JOIN_BYTES = 8 * 1024**3  # a join keeps a banded batch's checkpoints within this
 
 
 def bucket_len(n: int) -> int:
@@ -116,22 +126,76 @@ def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str, band: Optional[in
     return finish if launch_only else finish()
 
 
+def _sm_count(device) -> int:
+    """SMs of ``device`` on a card; off a card an H100's, so that a run on
+    the CPU batches as the card would."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return H100_SMS
+
+
+def banded_batches(qlens: List[int], tlens: List[int], band: int, sms: int = H100_SMS,
+                   cards: int = 1) -> List[List[int]]:
+    """The pairs' indices, by ``banded_align_batch`` call, for pairs of
+    lengths ``qlens``/``tlens`` in a band ``band``.  The delta groups
+    ``(tlen - qlen) // band``, in ascending order, join the batch before
+    them while the joined batch
+    * keeps its slot window ``Wp`` (over the bands ``[min(0, delta) - band,
+      max(0, delta) + band]``) within the widest joined group's own: every
+      band holds diagonal 0, so deltas of one sign join whatever their
+      spread, and two signs far apart start a new batch;
+    * keeps every group on the ``band_fill`` variant of its own ``Wp``: one
+      CTA a pair up to ``MAX_WP_REGISTERS``, a cluster above;
+    * runs at most one CTA an SM, ``sms`` of each of ``cards`` cards: the
+      pairs of a batch run at once, so a batch takes as long as its slowest
+      pair where batches in turn take the sum, and past the SMs a join
+      gains nothing;
+    * keeps its checkpoints within ``JOIN_BYTES`` a card.
+    A group is never split: one past these bounds is a batch of its own,
+    as the JAX package runs it."""
+    deltas = [t - q for q, t in zip(qlens, tlens)]
+    groups: Dict[int, List[int]] = {}
+    for idx, d in enumerate(deltas):
+        groups.setdefault(d // max(band, 1), []).append(idx)
+    batches: List[List[int]] = []
+    lo = hi = K = widest = 0
+    for _, idxs in sorted(groups.items()):
+        g_lo = min(0, min(deltas[i] for i in idxs)) - band
+        g_hi = max(0, max(deltas[i] for i in idxs)) + band
+        g_K = max(qlens[i] + tlens[i] + 1 for i in idxs)
+        own = slot_width(g_lo, g_hi)
+        if batches:
+            B = len(batches[-1]) + len(idxs)
+            Wp = slot_width(min(lo, g_lo), max(hi, g_hi))
+            if (Wp <= max(widest, own)
+                    and (own > MAX_WP_REGISTERS) == (widest > MAX_WP_REGISTERS)
+                    and B * max(1, fill_geometry(Wp)[0]) <= sms * cards
+                    and checkpoint_bytes(B, Wp, max(K, g_K)) <= JOIN_BYTES * cards):
+                batches[-1].extend(idxs)
+                lo, hi, K, widest = min(lo, g_lo), max(hi, g_hi), max(K, g_K), max(widest, own)
+                continue
+        batches.append(list(idxs))
+        lo, hi, K, widest = g_lo, g_hi, g_K, own
+    return batches
+
+
 def dispatch_banded(qs: List[np.ndarray], ts: List[np.ndarray], sp: ScoringParams,
                     band: int, traceback: bool, device,
                     mesh: Optional[Mesh] = None) -> List[AlignResult]:
-    """The banded route: one ``banded_align_batch`` per delta group, or with
-    ``mesh`` per part of a group: each group of more than one pair is split
-    into ``min(len(mesh), len(group))`` parts, and the parts go to the mesh's
-    devices round robin (``dispatch.py:205-233`` of the JAX package).  The
-    parts run one after another (``banded_align_batch`` returns host
-    results), not at once on their devices."""
+    """The banded route: one ``banded_align_batch`` per batch of
+    ``banded_batches``, or with ``mesh`` per part of a batch: each batch of
+    more than one pair is split into ``min(len(mesh), len(batch))`` parts,
+    and the parts go to the mesh's devices round robin (as the JAX package
+    splits its delta groups, ``dispatch.py:205-233``).  The parts run one
+    after another (``banded_align_batch`` returns host results), not at
+    once on their devices."""
     if mesh is not None:
         refuse_multiprocess("banded route")
-    groups: Dict[int, List[int]] = {}
-    for idx, (q, t) in enumerate(zip(qs, ts)):
-        groups.setdefault((len(t) - len(q)) // max(band, 1), []).append(idx)
+    cards = 1 if mesh is None else len(mesh)
+    sms = _sm_count(device if mesh is None else mesh[0])
     parts: List[List[int]] = []
-    for _, idxs in sorted(groups.items()):
+    for idxs in banded_batches([len(q) for q in qs], [len(t) for t in ts], band, sms, cards):
         if mesh is None or len(idxs) == 1:
             parts.append(idxs)
         else:

@@ -9,10 +9,11 @@ mesh entry; each shard runs the strip engine (``ops/strip.py``) or the
 full-matrix wavefront (``ops/wavefront_xla.py``: the wide-table route and
 ``backend="xla"``) on its own device, and the results are joined in shard
 order.  Every shard is launched before any is
-finalized.  The banded route (``dispatch.dispatch_banded``) shards the same
-way but runs its parts one after another, each returning host results
-before the next starts: on a mesh of distinct cards it gains nothing over
-one card.
+finalized.  The banded route (``dispatch.dispatch_banded``) splits each of
+its batches (the delta groups that ``banded_batches`` joins) the same way
+but runs the parts one after another, each returning host results before
+the next starts: on a mesh of distinct cards it gains nothing over one
+card.
 
 With ``torch.distributed`` initialized and a world of W > 1 processes, the
 shard list is ``W x len(mesh)`` long, rank-major: every rank holds the

@@ -23,7 +23,9 @@ against).  Every name starts with ``seqalib.``; the layers and phases are:
   ``seqalib.sp.rescore`` (the re-score, the CIGAR text, the result);
 * batches (``parallel/dispatch.py``, ``models/banded.py``):
   ``seqalib.bucket.launch`` and ``seqalib.bucket.finalize`` a length bucket,
-  ``seqalib.banded.group`` a delta group, and in ``banded_align_batch``
+  ``seqalib.banded.group`` a batch of the banded route (the delta groups
+  that ``dispatch.banded_batches`` joins, or its part on one entry of a
+  mesh), and in ``banded_align_batch``
   ``seqalib.banded.stage``, ``seqalib.banded.fill``, ``seqalib.banded.block``
   (a super-block's recompute and walk), ``seqalib.banded.ops_copy`` and
   ``seqalib.banded.cigar``.
@@ -46,9 +48,14 @@ the work is made:
   scores, op rows and the long pair's walked ops, CIGAR text, walk ends and
   the buffers of ``transfer.to_host`` (``count_d2h`` where each copy is
   made; the plain versions of the kernels count nothing).
+* ``banded_batches``: the ``banded_align_batch`` calls on a card, and
+  ``band_slots``: the slots their fill and recompute launches compute, B
+  pairs x ``Wp`` slots x the diagonals ``k1 - k0`` of each launch
+  (``count_band``).  Over the cells the pairs' own bands hold, they give
+  the share of the computed slots that some pair needs.
 
-``snapshot()`` reads both at once; the difference of two snapshots is what
-the calls between them did.
+``snapshot()`` reads them all at once; the difference of two snapshots is
+what the calls between them did.
 """
 
 from __future__ import annotations
@@ -102,6 +109,8 @@ launches: dict[str, int] = {
     "wavefront_walk/linear": 0,
 }
 d2h_bytes = 0
+banded_batches = 0
+band_slots = 0
 
 
 def span(name: str):
@@ -130,11 +139,22 @@ def count_d2h(*tensors: torch.Tensor) -> None:
     d2h_bytes += sum(t.numel() * t.element_size() for t in tensors if t.is_cuda)
 
 
+def count_band(t: torch.Tensor, batches: int = 0, slots: int = 0) -> None:
+    """Count ``banded_align_batch`` calls and the slots of its launches,
+    when ``t``, one of its inputs, is on a card."""
+    global banded_batches, band_slots
+    if t.is_cuda:
+        banded_batches += batches
+        band_slots += slots
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
 
 
 def snapshot() -> dict:
-    """The counters now: every kernel launch counted, and ``d2h_bytes``."""
-    return {"launches": sum(launches.values()), "d2h_bytes": d2h_bytes}
+    """The counters now: every kernel launch counted, ``d2h_bytes``,
+    ``banded_batches`` and ``band_slots``."""
+    return {"launches": sum(launches.values()), "d2h_bytes": d2h_bytes,
+            "banded_batches": banded_batches, "band_slots": band_slots}

@@ -6,7 +6,14 @@ kernels on the card at the main path's shapes).  On a machine with a card:
 
 Exact equality: the kernels do integer DP."""
 
+import importlib.util
+import json
+import multiprocessing
+import os
 import re
+from concurrent.futures import ProcessPoolExecutor
+from functools import partial
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,7 +23,8 @@ from seqalib_tpu import oracle_fast
 from seqalib_tpu.types import BLOSUM62, PTR_DIAG, PTR_LEFT, PTR_UP, ScoringParams
 from seqalib_tpu_torch import align_batch
 from seqalib_tpu_torch._build import CSRC
-from seqalib_tpu_torch.models.banded import _geometry, _pad_letters
+from seqalib_tpu_torch import telemetry
+from seqalib_tpu_torch.models.banded import _geometry, _pad_letters, super_block_chunks
 from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops.band_fill import (band_fill, band_fill_ref, band_table,
                                              fill_geometry)
@@ -535,6 +543,58 @@ def test_banded_align_batch_on_cuda_matches_oracle(dev, scoring):
     got = align_batch(qs, ts, scoring=psp, mode="global", band=16, device=dev)
     for q, t, r in zip(qs, ts, got):
         assert str(r) == str(oracle_fast.align_oracle(q, t, sp, mode="global", band=16))
+
+
+BENCH = Path(__file__).resolve().parents[1] / "benchmark"
+
+
+def _bench(name):
+    """The benchmark's ``<name>.py`` (plain NumPy, no import of the port)."""
+    spec = importlib.util.spec_from_file_location(f"bench_{name}", BENCH / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_long_read_batch_is_one_merged_call_exact_in_every_slot(dev):
+    """132 reads of 3-5 kb with the long-read cell's errors
+    (``benchmark/traffic/ont_ultralong_cigar.json``), each window with a
+    further deletion of 0-895 letters, so that the length differences fall
+    in at least 6 ``delta // 128`` groups: ``align_batch(band=128)`` makes
+    one ``banded_align_batch`` and one fill launch, counts its fill's and
+    recomputes' slots, and every slot's score and CIGAR equals the JAX
+    package's oracle (computed in a process a core)."""
+    gen = _bench("generate")
+    traffic = json.loads((BENCH / "traffic" / "ont_ultralong_cigar.json").read_text())
+    traffic.update(length=[3000, 5000], pool=1)
+    (qs, ts), = gen.pool(2**31 + 21, traffic)
+    rng = np.random.default_rng(21)
+    for k, cut in enumerate(rng.integers(0, 896, len(ts)).tolist()):
+        at = int(rng.integers(0, len(ts[k]) - cut + 1))
+        ts[k] = np.delete(ts[k], np.arange(at, at + cut))
+    B, band = len(qs), 128
+    assert B == 132
+    deltas = [len(t) - len(q) for q, t in zip(qs, ts)]
+    assert len({d // band for d in deltas}) >= 6 and max(deltas) < 0
+    sp = scoring_params(2, -4, -4, -2)
+    jsp = ScoringParams(match=2, mismatch=-4, gap_open=-4, gap_extend=-2)
+    with ProcessPoolExecutor(os.cpu_count(), mp_context=multiprocessing.get_context("spawn")) as ex:
+        want = ex.map(partial(oracle_fast.align_oracle, sp=jsp, mode="global", band=band),
+                      qs, ts)
+        align_batch(qs[:2], ts[:2], scoring=sp, mode="global", band=band, device=dev)  # build
+        fills, before = launches["band_fill/fill"], telemetry.snapshot()
+        got = align_batch(qs, ts, scoring=sp, mode="global", band=band, device=dev)
+        after = telemetry.snapshot()
+        want = [str(w) for w in want]
+    assert launches["band_fill/fill"] - fills == 1
+    assert after["banded_batches"] - before["banded_batches"] == 1
+    n, m = max(len(q) for q in qs), max(len(t) for t in ts)
+    Wp, K = _geometry(min(deltas) - band, band, n, m)
+    Kp, CK = -(-K // 256) * 256, 256
+    SB = super_block_chunks(CK, B, Wp)
+    top = min((max(len(q) + len(t) for q, t in zip(qs, ts)) // CK // SB + 1) * SB, Kp // CK)
+    assert after["band_slots"] - before["band_slots"] == B * Wp * (Kp + top * CK)
+    assert [str(r) for r in got] == want
 
 
 def _tile_args(dev, scoring, R=400, C=96, seed=4):

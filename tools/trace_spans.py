@@ -11,7 +11,8 @@ with every batch of the pool twice, then makes ``--calls`` calls under
 reads the trace with the harness's own ``spans.window_from_events``.
 Prints one JSON line: the card's name and power limit; per call, the
 difference of the port's counters (``telemetry.snapshot``: kernel launches,
-bytes copied to the host); the cell's per-layer metrics read from this
+bytes copied to the host, ``banded_align_batch`` calls and the slots their
+fills and recomputes compute); the cell's per-layer metrics read from this
 window; each ``seqalib.*`` span's mean time and self time per call
 (``marks.mean_ms``); the device's idle time inside calls by the innermost
 span (``marks.idle_by_span``) and the share of the idle time inside the
