@@ -185,7 +185,12 @@ whole call's time printed beside, and the one-tile launches of the
 ``long_pair_sp.cigar``'s shape, 16 569 x ~16 566 in tiles of 128 columns,
 each on its header and ops, with the kernel's own time under
 ``torch.profiler``, the ns per op walked, and a bound of one 32-byte sector
-per op walked plus the ops written), the wide banded fill (fill and pointer modes on
+per op walked plus the ops written), the banded traceback's CIGAR text
+(``band_cigar``: the joined op blocks of one ``banded_align_batch`` at the
+benchmark cell ``long_read_banded.100kb``'s shape, 132 reads of ~119 kb with
+its error mix in a band of 128, on the text and its lengths, with the
+kernel's own time under ``torch.profiler`` and a bound of the op bytes read
+once plus the text written), the wide banded fill (fill and pointer modes on
 2048 diagonals of the 17 000-delta pair, and of pairs whose deltas give Wp
 8 320, 16 384 and 32 768, each with its cluster geometry; the scratch
 variant's fill and pointer calls and both variants' pass-2 emode calls
@@ -268,6 +273,10 @@ SP_ORACLE_N = 1536  # align_sp held to the oracle, str(AlignResult), on meshes o
 SP_ONE_C = 2048  # tiles as wide as the SP_ORACLE_N pair: one tile per block
 SP_CUT_TILES, SP_CUT_BATCH = 4, 3  # tiles of a run and of a pointer batch held to plain
 SP_CELL_N, SP_CELL_C = 16_569, 128  # the benchmark cell long_pair_sp.cigar's pair and tiles
+# the benchmark cell long_read_banded.100kb's batch: reads of ~119 kb against
+# their windows in a band of 128, 4% substitutions and 2.5% indels of 1-3
+# letters (40% insertions)
+LR_CELL_B, LR_CELL_L, LR_CELL_BAND = 132, 119_000, 128
 # config 4 with a long window: a 10 kb read against L4 + delta letters; the
 # deltas give the wide fill (a thread block cluster a pair) Wp 8 704 (the
 # path), 8 320, 16 384 and 32 768
@@ -361,6 +370,9 @@ KERNELS = {  # name -> (CUDA source, replaced Pallas kernel, path[, launch-count
     # a kernel of the port alone: it replaces the JAX package's host walk of
     # the SP path (nw_affine_align_sp)
     "sp_walk": ("sp_walk.cu", "seqalib_tpu/parallel/band_pipeline.py:562", "sp_align"),
+    # a kernel of the port alone: it replaces the JAX banded route's host
+    # loop that run-length encodes each op row (and the op matrix's copy)
+    "band_cigar": ("band_cigar.cu", "seqalib_tpu/models/banded.py:543", "config4"),
     "wavefront_fill/ptr": ("wavefront_fill.cu", f"{WAVEFRONT}:96", "wide"),
     # the unbanded global fill with pointers (the pointer strip kernel),
     # counted under the same key on the "xla" route's config 3 (pass c)
@@ -472,6 +484,8 @@ def bound(key, args, kw, out):
         steps = int(wavefront_walked_ops(out).sum())
         nbytes = (SECTOR_BYTES * steps + _nbytes(args[1:]) + _nbytes((nchar, state))
                   + int(nchar.sum()))
+    elif name == "band_cigar":  # every op byte read once; nchar and the text written
+        nbytes = _nbytes(args) + _nbytes(out[1]) + int(out[1].sum())
     elif name == "band_walk":
         steps = int((out[0] != 255).sum())
         nbytes = _nbytes(out) + _nbytes(args[1:]) + steps
@@ -573,15 +587,21 @@ def walk_report(call, out, key="strip_walk"):
     return text + f"{alone:.4f} ms, {per_op:.1f} ns per op of the longest walk"
 
 
-def walk_view(out):
-    """``strip_walk``'s outputs with each text row's undefined bytes (those
-    before its last nchar) set to 0."""
+def text_view(out):
+    """``(text, nchar)`` with each text row's undefined bytes (those before
+    its last nchar) set to 0."""
     import torch
 
-    text, nchar, state = out
+    text, nchar = out
     W = text.shape[1]
     keep = torch.arange(W, device=text.device)[None, :] >= W - nchar.long()[:, None]
-    return torch.where(keep, text, 0), nchar, state
+    return torch.where(keep, text, 0), nchar
+
+
+def walk_view(out):
+    """``strip_walk``'s outputs with each text row's undefined bytes set to
+    0."""
+    return (*text_view(out[:2]), out[2])
 
 
 # ---- kernel phase -------------------------------------------------------
@@ -676,7 +696,8 @@ def kernel_entry(key, fn, plain, args, kw, label=""):
     # fill's span sizes the kernel's ring alone
     pkw = {k: v for k, v in kw.items() if k not in ("err", "span")}
     walks = ("strip_walk", "wavefront_walk", "wavefront_walk/linear")
-    view = walk_view if key in walks else (lambda out: out)
+    view = (walk_view if key in walks else text_view if key == "band_cigar"
+            else (lambda out: out))
     stats, out = check_kernel(key + label, lambda: fn(*args, **kw),
                               lambda: plain(*args, **pkw), view)
     b_ms, b_by = bound(key, args, kw, out)
@@ -1154,6 +1175,63 @@ def kernel_phase_sp_walk(sp, dev):
         f"{total['plain_ms']:.3f} ms, bound {total['bound_ms']:.6f} ms (bytes); "
         f"score {res.score}")
     return {"sp_walk": dict(total, bound_by="bytes", library_ms=None)}
+
+
+def ont_reads(rng, B, L):
+    """B reads against windows of L letters with the long-read cell's errors:
+    4% substitutions, then 2.5% indels of 1-3 letters, 40% of them
+    insertions.  (read, window) pairs, padded into (B, *) arrays, and their
+    lengths."""
+    qs, ts = [], []
+    for _ in range(B):
+        t = rng.integers(0, 4, L).astype(np.uint8)
+        q = t.copy()
+        idx = rng.choice(L, L // 25, replace=False)
+        q[idx] = (q[idx] + 1 + rng.integers(0, 3, len(idx))) % 4
+        pos = np.sort(rng.choice(L - 3, L // 40, replace=False))
+        k = rng.integers(1, 4, len(pos))
+        ins = rng.random(len(pos)) < 0.4
+        keep = np.ones(L, bool)
+        for p, n in zip(pos[~ins], k[~ins]):
+            keep[p: p + n] = False
+        at = np.repeat(pos[ins], k[ins])
+        q = np.insert(q, at, rng.integers(0, 4, len(at)).astype(np.uint8))
+        qs.append(q[np.insert(keep, at, True)])
+        ts.append(t)
+    qlen = np.array([len(x) for x in qs])
+    tlen = np.array([len(x) for x in ts])
+    qa = np.zeros((B, qlen.max()), np.int32)
+    ta = np.zeros((B, tlen.max()), np.int32)
+    for b in range(B):
+        qa[b, : qlen[b]] = qs[b]
+        ta[b, : tlen[b]] = ts[b]
+    return qa, ta, qlen, tlen
+
+
+def kernel_phase_band_cigar(sp, dev):
+    """``band_cigar`` at the benchmark cell long_read_banded.100kb's shape:
+    the joined op blocks of one ``banded_align_batch`` traceback of
+    LR_CELL_B reads of ~LR_CELL_L letters, held against its plain version
+    (``op_rows_to_cigars`` on the host copy) and timed: the wrapper by CUDA
+    events, the kernel alone under ``torch.profiler``; the bound, the op
+    bytes read once and nchar and the text written once."""
+    from seqalib_tpu_torch.models import banded as banded_mod
+    from seqalib_tpu_torch.ops import band_cigar as bc_mod
+
+    qa, ta, qlen, tlen = ont_reads(np.random.default_rng(SEED + 22), LR_CELL_B, LR_CELL_L)
+    calls, _ = record(lambda: banded_mod.banded_align_batch(qa, ta, qlen, tlen, sp,
+                                                            LR_CELL_BAND, device=dev),
+                      [(banded_mod, "band_cigar", bc_mod.band_cigar_ref)])
+    fn, plain, args, kw, out = calls["band_cigar"]
+    entry = kernel_entry("band_cigar", fn, plain, args, kw)
+    ops, nchar = args[0], out[1]
+    alone = kernel_split(lambda: fn(*args, **kw), ("band_cigar_kernel",))["band_cigar_kernel"]
+    say(f"[kernel] band_cigar: B {ops.shape[0]}, KW {ops.shape[1]}, "
+        f"{int((ops != 255).sum())} ops, text {int(nchar.sum())} bytes (longest "
+        f"{int(nchar.max())}); kernel alone "
+        + ("not measured" if alone is None else f"{alone:.4f} ms")
+        + f"; wrapper {entry['ms']:.4f} ms")
+    return {"band_cigar": dict(entry, alone_ms=alone)}
 
 
 def kernel_phase_wide4(q, t, sp, q3, t3, sp3, dev):
@@ -2405,6 +2483,8 @@ def main() -> int:
     per_kernel.update(kernel_phase_wide4(qw, tw, sp4, q3, t3, sp3, dev))
     per_kernel.update(kernel_phase_sp(qsp, tsp, q16, t16, qo, to, sp4, dev))
     per_kernel.update(kernel_phase_sp_walk(sp4, dev))
+    per_kernel.update(kernel_phase_band_cigar(
+        ScoringParams(match=2, mismatch=-4, gap_open=-4, gap_extend=-2), dev))
     per_kernel.update(kernel_phase_wide(qs7, ts7, sp7, dev))
     per_kernel.update(kernel_phase_xla(q1, t1, sp1, q3, t3, sp3, dev))
     per_kernel.update(kernel_phase_banded_sp(qsb, tsb, sp4, dev))

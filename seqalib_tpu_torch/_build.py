@@ -53,6 +53,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P,
     ],
     "seqalib_band_walk": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "seqalib_band_cigar": [_P, _I, _I, _P, _I, _P, _P],
     "seqalib_sp_run": [_P] * 7 + [_I] * 16 + [_P] * 4 + [_I] + [_P] * 6,
     "seqalib_sp_walk": [_P] + [_I] * 8 + [_P, _P],
     "seqalib_wavefront_fill": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 10 + [_P] * 5 + [_I]

@@ -10,7 +10,10 @@ Config 4 of BASELINE.json: banded affine NW on 10-100 kb pairs.
    diagonals, at most 192 MB of pointer nibbles) down to the first, each
    super-block is recomputed from its checkpoint in ``"ptr"`` mode and
    walked by ``band_walk``; the walker state stays on the device from one
-   super-block to the next.  The op blocks come back once, after the last.
+   super-block to the next.  After the last, on a card, ``band_cigar``
+   writes the CIGAR text of the joined op blocks there and only the text
+   comes back; on the CPU the op blocks come back and
+   ``op_rows_to_cigars`` encodes them.
 
 A batch may mix length deltas: each pair keeps its own band bounds
 (``dlo_p``/``dhi_p``), and the slot geometry (``dlo``, ``dhi``, ``Wp``)
@@ -32,8 +35,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..ops.band_cigar import band_cigar
 from ..ops.band_fill import band_fill, band_table
 from ..ops.band_walk import band_walk
+from ..ops.strip_walk import cigars_from_text
 from ..scoring import NIBBLE_BIAS, fits_nibbles
 from ..telemetry import count_band, count_d2h, span
 from ..types import NEG_INF, AlignResult, ScoringParams
@@ -183,14 +188,22 @@ def banded_align_batch(
             ops, iv, jv, stv, dnv = band_walk(ptr, iv, jv, stv, dnv, k0=k0, dhi=dhi)
         blocks.append(ops)  # column x <-> diagonal k0 + x
         ci = cg - 1
+    on_card = dev.type == "cuda"
     with span("seqalib.banded.ops_copy"):
-        # blocks were walked from high k to low: flipping each and joining them
-        # gives every pair's ops in walk (end -> start) order
-        ops_t = torch.cat([blk.flip(1) for blk in blocks], dim=1)
-        ops_mat = ops_t.cpu().numpy()
-        count_d2h(ops_t)
+        if on_card:
+            # a block's columns run by ascending diagonal: joined from the
+            # lowest block up, every pair's ops stand in alignment order
+            text, nchar_d = band_cigar(torch.cat(blocks[::-1], dim=1))
+            nchar = nchar_d.cpu()  # the wait for every queued launch
+            count_d2h(nchar_d)
+        else:
+            # blocks were walked from high k to low: flipping each and joining
+            # them gives every pair's ops in walk (end -> start) order
+            ops_t = torch.cat([blk.flip(1) for blk in blocks], dim=1)
+            ops_mat = ops_t.cpu().numpy()
     with span("seqalib.banded.cigar"):
-        cigars = op_rows_to_cigars(ops_mat[:, ::-1])
+        cigars = (cigars_from_text(text, nchar) if on_card
+                  else op_rows_to_cigars(ops_mat[:, ::-1]))
         count_d2h(scores)
         return [AlignResult(int(s), 0, int(qlen[b]), 0, int(tlen[b]), cigars[b])
                 for b, s in enumerate(scores.tolist())]

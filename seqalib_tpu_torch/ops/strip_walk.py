@@ -80,6 +80,17 @@ def cigars_from_text(text, nchar) -> list[str]:
     return [raw[(b + 1) * W - x: (b + 1) * W].decode("ascii") for b, x in enumerate(n)]
 
 
+def pack_text(strings, W: int):
+    """``(text, nchar)`` as NumPy arrays: each string in ASCII at the end of
+    its row of ``text`` (B, W) uint8 (zeros before it), and its length."""
+    text = np.zeros((len(strings), W), np.uint8)
+    nchar = np.empty(len(strings), np.int32)
+    for b, s in enumerate(strings):
+        nchar[b] = len(s)
+        text[b, W - len(s):] = np.frombuffer(s.encode("ascii"), np.uint8)
+    return text, nchar
+
+
 def strip_walk_ref(P, i, j, st, done, *, affine: bool):
     """Plain PyTorch version: a lockstep walk vectorized over pairs, its op
     rows encoded with ``op_rows_to_cigars`` and packed at the rows' ends."""
@@ -123,12 +134,7 @@ def strip_walk_ref(P, i, j, st, done, *, affine: bool):
     ih, jh = i.cpu().numpy(), j.cpu().numpy()
     strings = op_rows_to_cigars(ops.cpu().numpy(), np.where(ih > 0, OP_I, OP_D),
                                 np.where(ih > 0, ih, np.maximum(jh, 0)))
-    W = text_width(R, C)
-    text = np.zeros((B, W), np.uint8)
-    nchar = np.empty(B, np.int32)
-    for b, s in enumerate(strings):
-        nchar[b] = len(s)
-        text[b, W - len(s):] = np.frombuffer(s.encode("ascii"), np.uint8)
+    text, nchar = pack_text(strings, text_width(R, C))
     nchar[bad.cpu().numpy()] = BAD_START
     state = torch.stack([torch.where(bad, i0, i.to(torch.int32)),
                          torch.where(bad, j0, j.to(torch.int32)),

@@ -43,7 +43,7 @@ import torch
 from ..types import PTR_DIAG, PTR_STOP, PTR_UP
 from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD, op_rows_to_cigars
 from . import launches
-from .strip_walk import BAD_START, ST_E, ST_F, ST_H, _bad_start
+from .strip_walk import BAD_START, ST_E, ST_F, ST_H, _bad_start, pack_text
 
 _EXT_E_BIT = 2
 _EXT_F_BIT = 3
@@ -111,12 +111,7 @@ def wavefront_walk_ref(P, i, j, *, affine: bool = True):
         live &= (ci >= 0) & (cj >= 0)
     walked = (np.stack(ops, axis=1) if ops else np.full((B, 1), OP_PAD)).astype(np.uint8)
     strings = op_rows_to_cigars(walked[:, ::-1])
-    W = text_width(K)
-    text = np.zeros((B, W), np.uint8)
-    nchar = np.empty(B, np.int32)
-    for b, s in enumerate(strings):
-        nchar[b] = len(s)
-        text[b, W - len(s):] = np.frombuffer(s.encode("ascii"), np.uint8)
+    text, nchar = pack_text(strings, text_width(K))
     nchar[bad] = BAD_START
     state = np.stack([np.where(bad, i0, ci), np.where(bad, j0, cj),
                       np.where(bad, ST_H, st), done.astype(np.int64)]).astype(np.int32)

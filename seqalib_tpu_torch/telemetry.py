@@ -43,7 +43,8 @@ the work is made:
   scratch variant (Wp > 131072) under ``band_fill/wide_scratch*``, and
   ``sp_tile`` counts a run of several tiles under ``sp_tile/run_*`` and a
   batch of several pointer tiles under ``sp_tile/ptr_batch``; ``sp_walk``
-  counts the walk through one such batch.
+  counts the walk through one such batch, ``band_cigar`` the CIGAR text of
+  a ``banded_align_batch`` traceback.
 * ``d2h_bytes``: the bytes the port copies from a CUDA tensor to the host:
   scores, op rows and the long pair's walked ops, CIGAR text, walk ends and
   the buffers of ``transfer.to_host`` (``count_d2h`` where each copy is
@@ -90,6 +91,7 @@ launches: dict[str, int] = {
     "band_fill/wide_scratch_emode": 0,
     "band_walk": 0,
     "band_walk/floor": 0,
+    "band_cigar": 0,
     "sp_tile/global": 0,
     "sp_tile/local": 0,
     "sp_tile/ptr": 0,

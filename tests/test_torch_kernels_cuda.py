@@ -26,6 +26,7 @@ from seqalib_tpu_torch._build import CSRC
 from seqalib_tpu_torch import telemetry
 from seqalib_tpu_torch.models.banded import _geometry, _pad_letters, super_block_chunks
 from seqalib_tpu_torch.ops import launches
+from seqalib_tpu_torch.ops.band_cigar import band_cigar, band_cigar_ref
 from seqalib_tpu_torch.ops.band_fill import (band_fill, band_fill_ref, band_table,
                                              fill_geometry)
 from seqalib_tpu_torch.ops.band_walk import band_walk, band_walk_ref
@@ -47,6 +48,8 @@ from seqalib_tpu_torch.ops.wavefront import (wavefront_fill, wavefront_fill_ref,
 from seqalib_tpu_torch.ops.wavefront_walk import wavefront_walk, wavefront_walk_ref
 from seqalib_tpu_torch.scoring import scoring_params, tables_from_params
 from seqalib_tpu_torch.types import NEG_INF
+from seqalib_tpu_torch.utils.cigar import op_rows_to_cigars
+from test_torch_band_cigar import CASES as BAND_CIGAR_CASES
 
 pytestmark = pytest.mark.cuda
 
@@ -459,6 +462,58 @@ def test_band_walk_kernel_matches_plain_version(dev, scoring):
         state = list(got[1:])
 
 
+def _same_text(got, want):
+    """Two ``(text, nchar)`` results agree: nchar, and each row's last
+    nchar text bytes (the bytes before them are undefined)."""
+    (gt, gn), (wt, wn) = got, want
+    assert torch.equal(gn.cpu(), wn.cpu()) and gt.shape == wt.shape
+    W = gt.shape[1]
+    keep = torch.arange(W)[None, :] >= W - wn.cpu().long()[:, None]
+    assert torch.equal(torch.where(keep, gt.cpu(), 0), torch.where(keep, wt.cpu(), 0))
+
+
+@pytest.mark.parametrize("offset", [0, 1])  # 1: a row start off 16 bytes, byte loads
+@pytest.mark.parametrize("case", sorted(BAND_CIGAR_CASES))
+def test_band_cigar_kernel_matches_plain_version(dev, case, offset):
+    ops = torch.from_numpy(BAND_CIGAR_CASES[case]())
+    buf = torch.empty(ops.numel() + offset, dtype=torch.uint8, device=dev)
+    got_in = buf[offset:].view(ops.shape)
+    got_in.copy_(ops)
+    before = launches["band_cigar"]
+    got = band_cigar(got_in)
+    torch.cuda.synchronize()
+    assert launches["band_cigar"] == before + 1
+    want = band_cigar_ref(ops)
+    _same_text(got, want)
+    assert sw_mod.cigars_from_text(*got) == op_rows_to_cigars(ops.numpy())
+
+
+def test_band_cigar_kernel_on_a_real_walks_joined_blocks(dev):
+    """The ``band_walk`` blocks of a mixed-delta bucket, joined from the
+    lowest diagonal up as ``banded_align_batch`` joins them: the kernel's text
+    equals the plain version's and the host encoding of the flipped join."""
+    c = _band_bucket(dev, "dna_affine", seed=3, CK=32)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    state = [as_t(c["qlen"]), as_t(c["tlen"]), as_t(np.zeros(len(c["qlen"]))),
+             as_t(np.zeros(len(c["qlen"])))]
+    NC = c["ckpt"].shape[0]
+    blocks = []
+    for cg in range((NC - 1) // 3 * 3, -1, -3):  # super-blocks of three chunks, high k first
+        ptr = band_fill_ref(*c["args"], c["ckpt"][cg], c["score"], c["tab"],
+                            k0=cg * c["CK"], k1=min(cg + 3, NC) * c["CK"], mode="ptr",
+                            **c["kw"])["ptr"]
+        ops, *state = band_walk(ptr, *state, k0=cg * c["CK"], dhi=c["dhi"])
+        blocks.append(ops)
+    joined = torch.cat(blocks[::-1], dim=1)
+    before = launches["band_cigar"]
+    got = band_cigar(joined)
+    torch.cuda.synchronize()
+    assert launches["band_cigar"] == before + 1
+    _same_text(got, band_cigar_ref(joined.cpu()))
+    flipped = torch.cat([b.flip(1) for b in blocks], dim=1).cpu().numpy()
+    assert sw_mod.cigars_from_text(*got) == op_rows_to_cigars(flipped[:, ::-1])
+
+
 @pytest.mark.parametrize("Wp", WPS)
 @pytest.mark.parametrize("Wb", [384, 7])  # 7 < dhi: the stream index clamps
 @pytest.mark.parametrize("scoring", sorted(SCORINGS))
@@ -583,10 +638,16 @@ def test_long_read_batch_is_one_merged_call_exact_in_every_slot(dev):
                       qs, ts)
         align_batch(qs[:2], ts[:2], scoring=sp, mode="global", band=band, device=dev)  # build
         fills, before = launches["band_fill/fill"], telemetry.snapshot()
+        texts = launches["band_cigar"]
         got = align_batch(qs, ts, scoring=sp, mode="global", band=band, device=dev)
         after = telemetry.snapshot()
         want = [str(w) for w in want]
     assert launches["band_fill/fill"] - fills == 1
+    # the CIGARs are written on the card: nchar, the text's used tail and the
+    # scores come back, not the op matrix
+    assert launches["band_cigar"] - texts == 1
+    longest = max(len(r.cigar) for r in got)
+    assert after["d2h_bytes"] - before["d2h_bytes"] == B * (4 + longest + 4)
     assert after["banded_batches"] - before["banded_batches"] == 1
     n, m = max(len(q) for q in qs), max(len(t) for t in ts)
     Wp, K = _geometry(min(deltas) - band, band, n, m)

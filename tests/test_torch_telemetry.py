@@ -18,8 +18,8 @@ LAUNCH_KEYS = {
     "band_fill/fill", "band_fill/ptr", "band_fill/emode", "band_fill/relay",
     "band_fill/relay_ptr", "band_fill/wide", "band_fill/wide_ptr", "band_fill/wide_emode",
     "band_fill/wide_scratch", "band_fill/wide_scratch_ptr", "band_fill/wide_scratch_emode",
-    "band_walk", "band_walk/floor", "sp_tile/global", "sp_tile/local", "sp_tile/ptr",
-    "sp_tile/run_global", "sp_tile/run_local", "sp_tile/ptr_batch", "sp_walk",
+    "band_walk", "band_walk/floor", "band_cigar", "sp_tile/global", "sp_tile/local",
+    "sp_tile/ptr", "sp_tile/run_global", "sp_tile/run_local", "sp_tile/ptr_batch", "sp_walk",
     "wavefront_fill/ptr",
     "wavefront_fill/score", "wavefront_fill/lin_ptr", "wavefront_fill/lin_score",
     "wavefront_fill/local", "wavefront_fill/local_lin", "wavefront_fill/local_ptr",
