@@ -553,8 +553,10 @@ def strip_walk_mod():
 def walked_ops(out):
     """Ops each pair's ``strip_walk`` walked: the ops of its CIGAR less its
     boundary run (i' ops, or j' when i' = 0)."""
+    from seqalib_tpu_torch.utils.cigar import cigars_from_text
+
     text, nchar, state = out
-    cig = strip_walk_mod().cigars_from_text(text, nchar)
+    cig = cigars_from_text(text, nchar)
     i, j = state[0].cpu().numpy(), state[1].cpu().numpy()
     head = np.where(i > 0, i, np.maximum(j, 0))
     total = np.array([sum(int(n) for n in re.findall(r"(\d+)[MID]", c)) for c in cig],
@@ -565,8 +567,10 @@ def walked_ops(out):
 def wavefront_walked_ops(out):
     """Ops each pair's ``wavefront_walk`` walked: every op of its CIGAR (the
     walk reaches (0, 0) through the stream's row 0 and column 0)."""
+    from seqalib_tpu_torch.utils.cigar import cigars_from_text
+
     text, nchar, _ = out
-    cig = strip_walk_mod().cigars_from_text(text, nchar)
+    cig = cigars_from_text(text, nchar)
     return np.array([sum(int(n) for n in re.findall(r"(\d+)[MID]", c)) for c in cig],
                     np.int64)
 

@@ -31,8 +31,8 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
+from .devices import as_device
 from .telemetry import traced
 from .types import (
     PROTEIN_SIZE,
@@ -58,15 +58,6 @@ def _coerce(seq, sp: ScoringParams) -> np.ndarray:
     if sp.matrix is not None and sp.matrix.shape[0] >= PROTEIN_SIZE:
         return encode_protein(seq)
     return encode_dna(seq)
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 @traced("seqalib.align")
@@ -124,7 +115,7 @@ def align_batch(
 
     mesh = None if mesh is None else as_mesh(mesh)
     return dispatch_batch(qs, ts, sp, mode=mode, band=band, traceback=traceback,
-                          device=None if mesh else _device(device), mesh=mesh,
+                          device=None if mesh else as_device(device), mesh=mesh,
                           backend=backend)
 
 
@@ -231,7 +222,7 @@ def align_all_vs_all(
     from .parallel.dist import as_mesh, broadcast_host, world
 
     mesh = None if mesh is None else as_mesh(mesh)
-    dev = None if mesh else _device(device)
+    dev = None if mesh else as_device(device)
     writer = world()[0] == 0
     sp = scoring if scoring is not None else ScoringParams.linear()
     qs = [_coerce(q, sp) for q in queries]

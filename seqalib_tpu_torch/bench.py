@@ -43,7 +43,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from .api import _device
+    from .devices import as_device
     from .ops import strip
     from .ops.row_window import error_words, raise_on_error
     from .ops.strip_fill import raise_on_bad_length
@@ -51,7 +51,7 @@ def main(argv=None) -> int:
     from .scoring import tables_from_params
     from .types import ScoringParams
 
-    dev = _device(args.device)
+    dev = as_device(args.device)
     B = int(os.environ.get("BENCH_B", "512"))
     L = int(os.environ.get("BENCH_L", "1024"))
     reps = max(10, int(os.environ.get("BENCH_REPS", "10")))

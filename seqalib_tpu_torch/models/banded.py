@@ -38,19 +38,15 @@ import torch
 from ..ops.band_cigar import band_cigar
 from ..ops.band_fill import band_fill, band_table
 from ..ops.band_walk import band_walk
-from ..ops.strip_walk import cigars_from_text
 from ..scoring import NIBBLE_BIAS, fits_nibbles
 from ..telemetry import count_band, count_d2h, span
 from ..types import NEG_INF, AlignResult, ScoringParams
-from ..utils.cigar import op_rows_to_cigars
+from ..utils import ceil_to
+from ..utils.cigar import cigars_from_text, op_rows_to_cigars
 
 LANES = 128  # slot quantum of the band window (the TPU kernel's lane width)
 SB_BYTES = 192 * 1024**2  # pointer bytes of one recomputed super-block
 SB_CHUNKS = 64  # at most this many CK-chunks per super-block
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def banded_matrix_supported(table) -> bool:
@@ -63,13 +59,13 @@ def banded_matrix_supported(table) -> bool:
 def slot_width(dlo: int, dhi: int) -> int:
     """``Wp``: the slots of a state row whose bands cover diagonals
     ``dlo .. dhi``."""
-    return _ceil_to((dhi - dlo + 1) // 2 + 2, LANES)
+    return ceil_to((dhi - dlo + 1) // 2 + 2, LANES)
 
 
 def checkpoint_bytes(B: int, Wp: int, K: int, CK: int = 256) -> int:
     """Bytes of a traceback batch's checkpoints, ``(Kp / CK, 4, B, Wp)``
     int32 over ``K`` diagonals (the default ``CK`` with traceback)."""
-    return _ceil_to(K, CK) // CK * 4 * B * Wp * 4
+    return ceil_to(K, CK) // CK * 4 * B * Wp * 4
 
 
 def _geometry(dlo: int, dhi: int, n: int, m: int):
@@ -140,8 +136,8 @@ def banded_align_batch(
         Wp, K = _geometry(dlo, dhi, n, m)
         if CK is None:
             CK = 256 if traceback else 512
-        CK = _ceil_to(CK, 4)
-        Kp = _ceil_to(K, CK)
+        CK = ceil_to(CK, 4)
+        Kp = ceil_to(K, CK)
 
         A = table.shape[0]  # letters A and A + 1 are the query/target sentinels
         # out-of-band cells are masked, so the sentinel score never reaches a

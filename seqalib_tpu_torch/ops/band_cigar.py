@@ -6,13 +6,9 @@ matrix copied to the host and run-length encoded there by
 ``band_cigar(ops)`` takes ``ops`` (B, KW) uint8, row b pair b's ops
 (``utils.cigar.OP_M/I/D``) in alignment (start -> end) order, with
 ``OP_PAD`` anywhere (skipped): the ``band_walk`` blocks of a traceback
-joined from the lowest diagonal up.  Returns ``(text, nchar)`` in the
-layout of ``strip_walk``, so that ``strip_walk.cigars_from_text`` decodes
-it:
-
-- ``text`` (B, text_width(KW)) uint8: pair b's CIGAR in ASCII in the last
-  ``nchar[b]`` bytes of row b (the bytes before them are undefined);
-- ``nchar`` (B,) int32: the CIGAR's length (0 for a row of pads alone).
+joined from the lowest diagonal up.  Returns ``(text, nchar)``, the CIGAR
+text of ``utils.cigar`` in rows of ``text_width(KW)`` bytes (``nchar`` 0
+for a row of pads alone).
 
 A CPU tensor runs ``band_cigar_ref``; a CUDA tensor launches the kernel
 (``csrc/band_cigar.cu``: a CTA a row, scanning it from its end and writing
@@ -23,9 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.cigar import op_rows_to_cigars
+from ..utils.cigar import op_rows_to_cigars, pack_text
 from . import launches
-from .strip_walk import pack_text
 
 
 def text_width(KW: int) -> int:

@@ -26,10 +26,8 @@ from __future__ import annotations
 import torch
 
 from ..types import PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP
-from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD
+from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD, ST_E, ST_F, ST_H
 from . import launches
-
-ST_H, ST_E, ST_F = 0, 1, 2
 
 
 def _check(ptr, state, k0):

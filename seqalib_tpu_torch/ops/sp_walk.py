@@ -8,15 +8,16 @@ read one byte of each step of the path.
 pointer tiles: ``P`` (K, C, rows) uint8, tile g covering columns
 ``j0 - g * C + 1 .. j0 - g * C + C`` and rows ``i0 + 1 .. i0 + rows``, the
 byte of cell (row ``i0 + p + 1``, column ``j0 - g * C + c``) at
-``P[g][ptr_index(p, c, C)]``.  From cell (i, j) in ``state`` (``ST_H``,
-``ST_E``, ``ST_F``) it runs the oracle's H/E/F state machine with its byte
-rules (``ops/sp_tile.py``), one op (``utils.cigar.OP_M/I/D``) a move, until
-i reaches the block top ``i0`` or j the batch's left edge
-``j0 - (K - 1) * C``; a byte with no move (``PTR_STOP``) in state H stops
-it with the error flag set.  Returns one uint8 tensor on P's device:
-``HEADER_BYTES`` of int32 (end i, end j, end state, ops walked, error),
-then the ops in walk order, from (i, j) back, in room for rows + K * C of
-them (the bytes past the ops walked are undefined).  ``read_walk`` decodes
+``P[g][ptr_index(p, c, C)]``.  From cell (i, j) in ``state``
+(``utils.cigar.ST_H``, ``ST_E``, ``ST_F``) it runs the oracle's H/E/F
+state machine with its byte rules (``ops/sp_tile.py``), one op
+(``utils.cigar.OP_M/I/D``) a move, until i reaches the block top ``i0`` or
+j the batch's left edge ``j0 - (K - 1) * C``; a byte with no move
+(``PTR_STOP``) in state H stops it with the error flag set.  Returns one
+uint8 tensor on P's device: ``HEADER_BYTES`` of int32 (end i, end j, end
+state, ops walked, error), then the ops in walk order, from (i, j) back,
+in room for rows + K * C of them (the bytes past the ops walked are
+undefined).  ``read_walk`` decodes
 its host copy and raises the ``RuntimeError`` of a byte with no move.
 
 A CPU tensor runs ``sp_walk_ref``; a CUDA tensor launches the kernel
@@ -30,11 +31,10 @@ import numpy as np
 import torch
 
 from ..types import PTR_DIAG, PTR_LEFT, PTR_UP
-from ..utils.cigar import OP_D, OP_I, OP_M
+from ..utils.cigar import OP_D, OP_I, OP_M, ST_E, ST_F, ST_H
 from . import launches
 from .sp_tile import ptr_index
 
-ST_H, ST_E, ST_F = 0, 1, 2
 HEADER_BYTES = 20  # int32: end i, end j, end state, ops walked, error
 
 

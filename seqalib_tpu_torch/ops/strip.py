@@ -50,10 +50,12 @@ from ..scoring import NIBBLE_BIAS, Tables, fits_nibbles
 from ..telemetry import count_d2h
 from ..transfer import host_buffer, to_device, to_host, upload
 from ..types import NEG_INF
+from ..utils import ceil_to
+from ..utils.cigar import cigars_from_text
 from .band_fill import band_fill, band_table
 from .row_window import error_words, raise_on_error, row_window
 from .strip_fill import raise_on_bad_length, strip_fill
-from .strip_walk import cigars_from_text, strip_walk
+from .strip_walk import strip_walk
 
 log = logging.getLogger("seqalib_tpu_torch.strip")
 
@@ -63,10 +65,6 @@ WR_DEFAULT = 4 * TI  # pass-2 row window
 BW_DEFAULT = 64  # banded pass 2: band half-width around the anchor diagonal
 CKB = 64  # banded pass 2: the diagonal count is a multiple of this
 PASS2_ENGINES = ("banded", "strip")
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def pass2_knobs() -> dict:
@@ -81,7 +79,7 @@ def pass2_knobs() -> dict:
     env = os.environ
     return {"pass2": env.get("SEQALIB_FUSED_PASS2", "banded"),
             "tie_safe": env.get("SEQALIB_FUSED_TIE_SAFE", "0") == "1",
-            "WR": _ceil_to(int(env.get("SEQALIB_FUSED_WR", str(WR_DEFAULT))), TI),
+            "WR": ceil_to(int(env.get("SEQALIB_FUSED_WR", str(WR_DEFAULT))), TI),
             "BW": int(env.get("SEQALIB_FUSED_BW", str(BW_DEFAULT)))}
 
 
@@ -119,8 +117,8 @@ def stage_strip(q, t, qlen, tlen, A1: int, device):
     B, n = q.shape
     m = t.shape[1]
     SENT_Q, SENT_T = A1, A1 + 1
-    n_pad = _ceil_to(max(n, 1), TI)
-    W2 = (_ceil_to(max(m, 1), LANES) // LANES + 2) * LANES
+    n_pad = ceil_to(max(n, 1), TI)
+    W2 = (ceil_to(max(m, 1), LANES) // LANES + 2) * LANES
     sizes = [B * n_pad, B * W2, B, B]
     buf = host_buffer(sum(sizes), device)
     qpad, t2, ql, tl = np.split(buf.numpy(), np.cumsum(sizes)[:-1])
@@ -211,8 +209,8 @@ def banded_pass2(qr, tr, qe, te2, score, tables: Tables, *, mq: int, WR: int,
     # not masked in emode and reach BV and EV
     sent = -NIBBLE_BIAS if packed else mismatch
     smax = 15 - NIBBLE_BIAS if packed else max(match, mismatch)
-    Wpb = _ceil_to((2 * BW + 1) // 2 + 2, LANES)
-    Kp = _ceil_to(WR + min(TWD, WR + BW) + 1, CKB)
+    Wpb = ceil_to((2 * BW + 1) // 2 + 2, LANES)
+    Kp = ceil_to(WR + min(TWD, WR + BW) + 1, CKB)
     # 1-based letters: qk[:, x] = qr[:, x - 1]; tr already is
     qk = torch.cat([torch.full((B, 1), A1, dtype=torch.int32, device=dev),
                     qr.to(torch.int32)], 1)
@@ -264,7 +262,7 @@ def local_fused(qpad, t2, qlen, tlen, tables: Tables, *, mq: int, WR: int,
     qr = row_window(qpad, n_pad - qe, qe, L=WR, lo=0, fill=SENT_Q, reverse=True,
                     err=err[0:1])
     # clamped pass-2 target width: data columns 1..TWD plus 2 blocks of slack
-    W2r = min(W2, (_ceil_to(2 * WR, LANES) // LANES + 2) * LANES)
+    W2r = min(W2, (ceil_to(2 * WR, LANES) // LANES + 2) * LANES)
     TWD = W2r - 2 * LANES
     te2 = torch.clamp(te, max=TWD)
     tr = row_window(t2, W2 - 2 - te, te2 + 1, L=W2r, lo=1, fill=SENT_T, reverse=True,
@@ -339,10 +337,10 @@ def reverse_starts(q, t, score, qe, te, tables: Tables, *, Wq0: int):
     while pend.size:
         qe_s = qe[pend].astype(np.int64)
         te_s = te[pend].astype(np.int64)
-        n_pad = min(Wq, _ceil_to(int(qe_s.max()), TI))
+        n_pad = min(Wq, ceil_to(int(qe_s.max()), TI))
         wq = np.minimum(qe_s, n_pad)
         m_sub = int(te_s.max())
-        W2 = (_ceil_to(max(m_sub, 1), LANES) // LANES + 2) * LANES
+        W2 = (ceil_to(max(m_sub, 1), LANES) // LANES + 2) * LANES
         # reversed prefixes: row k <-> q[qe-1-k]; column x <-> t[te-x]
         idx = qe_s[:, None] - 1 - np.arange(n_pad)[None, :]
         qr = np.where(idx >= 0, q[pend[:, None], np.maximum(idx, 0)], SENT_Q)
@@ -445,8 +443,8 @@ def strip_launch(q, t, qlen, tlen, tables: Tables, *, mode: str,
     tlen = np.asarray(tlen).astype(np.int64)
     B, n = q.shape
     m = t.shape[1]
-    n_pad = _ceil_to(max(n, 1), TI)
-    W2 = (_ceil_to(max(m, 1), LANES) // LANES + 2) * LANES
+    n_pad = ceil_to(max(n, 1), TI)
+    W2 = (ceil_to(max(m, 1), LANES) // LANES + 2) * LANES
     per_pair = ptr_bytes_per_pair(n_pad, W2)
     gmode = mode == "global"
     if want_tb and gmode:
@@ -476,7 +474,7 @@ def strip_launch(q, t, qlen, tlen, tables: Tables, *, mode: str,
                        want_ptr=want_tb, err=err)
         finish = global_post(r["bv"], r.get("P"), qlen, tlen, tables, want_tb, err)
     else:
-        WR = _ceil_to(WR, TI)
+        WR = ceil_to(WR, TI)
         fused_tb = want_tb and B * per_pair <= ptr_cap_bytes()
         fused = local_fused_tb if fused_tb else local_fused
         res = fused(qpad, t2, qlen_d, tlen_d, tables, mq=m, WR=WR, pass2=pass2,

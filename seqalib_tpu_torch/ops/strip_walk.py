@@ -4,13 +4,11 @@
 ``strip_walk(P, i, j, st, done, affine=)`` walks every pair's pointer
 matrix ``P`` (B, R, C) uint8 (the layout of ``strip_fill``) from cell
 (i, j) in state ``st`` (0 = H, 1 = E, 2 = F) until i < 1 or j < 1, or a
-STOP pointer in state H.  Returns ``(text, nchar, state)``:
-
-- ``text`` (B, text_width(R, C)) uint8: pair b's CIGAR in ASCII in the
-  last ``nchar[b]`` bytes of row b (the bytes before them are undefined);
-- ``nchar`` (B,) int32: the CIGAR's length, or ``BAD_START`` for a pair
-  whose start cell lies outside P (i > R or j > C), which walks nothing;
-- ``state`` (4, B) int32: the walkers' final i, j, st, done.
+STOP pointer in state H.  Returns ``(text, nchar, state)``: the CIGAR
+text of ``utils.cigar`` in rows of ``text_width(R, C)`` bytes (``nchar``
+``BAD_START`` for a pair whose start cell lies outside P, i > R or j > C,
+which walks nothing), and ``state`` (4, B) int32, the walkers' final i, j,
+st, done.
 
 The CIGAR is the implicit boundary run the walk stopped at (i' > 0: i'
 I ops down column 0, else j' D ops along row 0), then the ops walked in
@@ -21,10 +19,9 @@ the JAX walk's op matrix and final (i', j').
 A CPU tensor runs ``strip_walk_ref`` and refuses a start cell outside P at
 once.  A CUDA tensor launches the kernel (``csrc/strip_walk.cu``) and
 nothing else: no device-to-host sync and no copy, so the range check is
-deferred to ``cigars_from_text``: the caller copies ``nchar`` to the host
-in the copy it makes anyway, and ``cigars_from_text`` copies the used tail
-of ``text``, decodes it and raises the same ``ValueError``.  The kernel
-copies 16-byte segments of P: a CUDA P must start 16-byte aligned.
+deferred to ``cigars_from_text``, which raises the same ``ValueError``
+(the caller copies ``nchar`` to the host in the copy it makes anyway).  The
+kernel copies 16-byte segments of P: a CUDA P must start 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -32,14 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..telemetry import count_d2h
 from ..types import PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP
-from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD, op_rows_to_cigars
-
+from ..utils.cigar import (BAD_START, OP_D, OP_I, OP_M, OP_PAD, ST_E, ST_F, ST_H, bad_start,
+                           op_rows_to_cigars, pack_text)
 from . import launches
-
-ST_H, ST_E, ST_F = 0, 1, 2
-BAD_START = -1  # nchar of a pair whose start cell lies outside P
 
 
 def text_width(R: int, C: int) -> int:
@@ -55,40 +48,6 @@ def _check(P, state):
     for v in state:
         if v.dtype != torch.int32 or v.shape != (B,) or v.device != P.device:
             raise ValueError(f"strip_walk: walker state must be ({B},) int32")
-
-
-def _bad_start(b: int):
-    """The error of a walk whose pair b started outside its pointers P
-    (``strip_walk``'s and ``wavefront_walk``'s)."""
-    return ValueError(f"walk: pair {b}'s start cell lies outside P")
-
-
-def cigars_from_text(text, nchar) -> list[str]:
-    """The CIGARs of a walk from its ``text`` tensor and its ``nchar``,
-    best already on the host (a device tensor costs one more copy): copies
-    only the last max(nchar) bytes of the text rows, and decodes one slice
-    per pair.  Raises ``ValueError`` when a pair's start cell lay outside
-    P."""
-    nchar = torch.as_tensor(nchar)
-    n = nchar.tolist()
-    if min(n, default=0) < 0:
-        raise _bad_start(n.index(BAD_START))
-    W = max(n, default=0)
-    tail = text[:, text.shape[1] - W:].contiguous()
-    raw = tail.cpu().numpy().tobytes()
-    count_d2h(nchar, tail)
-    return [raw[(b + 1) * W - x: (b + 1) * W].decode("ascii") for b, x in enumerate(n)]
-
-
-def pack_text(strings, W: int):
-    """``(text, nchar)`` as NumPy arrays: each string in ASCII at the end of
-    its row of ``text`` (B, W) uint8 (zeros before it), and its length."""
-    text = np.zeros((len(strings), W), np.uint8)
-    nchar = np.empty(len(strings), np.int32)
-    for b, s in enumerate(strings):
-        nchar[b] = len(s)
-        text[b, W - len(s):] = np.frombuffer(s.encode("ascii"), np.uint8)
-    return text, nchar
 
 
 def strip_walk_ref(P, i, j, st, done, *, affine: bool):
@@ -153,7 +112,7 @@ def strip_walk(P, i, j, st, done, *, affine: bool):
     if P.device.type == "cpu":
         bad = ((state[0] > R) | (state[1] > C)).nonzero()
         if len(bad):
-            raise _bad_start(int(bad[0, 0]))
+            raise bad_start(int(bad[0, 0]))
         return strip_walk_ref(P, *state, affine=affine)
     if P.device.type != "cuda":
         raise ValueError(f"strip_walk: unsupported device {P.device}")

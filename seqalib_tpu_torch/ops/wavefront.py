@@ -90,9 +90,10 @@ import torch
 from ..scoring import sentinel_table
 from ..transfer import host_buffer, to_host, upload
 from ..types import NEG_INF, PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP, ScoringParams
+from ..utils import ceil_to
+from ..utils.cigar import cigars_from_text
 from . import launches
 from .strip import ptr_cap_bytes
-from .strip_walk import cigars_from_text
 from .wavefront_walk import wavefront_walk
 
 LANES = 128
@@ -117,10 +118,6 @@ _EXT_E_BIT = 2
 _EXT_F_BIT = 3
 _EXT_BITS = (1 << _EXT_E_BIT) | (1 << _EXT_F_BIT)  # both extend bits
 MODES = ("global", "local")
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def wide_table(sp: ScoringParams) -> np.ndarray:
@@ -514,7 +511,7 @@ def _geometry(q, t):
     K = n + m + 1 (the JAX ``_fill``)."""
     B, n = q.shape
     m = t.shape[1]
-    return B, n, m, _ceil_to(n + 1, LANES), n + m + 1
+    return B, n, m, ceil_to(n + 1, LANES), n + m + 1
 
 
 def _fill_inputs(qpad, tk, q, t, qlen, tlen, sent_q: int, sent_t: int) -> None:

@@ -13,16 +13,11 @@ pointer bits (``p & 3``), no E/F state, as the JAX package's
 ``_host_traceback_linear`` and the linear branch of ``_global_walk``.
 The stream holds the bytes of row 0 and column 0, so a walk ends at (0, 0)
 with no implicit boundary run.  Returns ``(text, nchar, state)`` as
-``strip_walk`` does, so that ``strip_walk.cigars_from_text`` decodes both:
-
-- ``text`` (B, text_width(K)) uint8: pair b's CIGAR in ASCII, the walked
-  ops in start -> end order, run-length encoded, in the last ``nchar[b]``
-  bytes of row b (the bytes before them are undefined);
-- ``nchar`` (B,) int32: the CIGAR's length, or ``BAD_START`` for a pair
-  whose start cell lies outside the stream (i or j < 0, i >= Np or
-  i + j >= K), which walks nothing;
-- ``state`` (4, B) int32: the walkers' final i, j, st, done; the final i
-  and j are the pair's ``qs`` and ``ts``.
+``strip_walk`` does: the CIGAR text of ``utils.cigar`` in rows of
+``text_width(K)`` bytes (``nchar`` ``BAD_START`` for a pair whose start
+cell lies outside the stream, i or j < 0, i >= Np or i + j >= K, which
+walks nothing), and the walkers' final i, j, st, done; the final i and j
+are the pair's ``qs`` and ``ts``.
 
 A walk that would leave the matrix (i or j < 0; the fill's streams never
 lead there) stops at that cell with done = 0.
@@ -41,9 +36,9 @@ import numpy as np
 import torch
 
 from ..types import PTR_DIAG, PTR_STOP, PTR_UP
-from ..utils.cigar import OP_D, OP_I, OP_M, OP_PAD, op_rows_to_cigars
+from ..utils.cigar import (BAD_START, OP_D, OP_I, OP_M, OP_PAD, ST_E, ST_F, ST_H, bad_start,
+                           op_rows_to_cigars, pack_text)
 from . import launches
-from .strip_walk import BAD_START, ST_E, ST_F, ST_H, _bad_start, pack_text
 
 _EXT_E_BIT = 2
 _EXT_F_BIT = 3
@@ -130,7 +125,7 @@ def wavefront_walk(P, i, j, *, affine: bool = True):
     if P.device.type == "cpu":
         bad = _outside(P, i, j).nonzero()
         if len(bad):
-            raise _bad_start(int(bad[0, 0]))
+            raise bad_start(int(bad[0, 0]))
         return wavefront_walk_ref(P, i, j, affine=affine)
     if P.device.type != "cuda":
         raise ValueError(f"wavefront_walk: unsupported device {P.device}")

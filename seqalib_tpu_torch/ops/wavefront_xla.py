@@ -42,8 +42,9 @@ import torch
 from ..scoring import tables_from_params
 from ..transfer import to_host
 from ..types import ScoringParams
+from ..utils import ceil_to
 from .strip import TI, reverse_starts
-from .wavefront import _ceil_to, _geometry, stage_wavefront, wavefront_fill, wavefront_launch
+from .wavefront import _geometry, stage_wavefront, wavefront_fill, wavefront_launch
 
 
 def local_end(bv, bk, N1: int):
@@ -114,7 +115,7 @@ def xla_launch(q, t, qlen, tlen, sp: ScoringParams, *, mode: str, band: int | No
         te = host["te"].astype(np.int64)
         tables = tables_from_params(sp, device)
         # one pass: a window of every query row finds every score
-        qs, ts = reverse_starts(q, t, score, qe, te, tables, Wq0=_ceil_to(max(n, 1), TI))
+        qs, ts = reverse_starts(q, t, score, qe, te, tables, Wq0=ceil_to(max(n, 1), TI))
         out = {"score": score, "qs": qs, "qe": qe.astype(np.int32), "ts": ts,
                "te": te.astype(np.int32)}
         if not want_tb:

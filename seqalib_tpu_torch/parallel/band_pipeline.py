@@ -27,52 +27,33 @@ score or CIGAR).  The query is padded with letter 0, the target with
 ``pad_letter`` (4 for match/mismatch scoring, 0 for a matrix), and padded
 rows and columns never feed cell (n, m).
 
-``nw_affine_align_sp`` keeps, for every tile, the boundary it was computed
-from, and walks back from (n, m).  Entering a tile it has no pointers for,
-it recomputes in one launch (``ops.sp_tile_ptr``) that tile and the tiles
-to its left in the same block, as many as ``PTR_BATCH_BYTES`` allows, on
-the rows above the entry cell only (the walk never goes down), and walks
-that batch on its block's device (``ops.sp_walk``) until the path leaves
-it: only the ops walked and the walk's end (cell and state) come back to
-the host, which starts the next batch from there.  The walk never returns
-to a tile it has left; tiles it skips by going up a block are dropped.
+``nw_affine_align_sp`` keeps one record a block of the boundaries its
+tiles were computed from, and walks back from (n, m).  Entering a tile it
+has no pointers for, it recomputes in one launch (``ops.sp_tile_ptr``), from
+slices of the record, that tile and the tiles to its left in the same
+block, as many as ``PTR_BATCH_BYTES`` allows, on the rows above the entry
+cell only (the walk never goes down), and walks that batch on its block's
+device (``ops.sp_walk``) until the path leaves it: only the ops walked and
+the walk's end (cell and state) come back to the host, which starts the
+next batch from there.  The walk never returns to a tile it has left;
+tiles it skips by going up a block are dropped.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import numpy as np
 import torch
 
+from ..devices import Mesh, device_mesh, one_device
 from ..ops.sp_tile import NEG, sp_tile_ptr, sp_tile_run
-from ..ops.sp_walk import ST_H, read_walk, sp_walk
+from ..ops.sp_walk import read_walk, sp_walk
 from ..telemetry import count_d2h, span
 from ..types import AlignResult
-from ..utils.cigar import OP_D, OP_I, OP_M, ops_to_cigar
+from ..utils import ceil_to
+from ..utils.cigar import OP_D, OP_I, ST_H, ops_to_cigar, rescore_global_affine
 
-Mesh = Tuple[torch.device, ...]
 # pointer bytes (tiles x rows x C) one recompute launch of the walk may make
 PTR_BATCH_BYTES = 64 * 1024**2
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def device_mesh(devices=None, who: str = "make_band_mesh") -> Mesh:
-    """A mesh: the given devices in order, or every visible CUDA device
-    (raises when there is none).  ``who`` names the caller in errors."""
-    from ..api import _device
-
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"{who}: no CUDA device; pass devices=")
-        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
-    mesh = tuple(_device(d) for d in devices)
-    if not mesh:
-        raise ValueError(f"{who}: a mesh needs at least one device")
-    return mesh
 
 
 def make_band_mesh(devices=None) -> Mesh:
@@ -82,16 +63,18 @@ def make_band_mesh(devices=None) -> Mesh:
 
 
 def _sp_fill(q, t, sp, mesh: Mesh, C, sp_sub, want_tb, local=False):
-    """The pipeline fill.  Returns (score, geom), with ``want_tb`` also the
-    per-tile boundaries ``ckpt[(d, tt)] = (H_top, F_top, Hcol, Ecol)``.
-    ``sp_sub`` sets the kernel's strip height to ``sp_sub * 128`` rows."""
+    """The pipeline fill.  Returns (score, geom), with ``want_tb`` also
+    block d's record ``bounds[d]`` on its device: its T tiles' top rows,
+    H (T, C + 1, the left corner first) and F (T, C), and left columns, H
+    and E (T, R).  ``sp_sub`` sets the kernel's strip height to
+    ``sp_sub * 128`` rows."""
     with span("seqalib.sp.stage"):
         q = np.asarray(q)
         t = np.asarray(t)
         n, m = len(q), len(t)
         D = len(mesh)
-        R = max(1, _ceil_to(n, D) // D)
-        n_tiles = max(1, _ceil_to(m, C) // C)
+        R = max(1, ceil_to(n, D) // D)
+        n_tiles = max(1, ceil_to(m, C) // C)
         pad_letter = 0 if sp.matrix is not None else 4
         q_pad = np.zeros(D * R, np.int32)
         q_pad[:n] = q
@@ -123,11 +106,11 @@ def _sp_fill(q, t, sp, mesh: Mesh, C, sp_sub, want_tb, local=False):
             h = torch.zeros_like(jc) if local else torch.where(jc == 0, 0, o + jc * e)
             return h, torch.full((W,), NEG, dtype=torch.int32, device=dev)
 
-        one = _one_device(mesh)
+        one = one_device(mesh)
         if one:  # block by block: the first block's top row
             pkt = init_top(0, n_tiles * C, mesh[0])
 
-    ckpt = {}
+    bounds = []
     if one:  # block by block, each block's tiles in one run
         for d in range(D):
             h_top, f_top = pkt
@@ -138,13 +121,15 @@ def _sp_fill(q, t, sp, mesh: Mesh, C, sp_sub, want_tb, local=False):
                 pkt = (torch.cat([hcols[d][R - 1:], out["hbot"]]), out["fbot"])
                 caps[d] = out["cap"]
             if want_tb:
+                # a tile's left column is the right column of the tile before
                 with span("seqalib.sp.checkpoint"):
-                    for tt in range(n_tiles):
-                        x = tt * C
-                        left = ((hcols[d], ecols[d]) if tt == 0 else
-                                (out["hcols"][tt - 1], out["ecols"][tt - 1]))
-                        ckpt[(d, tt)] = (h_top[x: x + C + 1], f_top[x: x + C], *left)
+                    bounds.append((h_top.unfold(0, C + 1, C), f_top.view(n_tiles, C),
+                                   torch.cat([hcols[d][None], out["hcols"][:-1]]),
+                                   torch.cat([ecols[d][None], out["ecols"][:-1]])))
     else:
+        if want_tb:
+            bounds = [[torch.empty((n_tiles, w), dtype=torch.int32, device=dev)
+                       for w in (C + 1, C, R, R)] for dev in mesh]
         with span("seqalib.sp.fill"):
             pkts = [None] * D  # the packet each block takes at this step
             for s in range(n_tiles + D - 1):
@@ -156,7 +141,8 @@ def _sp_fill(q, t, sp, mesh: Mesh, C, sp_sub, want_tb, local=False):
                     j0 = tt * C
                     h_top, f_top = init_top(j0, C, dev) if d == 0 else pkts[d]
                     if want_tb:
-                        ckpt[(d, tt)] = (h_top, f_top, hcols[d], ecols[d])
+                        for x, v in zip(bounds[d], (h_top, f_top, hcols[d], ecols[d])):
+                            x[tt] = v
                     out = sp_tile_run(qbs[d], tks[d][j0: j0 + C + 1], h_top, f_top, hcols[d],
                                       ecols[d], caps[d], tabs[d], i0=d * R, j0=j0, **kw)
                     if d + 1 < D:  # corner H(i0 + R, j0), then the bottom rows
@@ -169,12 +155,7 @@ def _sp_fill(q, t, sp, mesh: Mesh, C, sp_sub, want_tb, local=False):
         score = max(int(c) for c in caps)
         count_d2h(*caps)
     geom = dict(R=R, C=C, qb=qbs, tk=tks, tab=tabs, kw=kw)
-    return (score, geom, ckpt) if want_tb else (score, geom)
-
-
-def _one_device(mesh: Mesh) -> bool:
-    """Whether every entry of the mesh names the same device."""
-    return len(set(mesh)) == 1
+    return (score, geom, bounds) if want_tb else (score, geom)
 
 
 def nw_affine_score_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None) -> int:
@@ -200,22 +181,24 @@ def sw_affine_score_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None) -
     return max(0, score)
 
 
-def _ptr_tiles(geom, ckpt, d, tt, i, j, state):
+def _ptr_tiles(geom, bounds, d, tt, i, j, state):
     """Block d's tiles tt, tt - 1, ... (as many as ``PTR_BATCH_BYTES`` takes)
-    recomputed from their boundaries as pointer tiles in one launch on the
-    block's device, on the rows down to i, and walked there from cell
-    (i, j) in ``state`` until the path leaves them (``sp_walk``).  Returns
-    ``read_walk`` of the walk: its end cell and state, and its ops.  (The
-    JAX package caches a jitted function for the recompute; eager PyTorch
-    needs no cache.)"""
+    recomputed from their boundaries (slices of ``bounds[d]``) as pointer
+    tiles in one launch on the block's device, on the rows down to i, and
+    walked there from cell (i, j) in ``state`` until the path leaves them
+    (``sp_walk``).  Returns ``read_walk`` of the walk: its end cell and
+    state, and its ops.  (The JAX package caches a jitted function for the
+    recompute; eager PyTorch needs no cache.)"""
     C, R = geom["C"], geom["R"]
     i0, rows = d * R, i - d * R
     K = max(1, min(tt + 1, PTR_BATCH_BYTES // (rows * C)))
     with span("seqalib.sp.ptr_batch"):
         with span("seqalib.sp.ptr_launch"):
-            tiles = [ckpt[(d, tt - g)] for g in range(K)]
-            htop, ftop, hcol, ecol = (torch.stack([b[x] if x < 2 else b[x][:rows]
-                                                   for b in tiles]) for x in range(4))
+            # tiles tt - K + 1 .. tt, reversed: tile g = 0 is tt
+            tiles = slice(tt - K + 1, tt + 1)
+            top_h, top_f, left_h, left_e = bounds[d]
+            htop, ftop = top_h[tiles].flip(0), top_f[tiles].flip(0)
+            hcol, ecol = left_h[tiles, :rows].flip(0), left_e[tiles, :rows].flip(0)
             dev = hcol.device
             cap = torch.full((1,), NEG, dtype=torch.int32, device=dev)
             kw = {k: v for k, v in geom["kw"].items() if k != "mode"}
@@ -229,32 +212,6 @@ def _ptr_tiles(geom, ckpt, d, tt, i, j, state):
             end.copy_(walk)
             count_d2h(walk)
     return read_walk(end.numpy())
-
-
-def _rescore_global_affine(q, t, ops, sp) -> int:
-    """Score a global alignment given as a CIGAR op list (verification)."""
-    if sp.matrix is not None:
-        tbl = np.asarray(sp.substitution_matrix())
-        _subst = lambda a, b: int(tbl[a, b])  # noqa: E731
-    else:
-        _subst = lambda a, b: sp.match if a == b else sp.mismatch  # noqa: E731
-    i = j = s = 0
-    prev = None
-    for op in ops:
-        if op == OP_M:
-            s += _subst(int(q[i]), int(t[j]))
-            i += 1
-            j += 1
-        else:
-            s += sp.gap_extend + (sp.gap_open if op != prev else 0)
-            if op == OP_I:
-                i += 1
-            else:
-                j += 1
-        prev = op
-    if i != len(q) or j != len(t):  # survives python -O
-        raise RuntimeError("CIGAR must consume both sequences")
-    return s
 
 
 def nw_affine_align_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None):
@@ -272,17 +229,17 @@ def nw_affine_align_sp(q, t, sp, mesh: Mesh, C: int = 128, sp_sub: int = None):
         score = 0 if n == m else sp.gap_open + max(n, m) * sp.gap_extend
         return AlignResult(int(score), 0, n, 0, m,
                            (f"{m}D" if m else "") if n == 0 else f"{n}I")
-    score, geom, ckpt = _sp_fill(q, t, sp, mesh, C, sp_sub, want_tb=True)
+    score, geom, bounds = _sp_fill(q, t, sp, mesh, C, sp_sub, want_tb=True)
     with span("seqalib.sp.walk"):
-        ops = _sp_walk(geom, ckpt, n, m)
+        ops = _sp_walk(geom, bounds, n, m)
     with span("seqalib.sp.rescore"):
-        walked = _rescore_global_affine(q, t, ops, sp)
+        walked = rescore_global_affine(q, t, ops, sp)
         if walked != score:  # not an assert: must survive python -O
             raise RuntimeError(f"SP traceback rescore {walked} != fill score {score}")
         return AlignResult(int(score), 0, n, 0, m, ops_to_cigar(ops))
 
 
-def _sp_walk(geom, ckpt, n: int, m: int) -> list:
+def _sp_walk(geom, bounds, n: int, m: int) -> list:
     """The CIGAR ops of the path from (n, m) back to (0, 0), in order: a
     pointer batch at a time until the path reaches row 0 or column 0, then
     the rest of that row or column."""
@@ -290,7 +247,7 @@ def _sp_walk(geom, ckpt, n: int, m: int) -> list:
     ops: list = []
     i, j, state = n, m, ST_H
     while i > 0 and j > 0:
-        i, j, state, walked = _ptr_tiles(geom, ckpt, (i - 1) // R, (j - 1) // C, i, j, state)
+        i, j, state, walked = _ptr_tiles(geom, bounds, (i - 1) // R, (j - 1) // C, i, j, state)
         ops.extend(walked)
     ops.extend([OP_D] * j if i == 0 else [OP_I] * i)
     ops.reverse()

@@ -41,21 +41,18 @@ import os
 import numpy as np
 import torch
 
+from ..devices import Mesh
 from ..models.banded import banded_matrix_supported
 from ..ops.band_fill import LANES, band_fill, band_table, bout_width
 from ..ops.band_walk import band_walk
 from ..scoring import NIBBLE_BIAS
 from ..telemetry import count_d2h
 from ..types import NEG_INF, AlignResult, ScoringParams
-from ..utils.cigar import OP_D, OP_PAD, ops_to_cigar
-from .band_pipeline import Mesh, _rescore_global_affine
+from ..utils import ceil_to
+from ..utils.cigar import OP_D, OP_PAD, ops_to_cigar, rescore_global_affine
 
 GB = 8  # pairs per relay group (the TPU kernel's sublane-aligned batch)
 PTR_CAP = 2 * 1024**3  # default SEQALIB_SP_PTR_CAP: pointer bytes of one block
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def _is_single(q) -> bool:
@@ -79,13 +76,13 @@ def _sp_setup(qs, ts, sp: ScoringParams, band: int, mesh: Mesh, CK: int):
     Dband = dhi_g - dlo_g + 1
     n = int(qlen.max())
     D = len(mesh)
-    R = max(1, _ceil_to(n, D) // D)
+    R = max(1, ceil_to(n, D) // D)
     Kloc = 2 * R + Dband
-    Kp = _ceil_to(Kloc, CK)
-    Wp = _ceil_to(Dband // 2 + 2, LANES)
+    Kp = ceil_to(Kloc, CK)
+    Wp = ceil_to(Dband // 2 + 2, LANES)
     Wb = bout_width(dlo_g, dhi_g) + 2 * LANES  # the TPU kernel's aligned-block slack
-    WQL = _ceil_to(R + Dband // 2 + Wp + 2, LANES) + 2 * LANES
-    WTL = _ceil_to(Kp + 2, LANES) + 2 * LANES
+    WQL = ceil_to(R + Dband // 2 + Wp + 2, LANES) + 2 * LANES
+    WTL = ceil_to(Kp + 2, LANES) + 2 * LANES
 
     table = sp.substitution_matrix()
     if sp.matrix is not None and not banded_matrix_supported(table):
@@ -96,7 +93,7 @@ def _sp_setup(qs, ts, sp: ScoringParams, band: int, mesh: Mesh, CK: int):
         )
     A = int(table.shape[0])  # letters A and A + 1: the query and target sentinels
     sent = -NIBBLE_BIAS if sp.matrix is not None else sp.mismatch
-    NG = _ceil_to(B0, GB) // GB
+    NG = ceil_to(B0, GB) // GB
     qg = np.full((NG, GB, (D - 1) * R + WQL), A, np.int32)
     tg = np.full((NG, GB, (D - 1) * R + WTL), A + 1, np.int32)
     # pad slots: empty pairs with a zero band; they start the walk done
@@ -305,7 +302,7 @@ def banded_nw_affine_align_sp(q, t, sp: ScoringParams, band: int, mesh: Mesh,
                                    f"i={int(i_fin[b])}, j={j_glob})")
             path = [OP_D] * j_glob + [int(v) for v in row]
             score = int(scores[idx])
-            walked = _rescore_global_affine(qs[x], ts[x], path, sp)
+            walked = rescore_global_affine(qs[x], ts[x], path, sp)
             if walked != score:  # not an assert: survives python -O
                 raise RuntimeError(f"banded-SP traceback rescore {walked} != relay "
                                    f"score {score}")

@@ -45,8 +45,8 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
+from ..devices import H100_SMS, Mesh, sm_count
 from ..models.banded import (banded_align_batch, banded_matrix_supported, checkpoint_bytes,
                              slot_width)
 from ..ops.band_fill import MAX_WP_REGISTERS, fill_geometry
@@ -56,11 +56,9 @@ from ..ops.wavefront_xla import xla_launch
 from ..scoring import tables_from_params
 from ..telemetry import span
 from ..types import AlignResult, ScoringParams
-from .band_pipeline import Mesh
 from .dist import refuse_multiprocess, strip_sharded, wavefront_sharded
 
 MIN_BUCKET = 16
-H100_SMS = 132
 JOIN_BYTES = 8 * 1024**3  # a join keeps a banded batch's checkpoints within this
 
 
@@ -126,15 +124,6 @@ def run_bucket(q, t, qlen, tlen, sp: ScoringParams, mode: str, band: Optional[in
     return finish if launch_only else finish()
 
 
-def _sm_count(device) -> int:
-    """SMs of ``device`` on a card; off a card an H100's, so that a run on
-    the CPU batches as the card would."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        return torch.cuda.get_device_properties(dev).multi_processor_count
-    return H100_SMS
-
-
 def banded_batches(qlens: List[int], tlens: List[int], band: int, sms: int = H100_SMS,
                    cards: int = 1) -> List[List[int]]:
     """The pairs' indices, by ``banded_align_batch`` call, for pairs of
@@ -193,7 +182,7 @@ def dispatch_banded(qs: List[np.ndarray], ts: List[np.ndarray], sp: ScoringParam
     if mesh is not None:
         refuse_multiprocess("banded route")
     cards = 1 if mesh is None else len(mesh)
-    sms = _sm_count(device if mesh is None else mesh[0])
+    sms = sm_count(device if mesh is None else mesh[0])
     parts: List[List[int]] = []
     for idxs in banded_batches([len(q) for q in qs], [len(t) for t in ts], band, sms, cards):
         if mesh is None or len(idxs) == 1:

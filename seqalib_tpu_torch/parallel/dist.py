@@ -38,11 +38,11 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..devices import Mesh, device_mesh
 from ..ops.strip import pass2_knobs, strip_launch
 from ..ops.wavefront_xla import xla_launch
 from ..scoring import tables_from_params
 from ..types import ScoringParams
-from .band_pipeline import Mesh, device_mesh
 
 FIELDS = ("score", "qs", "qe", "ts", "te")
 # the default process group and the gloo group made for it: one entry

@@ -4,17 +4,27 @@ M = both consumed (match or mismatch), I = query consumed (gap in target),
 D = target consumed (gap in query): SAM semantics with query = rows,
 target = reference.  Kernels emit fixed-width op arrays (the op codes
 below, padded with OP_PAD); this module run-length-encodes them to
-strings and back.  Everything but ``op_rows_to_cigars`` is a copy of the
-JAX package's ``seqalib_tpu/utils/cigar.py``; ``op_rows_to_cigars``
-encodes a whole op matrix at once (the port's engines call it) and is held
-equal to ``ops_to_cigar`` by ``tests/test_torch_copies.py``.
+strings and back.
+
+The op codes, ``ops_to_cigar``, ``cigar_to_ops``, ``cigar_consumed``,
+``transpose_cigar`` and ``rescore_global_affine`` are copies of the JAX
+package's (``rescore_global_affine`` of ``parallel/band_pipeline.py``), held
+to it by ``tests/test_torch_copies.py``.  The port's own: the walkers'
+states ``ST_*``, ``op_rows_to_cigars`` (a whole op matrix at once), and the
+CIGAR text its kernels write: each CIGAR in ASCII at the end of its row of
+``text`` (B, W) uint8, its length in ``nchar`` (``BAD_START``: the walk
+started outside its pointers), built by ``pack_text`` on the host and
+decoded by ``cigars_from_text``.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ..telemetry import count_d2h
 
 OP_M = 0
 OP_I = 1
@@ -23,6 +33,9 @@ OP_PAD = 255
 
 OP_CHARS = "MID"
 _CHAR_TO_OP = {c: i for i, c in enumerate(OP_CHARS)}
+
+ST_H, ST_E, ST_F = 0, 1, 2
+BAD_START = -1  # nchar of a walk whose start cell lies outside its pointers
 
 
 def ops_to_cigar(ops: Sequence[int]) -> str:
@@ -122,3 +135,62 @@ def op_rows_to_cigars(ops: np.ndarray, head_op=None, head_len=None) -> List[str]
     pieces = [f"{n}{OP_CHARS[op]}" for n, op in zip(run_lens.tolist(), run_ops.tolist())]
     bounds = np.searchsorted(rows, np.arange(ops.shape[0] + 1)).tolist()
     return ["".join(pieces[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def bad_start(b: int):
+    """The error of a walk whose pair b started outside its pointers."""
+    return ValueError(f"walk: pair {b}'s start cell lies outside P")
+
+
+def pack_text(strings, W: int):
+    """``(text, nchar)`` as NumPy arrays: each string in ASCII at the end of
+    its row of ``text`` (B, W) uint8 (zeros before it), and its length."""
+    text = np.zeros((len(strings), W), np.uint8)
+    nchar = np.empty(len(strings), np.int32)
+    for b, s in enumerate(strings):
+        nchar[b] = len(s)
+        text[b, W - len(s):] = np.frombuffer(s.encode("ascii"), np.uint8)
+    return text, nchar
+
+
+def cigars_from_text(text, nchar) -> list[str]:
+    """The CIGARs of a walk from its ``text`` tensor and its ``nchar``,
+    best already on the host (a device tensor costs one more copy): copies
+    only the last max(nchar) bytes of the text rows, and decodes one slice
+    per pair.  Raises ``ValueError`` when a pair's start cell lay outside
+    its pointers."""
+    nchar = torch.as_tensor(nchar)
+    n = nchar.tolist()
+    if min(n, default=0) < 0:
+        raise bad_start(n.index(BAD_START))
+    W = max(n, default=0)
+    tail = text[:, text.shape[1] - W:].contiguous()
+    raw = tail.cpu().numpy().tobytes()
+    count_d2h(nchar, tail)
+    return [raw[(b + 1) * W - x: (b + 1) * W].decode("ascii") for b, x in enumerate(n)]
+
+
+def rescore_global_affine(q, t, ops, sp) -> int:
+    """Score a global alignment given as a CIGAR op list (verification)."""
+    if sp.matrix is not None:
+        tbl = np.asarray(sp.substitution_matrix())
+        _subst = lambda a, b: int(tbl[a, b])  # noqa: E731
+    else:
+        _subst = lambda a, b: sp.match if a == b else sp.mismatch  # noqa: E731
+    i = j = s = 0
+    prev = None
+    for op in ops:
+        if op == OP_M:
+            s += _subst(int(q[i]), int(t[j]))
+            i += 1
+            j += 1
+        else:
+            s += sp.gap_extend + (sp.gap_open if op != prev else 0)
+            if op == OP_I:
+                i += 1
+            else:
+                j += 1
+        prev = op
+    if i != len(q) or j != len(t):  # survives python -O
+        raise RuntimeError("CIGAR must consume both sequences")
+    return s

@@ -12,10 +12,9 @@ from seqalib_tpu_torch.models import banded
 from seqalib_tpu_torch.oracle import nw_affine
 from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops.band_cigar import band_cigar, text_width
-from seqalib_tpu_torch.ops.strip_walk import cigars_from_text
 from seqalib_tpu_torch.scoring import scoring_params
-from seqalib_tpu_torch.utils.cigar import (OP_D, OP_I, OP_M, OP_PAD, op_rows_to_cigars,
-                                          ops_to_cigar)
+from seqalib_tpu_torch.utils.cigar import (OP_D, OP_I, OP_M, OP_PAD, cigars_from_text,
+                                          op_rows_to_cigars, ops_to_cigar)
 
 
 def _rows(*rows):

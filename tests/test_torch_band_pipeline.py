@@ -27,6 +27,7 @@ from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops import sp_walk as sp_walk_mod
 from seqalib_tpu_torch.parallel import band_pipeline as pbp
 from seqalib_tpu_torch.scoring import scoring_params
+from seqalib_tpu_torch.utils.cigar import rescore_global_affine
 
 JSP = JaxScoringParams(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
 JBLOSUM = JaxScoringParams.blosum62()
@@ -208,7 +209,7 @@ def test_make_band_mesh():
 
 def test_rescore_rejects_a_cigar_that_does_not_consume():
     with pytest.raises(RuntimeError, match="consume"):
-        pbp._rescore_global_affine(np.zeros(3), np.zeros(3), [0, 0], _psp(JSP))
+        rescore_global_affine(np.zeros(3), np.zeros(3), [0, 0], _psp(JSP))
 
 
 @pytest.mark.parametrize("D", [2, 8])
@@ -216,7 +217,7 @@ def test_rescore_rejects_a_cigar_that_does_not_consume():
 def test_per_step_pipeline_matches_jax_and_oracle(name, D, monkeypatch):
     """The pipeline of distinct devices (one tile a launch per block and
     step, packets handed down) on meshes of one device."""
-    monkeypatch.setattr(pbp, "_one_device", lambda mesh: False)
+    monkeypatch.setattr(pbp, "one_device", lambda mesh: False)
     q, t, jsp, C, _, sub = SCORE_CASES[name]
     _, oracle = _jax_score(name)
     assert st.align_score_sp(q, t, _psp(jsp), _mesh(D), C=C, sp_sub=sub) == oracle
@@ -231,7 +232,7 @@ def test_per_step_pipeline_matches_jax_and_oracle(name, D, monkeypatch):
 @pytest.mark.parametrize("D", [1, 2])
 @pytest.mark.parametrize("name", ["400x520_C128", "gap_runs"])
 def test_per_step_pipeline_align_matches_jax_and_oracle(name, D, monkeypatch):
-    monkeypatch.setattr(pbp, "_one_device", lambda mesh: False)
+    monkeypatch.setattr(pbp, "one_device", lambda mesh: False)
     q, t, jsp, C, _, sub = ALIGN_CASES[name]
     jax_str, oracle = _jax_align(name)
     assert str(st.align_sp(q, t, _psp(jsp), _mesh(D), C=C, sp_sub=sub)) == oracle == jax_str
@@ -258,15 +259,20 @@ def _count_ptr_batches(monkeypatch):
     return calls, walks
 
 
+@pytest.mark.parametrize("fill", ["block_by_block", "per_step"])
 @pytest.mark.parametrize("D", [1, 2, 8])
 @pytest.mark.parametrize("name", ["400x520_C128", "blosum62_200x240", "gap_runs",
                                   "m_below_C_40x7"])
-def test_pointer_batches_give_the_same_alignment(name, D, monkeypatch):
+def test_pointer_batches_give_the_same_alignment(name, D, fill, monkeypatch):
     """The walk's recompute with a budget of one tile a launch (K = 1) and
     the default (K > 1): the same result, and batches make fewer launches
     than tiles walked.  Each batch is walked once (``sp_walk``, its plain
     version here), from where the last walk ended, until the path leaves it
-    at the block top or the batch's left edge."""
+    at the block top or the batch's left edge.  Both fills build the
+    boundary record the batches are cut from: block by block (one device)
+    and the per-step pipeline of distinct devices (forced)."""
+    if fill == "per_step":
+        monkeypatch.setattr(pbp, "one_device", lambda mesh: False)
     q, t, jsp, C, _, sub = ALIGN_CASES[name]
     jax_str, oracle = _jax_align(name)
     calls, walks = _count_ptr_batches(monkeypatch)

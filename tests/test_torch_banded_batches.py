@@ -21,6 +21,7 @@ import seqalib_tpu_torch as st
 from seqalib_tpu.oracle_fast import align_oracle
 from seqalib_tpu.types import ScoringParams as JaxScoringParams
 from seqalib_tpu_torch import telemetry
+from seqalib_tpu_torch.devices import H100_SMS
 from seqalib_tpu_torch.models.banded import checkpoint_bytes, slot_width
 from seqalib_tpu_torch.ops.band_fill import MAX_WP_REGISTERS
 from seqalib_tpu_torch.parallel import dispatch
@@ -175,7 +176,7 @@ def test_a_call_of_more_pairs_than_sms_splits_at_the_sms(monkeypatch):
     would), and every answer is exact."""
     cuts = [1, 9, 17, 25, 33] * 28
     qs, ts = _reads(27, cuts, lengths=(60, 81))
-    assert len(qs) > dispatch.H100_SMS and len(_groups(qs, ts)) == 5
+    assert len(qs) > H100_SMS and len(_groups(qs, ts)) == 5
     batches = dispatch.banded_batches(*_lens(qs, ts), BAND)
     assert len(batches) == 2 and [len(b) for b in batches] == [112, 28]
     calls = _calls(monkeypatch)

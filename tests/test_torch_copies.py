@@ -133,8 +133,8 @@ def test_host_traceback_affine_is_the_same():
     from seqalib_tpu.ops.wavefront_pallas import _host_traceback_affine as jax_walk
     from seqalib_tpu.utils.cigar import OP_PAD
     from seqalib_tpu_torch.ops import wavefront as port_wf
-    from seqalib_tpu_torch.ops.strip_walk import cigars_from_text
     from seqalib_tpu_torch.ops.wavefront_walk import wavefront_walk_ref
+    from seqalib_tpu_torch.utils.cigar import cigars_from_text
 
     rng = np.random.default_rng(2)
     jsp, sp = _both(jt.ScoringParams(gap_open=-5, gap_extend=-2,
@@ -158,7 +158,7 @@ def test_host_traceback_affine_is_the_same():
 
 def test_rescore_global_affine_is_the_same():
     from seqalib_tpu.parallel.band_pipeline import _rescore_global_affine as jax_rescore
-    from seqalib_tpu_torch.parallel.band_pipeline import _rescore_global_affine as port
+    from seqalib_tpu_torch.utils.cigar import rescore_global_affine as port
 
     q, t = np.array([0, 1, 2, 3, 1]), np.array([0, 2, 2, 3])
     for name in ("dna_affine", "blosum62"):

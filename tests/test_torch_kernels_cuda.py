@@ -41,13 +41,13 @@ from seqalib_tpu_torch.ops.sp_walk import HEADER_BYTES as SP_WALK_HEADER
 from seqalib_tpu_torch.ops.sp_walk import read_walk, sp_walk, sp_walk_ref
 from seqalib_tpu_torch.ops.strip import prep_strip
 from seqalib_tpu_torch.ops.strip_fill import strip_fill, strip_fill_ref
-from seqalib_tpu_torch.ops import strip_walk as sw_mod
 from seqalib_tpu_torch.ops.strip_walk import strip_walk, strip_walk_ref
 from seqalib_tpu_torch.ops.wavefront import (wavefront_fill, wavefront_fill_ref,
                                              wavefront_inputs)
 from seqalib_tpu_torch.ops.wavefront_walk import wavefront_walk, wavefront_walk_ref
 from seqalib_tpu_torch.scoring import scoring_params, tables_from_params
 from seqalib_tpu_torch.types import NEG_INF
+from seqalib_tpu_torch.utils import cigar as cigar_mod
 from seqalib_tpu_torch.utils.cigar import op_rows_to_cigars
 from test_torch_band_cigar import CASES as BAND_CIGAR_CASES
 
@@ -221,10 +221,10 @@ def test_strip_walk_defers_its_range_check_to_the_host_copy(dev, monkeypatch):
     j = torch.tensor([41, 5, 42], dtype=torch.int32, device=dev)
     z = torch.zeros_like(i)
     text, nchar, state = strip_walk(P, i, j, z, z, affine=False)
-    assert nchar.tolist() == [len("1D40M"), sw_mod.BAD_START, sw_mod.BAD_START]
+    assert nchar.tolist() == [len("1D40M"), cigar_mod.BAD_START, cigar_mod.BAD_START]
     assert state[:2, 1:].tolist() == [[41, 7], [5, 42]]
     with pytest.raises(ValueError, match="pair 1's start cell lies outside P"):
-        sw_mod.cigars_from_text(text, nchar)
+        cigar_mod.cigars_from_text(text, nchar)
     from seqalib_tpu_torch.ops import strip as strip_mod
 
     real = strip_mod.strip_walk
@@ -485,7 +485,7 @@ def test_band_cigar_kernel_matches_plain_version(dev, case, offset):
     assert launches["band_cigar"] == before + 1
     want = band_cigar_ref(ops)
     _same_text(got, want)
-    assert sw_mod.cigars_from_text(*got) == op_rows_to_cigars(ops.numpy())
+    assert cigar_mod.cigars_from_text(*got) == op_rows_to_cigars(ops.numpy())
 
 
 def test_band_cigar_kernel_on_a_real_walks_joined_blocks(dev):
@@ -511,7 +511,7 @@ def test_band_cigar_kernel_on_a_real_walks_joined_blocks(dev):
     assert launches["band_cigar"] == before + 1
     _same_text(got, band_cigar_ref(joined.cpu()))
     flipped = torch.cat([b.flip(1) for b in blocks], dim=1).cpu().numpy()
-    assert sw_mod.cigars_from_text(*got) == op_rows_to_cigars(flipped[:, ::-1])
+    assert cigar_mod.cigars_from_text(*got) == op_rows_to_cigars(flipped[:, ::-1])
 
 
 @pytest.mark.parametrize("Wp", WPS)
@@ -791,7 +791,7 @@ def _same_walk_text(got, want):
     torch.cuda.synchronize()
     text, nchar, state = got
     assert torch.equal(nchar, want[1]) and torch.equal(state, want[2])
-    assert sw_mod.cigars_from_text(text, nchar.cpu()) == sw_mod.cigars_from_text(
+    assert cigar_mod.cigars_from_text(text, nchar.cpu()) == cigar_mod.cigars_from_text(
         want[0], want[1].cpu())
 
 
@@ -891,10 +891,10 @@ def test_wavefront_walk_defers_its_range_check_and_refuses_unaligned_streams(dev
     j = torch.tensor([40, 0, K - 3], dtype=torch.int32, device=dev)
     got = wavefront_walk(P, i, j)
     want = wavefront_walk_ref(P, i, j)
-    assert got[1].tolist() == want[1].tolist() and got[1][1] == sw_mod.BAD_START
+    assert got[1].tolist() == want[1].tolist() and got[1][1] == cigar_mod.BAD_START
     assert torch.equal(got[2], want[2])
     with pytest.raises(ValueError, match="pair 1's start cell lies outside P"):
-        sw_mod.cigars_from_text(got[0], got[1].cpu())
+        cigar_mod.cigars_from_text(got[0], got[1].cpu())
     with pytest.raises(ValueError, match="16-byte aligned"):
         wavefront_walk(P[:, :, :40], i * 0, j * 0)
 
@@ -1647,7 +1647,7 @@ def test_wavefront_walk_linear_kernel_matches_plain_version(dev, scoring):
         _same_walk_text(got, wavefront_walk_ref(P, ql, tl, affine=False))
     # the linear walk of the clean stream is the oracle's CIGAR
     text, nchar, _ = wavefront_walk(ptr, ql, tl, affine=False)
-    cig = sw_mod.cigars_from_text(text, nchar)
+    cig = cigar_mod.cigars_from_text(text, nchar)
     for b in range(4):
         want = oracle_fast.align_oracle(q[b, : qlen[b]].astype(np.uint8),
                                         t[b, : tlen[b]].astype(np.uint8),

@@ -323,6 +323,33 @@ def test_cuda_device_without_a_card_raises():
         st.align_batch(["ACGT"], ["AGT"])
 
 
+def test_devices_is_a_leaf_and_band_pipeline_imports_no_api():
+    """Imports point one way: ``devices.py`` imports nothing of the package,
+    the long-pair module (``parallel/band_pipeline.py``) nothing of ``api``,
+    and no module under ``parallel/`` takes its mesh from that module."""
+    import ast
+
+    pkg = REPO / "seqalib_tpu_torch"
+
+    def imports(path):
+        out = []
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom):
+                out.append(("." * node.level + (node.module or ""),
+                            [a.name for a in node.names]))
+            elif isinstance(node, ast.Import):
+                out += [(a.name, []) for a in node.names]
+        return out
+
+    assert not [m for m, _ in imports(pkg / "devices.py")
+                if m.startswith(".") or m.split(".")[0] == "seqalib_tpu_torch"]
+    assert not [m for m, _ in imports(pkg / "parallel" / "band_pipeline.py")
+                if m.split(".")[-1] == "api"]
+    for path in sorted((pkg / "parallel").glob("*.py")):
+        assert not [m for m, names in imports(path)
+                    if m.endswith("band_pipeline") and "Mesh" in names], path
+
+
 def test_port_never_imports_jax():
     # neither jax nor any module of the JAX package, after a local call, a
     # banded global call (both banded routes), both sequence-parallel ones,

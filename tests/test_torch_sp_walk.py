@@ -12,10 +12,9 @@ import torch
 
 from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops.sp_tile import ptr_index
-from seqalib_tpu_torch.ops.sp_walk import (HEADER_BYTES, ST_E, ST_F, ST_H, out_bytes,
-                                           read_walk, sp_walk)
+from seqalib_tpu_torch.ops.sp_walk import HEADER_BYTES, out_bytes, read_walk, sp_walk
 from seqalib_tpu_torch.types import PTR_DIAG, PTR_LEFT, PTR_UP
-from seqalib_tpu_torch.utils.cigar import OP_D, OP_I, OP_M
+from seqalib_tpu_torch.utils.cigar import OP_D, OP_I, OP_M, ST_E, ST_F, ST_H
 
 
 def _dense(P):

@@ -18,9 +18,9 @@ from seqalib_tpu.types import PTR_DIAG, PTR_LEFT, PTR_STOP, PTR_UP, ScoringParam
 from seqalib_tpu_torch.ops import strip as strip_mod
 from seqalib_tpu_torch.ops.strip import prep_strip, strip_bucket
 from seqalib_tpu_torch.ops.strip_fill import strip_fill
-from seqalib_tpu_torch.ops.strip_walk import (BAD_START, cigars_from_text, strip_walk,
-                                              strip_walk_ref, text_width)
+from seqalib_tpu_torch.ops.strip_walk import strip_walk, strip_walk_ref, text_width
 from seqalib_tpu_torch.scoring import scoring_params, tables_from_params
+from seqalib_tpu_torch.utils.cigar import BAD_START, cigars_from_text
 
 B, N, M = 8, 150, 170
 SCORINGS = {

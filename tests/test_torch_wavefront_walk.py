@@ -41,14 +41,13 @@ from seqalib_tpu.utils.cigar import OP_PAD, ops_to_cigar
 from seqalib_tpu_torch.ops import launches
 from seqalib_tpu_torch.ops import wavefront as wf_mod
 from seqalib_tpu_torch.ops import wavefront_xla as xla_mod
-from seqalib_tpu_torch.ops.strip_walk import BAD_START, cigars_from_text
 from seqalib_tpu_torch.ops.wavefront import (wavefront_fill_ref, wavefront_inputs,
                                              wavefront_launch)
 from seqalib_tpu_torch.ops.wavefront_walk import (text_width, wavefront_walk,
                                                   wavefront_walk_ref)
 from seqalib_tpu_torch.parallel import dispatch
 from seqalib_tpu_torch.scoring import scoring_params
-from seqalib_tpu_torch.utils.cigar import op_rows_to_cigars
+from seqalib_tpu_torch.utils.cigar import BAD_START, cigars_from_text, op_rows_to_cigars
 
 BAND = 6
 WIDE = np.where(np.eye(4, dtype=bool), 20, -20).astype(np.int32)
